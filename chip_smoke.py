@@ -1,0 +1,355 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, train.
+
+    python3 chip_smoke.py
+
+Drives the port's main path, bench.py's chain training step, at full
+width: the flagship configs/cnn_tdnn.xconfig with random weights from
+seed 0, the 7052-state phone-LM den graph (F = 3526 chains, T_out = 49),
+B = 128 sequences of 150 frames.  Phases, one line of numbers each:
+
+  1. device   the card (nvidia-smi name and power limit); TF32 off
+  2. build    nvcc builds the CUDA kernels from kaldi_fp16_tpu_torch/csrc
+  3. kernel   den_matmul against its plain version and float64, timed
+  4. den      production-scale den forward-backward, kernel vs plain path;
+              a small den against the float64 oracle
+  5. small    a narrow fp32 train step on the card against the CPU
+  6. train    1 warm-up + 5 timed flagship train steps through the kernel
+  7. summary  the kernels' JSON line, then {"ok": true, "device": ...}
+
+Any failure raises and exits non-zero: there is no CPU path and no
+fallback.  Needs one card, nvcc, no network and no JAX.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from kaldi_fp16_tpu_torch.chain.den_layout import analyze_chain_structure
+from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
+from kaldi_fp16_tpu_torch.chain.graph import (
+    LOG_ZERO, DenominatorGraph, NumeratorGraphBatch, make_phone_lm_den_fst,
+)
+from kaldi_fp16_tpu_torch.chain.objective import ChainTrainingOpts
+from kaldi_fp16_tpu_torch.chain.reference import (
+    denominator_forward_backward_ref,
+)
+from kaldi_fp16_tpu_torch.convert import params_to_numpy
+from kaldi_fp16_tpu_torch.models.model import (
+    build_model, build_model_from_string,
+)
+from kaldi_fp16_tpu_torch.ops import _build
+from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul, den_matmul_plain
+from kaldi_fp16_tpu_torch.training.train_step import (
+    TrainConfig, init_train_state, make_train_step,
+)
+
+ROOT = Path(__file__).resolve().parent
+B, T_IN, P, AN = 128, 150, 3080, 256
+LEFT = STRIDE = 3
+T_OUT = (T_IN - LEFT + STRIDE - 1) // STRIDE          # 49
+FP64_RTOL = 3e-6                 # tests/test_pallas_den_matmul.py:46-48
+LOGP_RTOL, POST_RTOL, POST_ATOL = 2e-5, 2e-4, 2e-6    # ibid. :94-97
+KERNEL_REPLACES = "kaldi_fp16_tpu/ops/pallas_den_matmul.py:95"
+# fp32 card vs CPU: summation order only, through two SGD steps
+SMALL_RTOL = 1e-4
+# the flagship's layer types at narrow widths (tests/test_torch_train_step.py)
+SMALL_XCONFIG = """
+input name=ivector dim=10
+input name=input dim=8
+idct-layer name=idct input=input dim=8 cepstral-lifter=22
+batchnorm-component name=idct-batchnorm input=idct
+linear-component name=ivector-linear l2-regularize=0.03 dim=16 input=ReplaceIndex(ivector, t, 0)
+batchnorm-component name=ivector-batchnorm target-rms=0.025
+combine-feature-maps-layer name=combine_inputs input=Append(idct-batchnorm, ivector-batchnorm) num-filters1=1 num-filters2=2 height=8
+conv-relu-batchnorm-layer name=cnn1 height-in=8 height-out=8 time-offsets=-1,0,1 height-offsets=-1,0,1 num-filters-out=4
+conv-relu-batchnorm-layer name=cnn2 height-in=8 height-out=4 height-subsample-out=2 time-offsets=-1,0,1 height-offsets=-1,0,1 num-filters-out=6
+tdnnf-layer name=tdnnf3 dim=24 bottleneck-dim=8 time-stride=0
+tdnnf-layer name=tdnnf4 dim=24 bottleneck-dim=8 time-stride=3
+prefinal-layer name=prefinal-l input=tdnnf4 big-dim=20 small-dim=12
+prefinal-layer name=prefinal-chain input=prefinal-l big-dim=20 small-dim=12
+output-layer name=output include-log-softmax=false dim=24
+prefinal-layer name=prefinal-xent input=prefinal-l big-dim=20 small-dim=12
+output-layer name=output-xent dim=24
+"""
+
+
+def phase(phase_name, **numbers):
+    print(json.dumps({"phase": phase_name, **numbers}), flush=True)
+
+
+def cuda_ms(fn, iters):
+    """Mean device milliseconds of `iters` back-to-back calls (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_rel(out, ref):
+    return float(np.max(np.abs(out.astype(np.float64) - ref)
+                        / (np.abs(ref) + 1e-8)))
+
+
+def device_phase():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                         "is False); the port's smoke run needs a GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmul precision must stay 'highest'")
+    phase("device", name=torch.cuda.get_device_name(0),
+          count=torch.cuda.device_count(), nvidia_smi=card,
+          torch=torch.__version__, cuda=torch.version.cuda)
+    return torch.device("cuda", 0)
+
+
+def build_phase():
+    t0 = time.perf_counter()
+    lib_path, compile_s = _build.build()
+    _build.library()
+    phase("build", compile_s=compile_s, total_s=time.perf_counter() - t0,
+          library=str(lib_path.relative_to(ROOT)))
+
+
+def kernel_phase(dev, layout):
+    M = layout.M
+    F = M.shape[0]
+    v = np.random.default_rng(1).random((F, B)).astype(np.float32)
+    dm = DenMatmul(M, dev)
+    vd = torch.from_numpy(v).to(dev)
+    M64, v64 = M.astype(np.float64), v.astype(np.float64)
+    result = {"F": F, "n": B}
+    worst_abs = 0.0
+    times = {"kernel": [], "plain": []}
+    for transpose in (False, True):
+        ref = (M64.T if transpose else M64) @ v64
+        out = dm.apply(vd, transpose)
+        plain = den_matmul_plain(dm.M, vd, transpose)
+        torch.cuda.synchronize()
+        rel = max_rel(out.cpu().numpy(), ref)
+        rel_plain = max_rel(plain.cpu().numpy(), ref)
+        worst_abs = max(worst_abs, float((out - plain).abs().max()))
+        tag = "MT" if transpose else "M"
+        result[f"max_rel_err_fp64_{tag}"] = rel
+        result[f"plain_max_rel_err_fp64_{tag}"] = rel_plain
+        if not rel <= FP64_RTOL:
+            raise AssertionError(f"den_matmul ({tag}) rel err {rel} > "
+                                 f"{FP64_RTOL} against float64")
+        # plain, kernel, kernel, plain: 2*T back-to-back applications each
+        for name in ("plain", "kernel", "kernel", "plain"):
+            fn = ((lambda: dm.apply(vd, transpose)) if name == "kernel"
+                  else (lambda: den_matmul_plain(dm.M, vd, transpose)))
+            fn()
+            times[name].append(cuda_ms(fn, 2 * T_OUT))
+    result["max_abs_err_vs_plain"] = worst_abs
+    result["kernel_us"] = 1e3 * float(np.mean(times["kernel"]))
+    result["plain_us"] = 1e3 * float(np.mean(times["plain"]))
+    phase("kernel", **result)
+    return result
+
+
+def den_phase(dev, graph):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((B, T_OUT, P), generator=gen, device=dev)
+    den_k = DenominatorComputation(graph, leaky=1e-5, device=dev)
+    den_p = DenominatorComputation(graph, leaky=1e-5, matmul_impl="plain",
+                                   device=dev)
+    before = DenMatmul.launches
+    lp_k, post_k = den_k.forward_backward(x)
+    torch.cuda.synchronize()
+    launches = DenMatmul.launches - before
+    if launches != 2 * T_OUT:
+        raise AssertionError(f"den forward-backward launched den_matmul "
+                             f"{launches} times, expected {2 * T_OUT}")
+    lp_p, post_p = den_p.forward_backward(x)
+    lp_r, post_r = den_k.forward_backward(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(lp_r, lp_k) and torch.equal(post_r, post_k)):
+        raise AssertionError("den forward-backward repeats differ")
+    if not (torch.isfinite(lp_k).all() and torch.isfinite(post_k).all()):
+        raise AssertionError("den output not finite")
+    torch.testing.assert_close(lp_k, lp_p, rtol=LOGP_RTOL, atol=0)
+    torch.testing.assert_close(post_k, post_p, rtol=POST_RTOL, atol=POST_ATOL)
+    ms = {"kernel": [], "plain": []}
+    for name, den in (("plain", den_p), ("kernel", den_k), ("kernel", den_k),
+                      ("plain", den_p)):
+        ms[name].append(cuda_ms(lambda: den.forward_backward(x), 1))
+
+    # the same code on a small graph against the float64 oracle
+    small = DenominatorGraph.from_fst(
+        make_phone_lm_den_fst(24, 13, 2, 4, seed=3), 24)
+    xs = np.random.default_rng(3).normal(size=(4, 9, 24)).astype(np.float32)
+    lp_s, post_s = DenominatorComputation(small, leaky=1e-5, device=dev) \
+        .forward_backward(torch.from_numpy(xs).to(dev))
+    for b in range(xs.shape[0]):
+        rlp, rpost = denominator_forward_backward_ref(small, xs[b], leaky=1e-5)
+        np.testing.assert_allclose(lp_s[b].item(), rlp, rtol=LOGP_RTOL)
+        np.testing.assert_allclose(post_s[b].cpu().numpy(), rpost,
+                                   rtol=POST_RTOL, atol=POST_ATOL)
+    phase("den", B=B, T=T_OUT, P=P, launches=launches, bit_identical=True,
+          logp_max_rel_vs_plain=float(((lp_k - lp_p).abs()
+                                       / lp_p.abs()).max()),
+          post_max_abs_vs_plain=float((post_k - post_p).abs().max()),
+          kernel_ms=float(np.mean(ms["kernel"])),
+          plain_ms=float(np.mean(ms["plain"])), small_vs_fp64="ok")
+    del post_k, post_p, post_r, x
+    return den_k
+
+
+def bench_num_graph(n_seq, n_frames, n_arcs, n_pdfs, rng):
+    """bench.py:134-144: a linear supervision chain of exactly n_frames
+    arcs, tiled with parallel alternative-pdf arcs up to n_arcs, so the
+    final state is reached and the numerator is finite."""
+    Sn = n_frames + 1
+    arcs = np.arange(n_arcs, dtype=np.int32) % n_frames
+    return NumeratorGraphBatch(
+        arc_src=np.tile(arcs, (n_seq, 1)),
+        arc_dst=np.tile(arcs + 1, (n_seq, 1)),
+        arc_pdf=rng.integers(0, n_pdfs, size=(n_seq, n_arcs)).astype(np.int32),
+        arc_logw=np.zeros((n_seq, n_arcs), np.float32),
+        arc_mask=np.ones((n_seq, n_arcs), np.float32),
+        start=np.zeros(n_seq, np.int32),
+        final_logw=np.where(np.arange(Sn)[None, :] == Sn - 1, 0.0,
+                            LOG_ZERO).astype(np.float32).repeat(n_seq, 0),
+        num_states=Sn, num_arcs=n_arcs)
+
+
+def small_step_phase(dev):
+    """Two fp32 train steps of a narrow flagship-shaped model on the card
+    against the same steps on the CPU (where the port runs the plain
+    versions): the card's path (cuDNN convs, the kernel, the recursions)
+    must agree with the CPU reference to summation-order noise."""
+    n_seq, t_in, n_pdfs = 4, 30, 24
+    t_out = (t_in - LEFT + STRIDE - 1) // STRIDE
+    rng = np.random.default_rng(5)
+    model = build_model_from_string(SMALL_XCONFIG)
+    graph = DenominatorGraph.from_fst(
+        make_phone_lm_den_fst(n_pdfs, 13, 2, 4, seed=3), n_pdfs)
+    num_graph = bench_num_graph(n_seq, t_out, 2 * t_out, n_pdfs, rng)
+    config = TrainConfig(learning_rate=0.01, momentum=0.9,
+                         frame_subsampling_factor=STRIDE, left_context=LEFT,
+                         compute_dtype="float32")
+    batch = {"features": rng.normal(size=(n_seq, t_in, 8)).astype(np.float32),
+             "ivectors": rng.normal(size=(n_seq, 10)).astype(np.float32)}
+    outs, params = {}, {}
+    for tag, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        # the same CPU generator initialises both copies identically
+        net, opt, scale = init_train_state(
+            model, torch.Generator().manual_seed(0), config, device=d)
+        step = make_train_step(
+            model, net, DenominatorComputation(graph, leaky=1e-5, device=d),
+            num_graph, ChainTrainingOpts(), config, num_frames_out=t_out)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        for _ in range(2):
+            opt, scale, out = step(opt, scale, b)
+        outs[tag] = out
+        params[tag] = params_to_numpy(net)[0]
+    worst = {}
+    for name in ("loss", "grad_norm", "param_change_norm"):
+        a = float(getattr(outs["card"], name))
+        r = float(getattr(outs["cpu"], name))
+        np.testing.assert_allclose(a, r, rtol=SMALL_RTOL, err_msg=name)
+        worst[name] = abs(a - r) / abs(r)
+    for lname, p in params["cpu"].items():
+        for pname, w in p.items():
+            np.testing.assert_allclose(params["card"][lname][pname], w,
+                                       rtol=SMALL_RTOL, atol=1e-5,
+                                       err_msg=f"{lname}/{pname}")
+    phase("small_step_vs_cpu", B=n_seq, T_in=t_in,
+          loss=float(outs["card"].loss), rel_diff=worst)
+
+
+def train_phase(dev, den):
+    rng = np.random.default_rng(0)
+    model = build_model(str(ROOT / "configs" / "cnn_tdnn.xconfig"))
+    num_graph = bench_num_graph(B, T_OUT, AN, P, rng)
+    config = TrainConfig(learning_rate=1e-3, momentum=0.9,
+                         frame_subsampling_factor=STRIDE, left_context=LEFT)
+    net, opt, scale = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), config, device=dev)
+    step = make_train_step(model, net, den, num_graph, ChainTrainingOpts(),
+                           config, num_frames_out=T_OUT)
+    batch = {
+        "features": torch.from_numpy(
+            rng.normal(size=(B, T_IN, 40)).astype(np.float32)).to(dev),
+        "ivectors": torch.from_numpy(
+            rng.normal(size=(B, 100)).astype(np.float32)).to(dev),
+        "weights": torch.ones(B, device=dev),
+    }
+    spec_gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: every kernel count starts at 0 here
+    DenMatmul.launches = 0
+    step_ms, losses = [], []
+    for i in range(6):
+        before = DenMatmul.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt, scale, out = step(opt, scale, batch, generator=spec_gen)
+        end.record()
+        end.synchronize()
+        loss, num_lp = float(out.loss), float(out.num_logprob)
+        if not (np.isfinite(loss) and num_lp > -1e20 and bool(out.ok)
+                and not bool(out.skipped)):
+            raise AssertionError(f"step {i}: loss={loss} num_logprob={num_lp}"
+                                 f" ok={bool(out.ok)} skipped="
+                                 f"{bool(out.skipped)} (containment or skip)")
+        if DenMatmul.launches - before != 2 * T_OUT:
+            raise AssertionError(f"step {i} launched den_matmul "
+                                 f"{DenMatmul.launches - before} times")
+        losses.append(loss)
+        if i > 0:                       # step 0 is the warm-up
+            step_ms.append(start.elapsed_time(end))
+    launches = DenMatmul.launches
+    mean_ms = float(np.mean(step_ms))
+    phase("train", B=B, T_in=T_IN, T_out=T_OUT, timed_steps=len(step_ms),
+          step_ms=mean_ms, step_ms_each=step_ms, losses=losses,
+          train_audio_sec_per_s_per_chip=B * T_IN / 100.0 / (mean_ms / 1e3),
+          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+          den_matmul_launches=launches)
+    return launches
+
+
+def main():
+    dev = device_phase()
+    build_phase()
+    graph = DenominatorGraph.from_fst(make_phone_lm_den_fst(num_pdfs=P), P)
+    layout = analyze_chain_structure(graph)
+    if layout is None or layout.F != 3526 or graph.num_states != 7052:
+        raise AssertionError("phone-LM den graph did not decompose as "
+                             "expected (7052 states, F=3526)")
+    k = kernel_phase(dev, layout)
+    den = den_phase(dev, graph)
+    small_step_phase(dev)
+    launches = train_phase(dev, den)
+    print(json.dumps({"kernels": [{
+        "name": "den_matmul", "route": "cuda",
+        "source": "kaldi_fp16_tpu_torch/csrc/den_matmul.cu",
+        "replaces": KERNEL_REPLACES, "launches": launches,
+        "max_abs_err": k["max_abs_err_vs_plain"],
+        "ms": k["kernel_us"] / 1e3, "plain_ms": k["plain_us"] / 1e3}]}),
+        flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

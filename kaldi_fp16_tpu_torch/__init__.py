@@ -1,0 +1,15 @@
+"""kaldi_fp16_tpu_torch — the PyTorch and CUDA port of kaldi_fp16_tpu.
+
+The JAX package beside it is the reference: every module here has a
+counterpart of the same name there, and tests/test_torch_*.py run both
+on the same numpy inputs.  This package imports torch and never jax; of
+the JAX package it uses only the jax-free `kaldi_fp16_tpu.io`.
+
+  models/    xconfig -> layers -> nn.Module network (bf16 compute, fp32 masters)
+  chain/     LF-MMI objective: numerator, structured denominator, autograd
+  ops/       hand-written CUDA kernels (csrc/) with their plain versions
+  training/  SGD with max-change, loss scaling, orthonormal constraint, step
+  convert.py JAX parameter trees <-> the port's state_dict
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,652 @@
+"""The xconfig network on PyTorch: fp32 master weights, bf16 compute.
+
+Port of kaldi_fp16_tpu/models/network.py for the flagship layer set:
+idct, batchnorm, SpecAugment, the ivector linear (ReplaceIndex input),
+combine-feature-maps, conv-relu-batchnorm (direct and cut-conv
+lowerings), tdnnf, relu-batchnorm, prefinal and the output heads.  Not
+ported yet: the attention layer and the patch conv lowering (irregular
+offset grids), which raise NotImplementedError, and the natural-gradient
+taps.
+
+Layouts follow the JAX package at every public boundary: activations are
+[B, T, D] with a feature map's column = height * num_filters + filter
+(filter fastest), and matmul weights are [in, out].  Only the conv
+weights differ: the JAX package stores them HWIO-flattened
+[kt * kh * nf_in, nf_out]; here they are OIHW [nf_out, nf_in, kt, kh], as
+F.conv2d takes them (convert.py maps between the two).
+
+BatchNorm follows Kaldi BatchNormComponent: batch statistics over
+(batch, time) in fp32 while training, a Chan merge into the running
+statistics, target-rms scaling, no learnable scale or offset.  `forward`
+does not write the running statistics: it returns them, and the caller
+commits them with `set_bn_state` (the train step keeps the old ones on a
+skipped, non-finite batch).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kaldi_fp16_tpu_torch.models.layers import (
+    CombineFeatureMapsSpec, ConvReluBNSpec, Layer, SpecAugmentSpec, TDNNFSpec,
+)
+from kaldi_fp16_tpu_torch.models.model import Model
+from kaldi_fp16_tpu_torch.models.xconfig import InputType, LayerType
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+State = Dict[str, dict]
+
+
+# ---------------------------------------------------------------------------
+# Fixed matrices and parameter layouts
+# ---------------------------------------------------------------------------
+
+def make_idct_matrix(dim: int, cepstral_lifter: float) -> np.ndarray:
+    """IDCT matrix used as x @ M ([in=cepstra, out=mel] orientation), with
+    the cepstral lifter divided out on the contraction index (network.py
+    of the JAX package documents the two bugs this shape avoids)."""
+    mat = np.zeros((dim, dim), dtype=np.float64)
+    for i in range(dim):          # cepstral (contraction) index
+        lc = 1.0
+        if cepstral_lifter > 0 and i > 0:
+            lc = 1.0 + (cepstral_lifter / 2.0) * math.sin(
+                math.pi * i / cepstral_lifter)
+        norm = math.sqrt((1.0 if i == 0 else 2.0) / dim)
+        for j in range(dim):      # output mel-bin index
+            mat[i, j] = norm * math.cos(math.pi * i * (j + 0.5) / dim) / lc
+    return mat.astype(np.float32)
+
+
+def conv_weight_to_oihw(w: torch.Tensor, spec: ConvReluBNSpec) -> torch.Tensor:
+    """JAX layout [kt*kh*nf_in, nf_out] (HWIO, time-major offsets) ->
+    [nf_out, nf_in, kt, kh]."""
+    kt, kh = len(spec.time_offsets), len(spec.height_offsets)
+    return (w.reshape(kt, kh, spec.num_filters_in, spec.num_filters_out)
+            .permute(3, 2, 0, 1).contiguous())
+
+
+def conv_weight_from_oihw(w: torch.Tensor, spec: ConvReluBNSpec) -> torch.Tensor:
+    """Inverse of conv_weight_to_oihw."""
+    return w.permute(2, 3, 1, 0).reshape(-1, spec.num_filters_out)
+
+
+def _bn_dims(layer: Layer) -> Dict[str, int]:
+    """BatchNorm state slots of a layer: name -> dim (the JAX state tree)."""
+    s, t = layer.spec, layer.type
+    if t == LayerType.BATCHNORM:
+        return {"bn": s.dim}
+    if t in (LayerType.CONV_RELU_BATCHNORM, LayerType.TDNNF,
+             LayerType.RELU_BATCHNORM, LayerType.ATTENTION_RELU_BATCHNORM):
+        return {"bn": s.output_dim}
+    if t == LayerType.PREFINAL:
+        return {"bn1": s.big_dim, "bn2": s.small_dim}
+    return {}
+
+
+def _init_layer(layer: Layer, generator: torch.Generator,
+                device) -> Dict[str, torch.Tensor]:
+    """fp32 parameters of one layer in the port's layout: Xavier-normal
+    weights, zero biases, the fixed IDCT matrix (network.py:103-144)."""
+    s, t = layer.spec, layer.type
+
+    def xavier(fan_in, fan_out):
+        scale = math.sqrt(2.0 / (fan_in + fan_out))
+        w = torch.randn((fan_in, fan_out), generator=generator,
+                        device=generator.device, dtype=torch.float32)
+        return (w * scale).to(device)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.float32, device=device)
+
+    if t == LayerType.IDCT:
+        return {"idct": torch.as_tensor(
+            make_idct_matrix(s.dim, s.cepstral_lifter), device=device)}
+    if t == LayerType.LINEAR:
+        return {"w": xavier(s.input_dim, s.output_dim)}
+    if t == LayerType.CONV_RELU_BATCHNORM:
+        k = len(s.offsets) * s.num_filters_in
+        return {"w": conv_weight_to_oihw(xavier(k, s.num_filters_out), s),
+                "b": zeros(s.num_filters_out)}
+    if t == LayerType.TDNNF:
+        m = 2 if s.time_stride > 0 else 1
+        return {"linear_w": xavier(s.input_dim * m, s.bottleneck_dim),
+                "affine_w": xavier(s.bottleneck_dim * m, s.output_dim),
+                "affine_b": zeros(s.output_dim)}
+    if t == LayerType.RELU_BATCHNORM:
+        return {"w": xavier(s.input_dim, s.output_dim),
+                "b": zeros(s.output_dim)}
+    if t == LayerType.PREFINAL:
+        return {"big_w": xavier(s.input_dim, s.big_dim),
+                "big_b": zeros(s.big_dim),
+                "small_w": xavier(s.big_dim, s.small_dim)}
+    if t == LayerType.OUTPUT:
+        return {"w": xavier(s.input_dim, s.output_dim),
+                "b": zeros(s.output_dim)}
+    if t == LayerType.ATTENTION_RELU_BATCHNORM:
+        raise NotImplementedError(
+            f"{layer.name}: attention is not ported to PyTorch yet")
+    return {}
+
+
+def trainable_mask(model: Model, params: Params) -> Dict[str, Dict[str, bool]]:
+    """False for fixed matrices (idct), True for everything else."""
+    mask = {}
+    for lname, p in params.items():
+        layer = model.layer_map.get(lname)
+        fixed = layer is not None and layer.type == LayerType.IDCT
+        mask[lname] = {k: not fixed for k in p}
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Primitive blocks
+# ---------------------------------------------------------------------------
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """x @ w with both operands in the compute dtype; fp32 result."""
+    return torch.matmul(x.to(dtype), w.to(dtype)).float()
+
+
+def _batchnorm(x: torch.Tensor, st: dict, target_rms: float, epsilon: float,
+               train: bool) -> Tuple[torch.Tensor, dict]:
+    """Kaldi BatchNormComponent: stats over (batch, time), target-rms scale.
+    Returns (normalised x in x.dtype, new running statistics)."""
+    xf = x.float()
+    if train:
+        mean = xf.mean(dim=(0, 1))
+        var = torch.clamp(xf.var(dim=(0, 1), unbiased=False), min=0.0)
+        with torch.no_grad():
+            n = float(x.shape[0] * x.shape[1])
+            old_n = st["count"]
+            count = old_n + n
+            delta = mean.detach() - st["mean"]
+            new_mean = st["mean"] + delta * (n / count)
+            # parallel-variance (Chan) merge: keeps the running var equal to
+            # E[x^2] - E[x]^2 over all frames seen, as Kaldi's sums do
+            new_var = (old_n * st["var"] + n * var.detach()
+                       + delta * delta * old_n * n / count) / count
+        new_state = {"count": count, "mean": new_mean, "var": new_var}
+    else:
+        mean, var = st["mean"], st["var"]
+        new_state = st
+    scale = target_rms * torch.rsqrt(var + epsilon)
+    return ((xf - mean) * scale).to(x.dtype), new_state
+
+
+def _shift_time(x: torch.Tensor, offset: int, mode: str) -> torch.Tensor:
+    """x[:, t] := x[:, t + offset]; out of range per mode ('zero'|'clamp')."""
+    if offset == 0:
+        return x
+    T = x.shape[1]
+    k = abs(offset)
+    if mode == "zero":
+        fill = torch.zeros_like(x[:, :1]).expand(-1, k, *x.shape[2:])
+        if offset > 0:
+            return torch.cat([x[:, offset:], fill], dim=1)
+        return torch.cat([fill, x[:, :T + offset]], dim=1)
+    if offset > 0:
+        return torch.cat([x[:, offset:],
+                          x[:, -1:].expand(-1, k, *x.shape[2:])], dim=1)
+    return torch.cat([x[:, :1].expand(-1, k, *x.shape[2:]),
+                      x[:, :T + offset]], dim=1)
+
+
+def _splice(x: torch.Tensor, offsets, mode: str) -> torch.Tensor:
+    """Concat time-shifted copies along the feature axis."""
+    return torch.cat([_shift_time(x, o, mode) for o in offsets], dim=-1)
+
+
+def _even_spacing(offsets) -> Optional[int]:
+    """Common difference of an ascending arithmetic offset sequence, or
+    None if irregular (single offset -> 1)."""
+    if len(offsets) == 1:
+        return 1
+    d = offsets[1] - offsets[0]
+    if d <= 0 or any(offsets[i + 1] - offsets[i] != d
+                     for i in range(len(offsets) - 1)):
+        return None
+    return d
+
+
+def _direct_conv_ok(spec: ConvReluBNSpec) -> bool:
+    return (_even_spacing(spec.time_offsets) is not None
+            and _even_spacing(spec.height_offsets) is not None
+            and min(spec.time_offsets) <= 0
+            and min(spec.height_offsets) <= 0 <= max(spec.height_offsets))
+
+
+# ---------------------------------------------------------------------------
+# Layer forwards
+# ---------------------------------------------------------------------------
+
+def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
+                      x: torch.Tensor, train: bool, dtype,
+                      grid_cut=None) -> Tuple[torch.Tensor, dict]:
+    """Convolution over (time, height) as one F.conv2d: dilation encodes
+    evenly spaced offsets, stride the height subsample (network.py:354-406).
+    x: [B, T, H_in * nf_in], filter fastest.
+
+    grid_cut=(stride, offset, n_grid) is the cut conv: full-rate input,
+    output only at frames offset + j*stride, via a time-strided window;
+    equal to the full-rate conv at those frames (same zero padding).
+
+    F.conv2d pads symmetrically, so the asymmetric padding is applied
+    explicitly first."""
+    if not _direct_conv_ok(spec):
+        raise NotImplementedError(
+            "conv with irregular offsets (patch lowering) is not ported yet")
+    B, T, _ = x.shape
+    H_in, H_out = spec.height_in, spec.height_out
+    nf_in, nf_out = spec.num_filters_in, spec.num_filters_out
+    sub = spec.height_subsample
+    h_offs, t_offs = spec.height_offsets, spec.time_offsets
+    pad_lo = max(0, -min(h_offs))
+    pad_hi = max(0, (H_out - 1) * sub + max(h_offs) - (H_in - 1))
+    t_lo, t_hi = -min(t_offs), max(t_offs)
+    dilation = (_even_spacing(t_offs), _even_spacing(h_offs))
+
+    xs = x.reshape(B, T, H_in, nf_in).to(dtype).permute(0, 3, 1, 2)  # NCHW
+    xpad = F.pad(xs, (pad_lo, pad_hi, t_lo, t_hi))
+    w = p["w"].to(dtype)
+    if grid_cut is not None:
+        g_stride, g_offset, n_grid = grid_cut
+        need = (n_grid - 1) * g_stride + (t_hi + t_lo + 1)
+        out = F.conv2d(xpad[:, :, g_offset:g_offset + need], w,
+                       stride=(g_stride, sub), dilation=dilation)
+        T = n_grid
+    else:
+        out = F.conv2d(xpad, w, stride=(1, sub), dilation=dilation)
+    out = out[:, :, :T, :H_out].float() + p["b"].float()[None, :, None, None]
+    out = torch.relu(out).permute(0, 2, 3, 1)          # [B, T, H_out, nf_out]
+    out = out.reshape(B, T, H_out * nf_out).to(dtype)  # filter fastest
+    return _batchnorm(out, bn, spec.target_rms, 1e-3, train)
+
+
+def _fwd_tdnnf(spec: TDNNFSpec, p: dict, bn: dict, x: torch.Tensor,
+               train: bool, dtype) -> Tuple[torch.Tensor, dict]:
+    """splice[-s,0] -> linear -> splice[0,+s] -> affine -> relu -> bn ->
+    bypass (clamped edges)."""
+    s = spec.time_stride
+    lin_in = _splice(x, (-s, 0), "clamp") if s > 0 else x
+    bottleneck = _matmul(lin_in, p["linear_w"], dtype).to(dtype)
+    aff_in = _splice(bottleneck, (0, s), "clamp") if s > 0 else bottleneck
+    out = _matmul(aff_in, p["affine_w"], dtype) + p["affine_b"].float()
+    out = torch.relu(out).to(dtype)
+    out, new_bn = _batchnorm(out, bn, spec.target_rms, 1e-3, train)
+    if spec.bypass_scale > 0 and spec.input_dim == spec.output_dim:
+        # the scale is rounded to the compute dtype first, as in JAX
+        out = out + x.new_tensor(spec.bypass_scale, dtype=out.dtype) * x
+    return out, new_bn
+
+
+def spec_augment_masks(spec: SpecAugmentSpec, B: int, T: int,
+                       generator: torch.Generator, device=None):
+    """Draw SpecAugment keep-masks: (freq_keep [B, D] bool or None,
+    time_keep [B, T] bool or None).  Same distributions as the JAX
+    package (network.py:485-509): one frequency band of width uniform in
+    [0, freq_max_proportion * D], and time masks covering about
+    time_zeroed_proportion of the frames."""
+    D = spec.dim
+    gdev = generator.device
+
+    def randint(high, size):
+        return torch.randint(0, high, size, generator=generator,
+                             device=gdev).to(device)
+
+    f_keep = t_keep = None
+    max_w = int(spec.freq_max_proportion * D)
+    if max_w > 0:
+        width = randint(max_w + 1, (B,))
+        start = randint(D, (B,))
+        f_idx = torch.arange(D, device=device)[None, :]
+        f_keep = ~((f_idx >= start[:, None])
+                   & (f_idx < (start + width)[:, None]))
+    if spec.time_zeroed_proportion > 0:
+        n_masks = max(1, int(T * spec.time_zeroed_proportion
+                             / max(1, spec.time_mask_max_frames // 2)))
+        starts = randint(T, (B, n_masks))
+        widths = randint(spec.time_mask_max_frames + 1, (B, n_masks))
+        t_idx = torch.arange(T, device=device)[None, None, :]
+        hit = ((t_idx >= starts[:, :, None])
+               & (t_idx < (starts + widths)[:, :, None])).any(dim=1)
+        t_keep = ~hit
+    return f_keep, t_keep
+
+
+def _fwd_spec_augment(x: torch.Tensor, masks) -> torch.Tensor:
+    f_keep, t_keep = masks
+    if f_keep is not None:
+        x = x * f_keep[:, None, :].to(x.dtype)
+    if t_keep is not None:
+        x = x * t_keep[:, :, None].to(x.dtype)
+    return x
+
+
+def _fwd_combine_feature_maps(spec: CombineFeatureMapsSpec,
+                              x: torch.Tensor) -> torch.Tensor:
+    """Interleave blocked feature maps into the h*(nf1+nf2[+nf3]) + f layout."""
+    B, T, D = x.shape
+    h = spec.height
+    nfs = [spec.num_filters1, spec.num_filters2]
+    if spec.num_filters3:
+        nfs.append(spec.num_filters3)
+    blocks = []
+    off = 0
+    for nf in nfs:
+        blocks.append(x[..., off:off + h * nf].reshape(B, T, h, nf))
+        off += h * nf
+    return torch.cat(blocks, dim=-1).reshape(B, T, D)
+
+
+# ---------------------------------------------------------------------------
+# Time-grid analysis (the nnet3 computation-compiler equivalent); pure
+# Python, copied from the JAX package's network.py:533-656
+# ---------------------------------------------------------------------------
+
+def grid_layers(model: Model, stride: int, conv_cut: bool = False) -> frozenset:
+    """Layers that can run on the stride-`stride` time grid: their time
+    offsets are multiples of the stride and every consumer is on the grid
+    (output layers seed the set).  conv_cut=True adds the cut convs."""
+    if stride <= 1:
+        return frozenset()
+    base = _grid_base(model, stride)
+    if not conv_cut:
+        return base
+    return base | conv_cut_layers(model, stride)
+
+
+def _grid_base(model: Model, stride: int) -> frozenset:
+    order = model.execution_order()
+    consumers = _consumers(model)
+
+    def offsets_ok(layer: Layer) -> bool:
+        t, s = layer.type, layer.spec
+        if t == LayerType.TDNNF:
+            return s.time_stride % stride == 0
+        if t == LayerType.ATTENTION_RELU_BATCHNORM:
+            return s.time_stride % stride == 0
+        if t == LayerType.CONV_RELU_BATCHNORM:
+            return all(o % stride == 0 for o in s.time_offsets)
+        if t in (LayerType.INPUT, LayerType.SPEC_AUGMENT):
+            return False
+        return True     # pointwise: idct/linear/bn/combine/prefinal/output
+
+    grid = set()
+    for layer in reversed(order):
+        if not offsets_ok(layer):
+            continue
+        cons = consumers[layer.name]
+        is_out = layer.type == LayerType.OUTPUT
+        if (is_out and not cons) or (cons and all(c in grid for c in cons)):
+            grid.add(layer.name)
+    return frozenset(grid)
+
+
+def _consumers(model: Model) -> Dict[str, list]:
+    order = model.execution_order()
+    consumers: Dict[str, list] = {l.name: [] for l in order}
+    prev = None
+    for layer in order:
+        if layer.type == LayerType.INPUT:
+            prev = layer.name
+            continue
+        ref = layer.input.ref
+        names = (list(layer.input.names) if ref.type != InputType.PREVIOUS
+                 else [prev])
+        for n in names:
+            consumers[n].append(layer.name)
+        prev = layer.name
+    return consumers
+
+
+def conv_cut_layers(model: Model, stride: int) -> frozenset:
+    """Convs at the full->grid boundary that emit grid frames through a
+    time-strided window over their full-rate input (no cascade)."""
+    if stride <= 1:
+        return frozenset()
+    base = _grid_base(model, stride)
+    consumers = _consumers(model)
+    cut = set()
+    for layer in model.execution_order():
+        if layer.type != LayerType.CONV_RELU_BATCHNORM:
+            continue
+        if layer.name in base:
+            continue                     # already grid via divisible offsets
+        cons = consumers[layer.name]
+        if _direct_conv_ok(layer.spec) and cons and all(c in base for c in cons):
+            cut.add(layer.name)
+    return frozenset(cut)
+
+
+def _grid_spec(layer: Layer, stride: int):
+    """Layer spec with time offsets rescaled to grid steps."""
+    t, s = layer.type, layer.spec
+    if t in (LayerType.TDNNF, LayerType.ATTENTION_RELU_BATCHNORM) \
+            and s.time_stride:
+        return dataclasses.replace(s, time_stride=s.time_stride // stride)
+    if t == LayerType.CONV_RELU_BATCHNORM and any(s.time_offsets):
+        return dataclasses.replace(
+            s, time_offsets=tuple(o // stride for o in s.time_offsets))
+    return s
+
+
+# ---------------------------------------------------------------------------
+# The network module
+# ---------------------------------------------------------------------------
+
+class _BNState(nn.Module):
+    """Running BatchNorm statistics of one normalisation (buffers)."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.register_buffer("count", torch.zeros((), device=device))
+        self.register_buffer("mean", torch.zeros(dim, device=device))
+        self.register_buffer("var", torch.ones(dim, device=device))
+
+    def as_dict(self) -> dict:
+        return {"count": self.count, "mean": self.mean, "var": self.var}
+
+
+class _LayerState(nn.Module):
+    """One xconfig layer's fp32 master parameters and BN statistics."""
+
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 bn_dims: Dict[str, int], device=None):
+        super().__init__()
+        for name, value in params.items():
+            self.register_parameter(name, nn.Parameter(value))
+        for name, dim in bn_dims.items():
+            self.add_module(name, _BNState(dim, device))
+
+
+def module_key(layer_name: str) -> str:
+    """nn.Module names may not hold '.', which Kaldi layer names may."""
+    return layer_name.replace(".", "_")
+
+
+class Network(nn.Module):
+    """A Model's parameters (fp32 masters) and BN statistics, with the
+    forward pass.  `params` and `bn_state()` mirror the JAX package's
+    parameter and state trees ({layer: {name: tensor}})."""
+
+    def __init__(self, model: Model, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        self.model = model
+        self.layers = nn.ModuleDict()
+        self._keys: Dict[str, str] = {}
+        for layer in model.execution_order():
+            params = _init_layer(layer, generator, device)
+            bn_dims = _bn_dims(layer)
+            if not params and not bn_dims:
+                continue
+            key = module_key(layer.name)
+            if key in self.layers:
+                raise ValueError(f"layer names collide as module key {key!r}")
+            self._keys[layer.name] = key
+            self.layers[key] = _LayerState(params, bn_dims, device)
+
+    @property
+    def params(self) -> Dict[str, Dict[str, nn.Parameter]]:
+        out = {}
+        for lname, key in self._keys.items():
+            p = dict(self.layers[key].named_parameters(recurse=False))
+            if p:
+                out[lname] = p
+        return out
+
+    def bn_state(self) -> State:
+        out: State = {}
+        for lname, key in self._keys.items():
+            mod = self.layers[key]
+            if hasattr(mod, "bn"):
+                out[lname] = mod.bn.as_dict()
+            elif hasattr(mod, "bn1"):
+                out[lname] = {"bn1": mod.bn1.as_dict(),
+                              "bn2": mod.bn2.as_dict()}
+        return out
+
+    @torch.no_grad()
+    def set_bn_state(self, state: State) -> None:
+        """Commit running statistics returned by `forward`."""
+        for lname, st in state.items():
+            mod = self.layers[self._keys[lname]]
+            slots = ({"bn": st} if "count" in st else st)
+            for slot, vals in slots.items():
+                bn = getattr(mod, slot)
+                for name, v in vals.items():
+                    getattr(bn, name).copy_(v)
+
+    def forward(self, features: torch.Tensor,
+                ivectors: Optional[torch.Tensor] = None, *,
+                train: bool = False, compute_dtype=torch.bfloat16,
+                time_subsample: Optional[tuple] = None,
+                spec_masks: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None):
+        """Run the network: ({output_name: [B, T, dim] fp32}, new BN state).
+
+        time_subsample=(stride, offset, n_grid) runs every grid-eligible
+        layer only at frames offset + k*stride, k < n_grid (the nnet3
+        computation-compiler frame rate; network.py:690-701 of the JAX
+        package); grid outputs come back with n_grid frames.
+
+        SpecAugment runs only when training, with the masks of
+        `spec_masks[layer_name]` ((freq_keep, time_keep), from
+        `spec_augment_masks`) if given, else masks drawn from `generator`;
+        with neither it is the identity, as in JAX with rng=None.
+        """
+        model = self.model
+        params = self.params
+        state = self.bn_state()
+        B, T, _ = features.shape
+        dtype = compute_dtype
+        acts: Dict[str, torch.Tensor] = {}
+        new_state: State = dict(state)
+        outputs: Dict[str, torch.Tensor] = {}
+
+        grid: frozenset = frozenset()
+        cut: frozenset = frozenset()
+        g_stride = 1
+        if time_subsample is not None:
+            g_stride, g_offset, n_grid = time_subsample
+            cut = conv_cut_layers(model, g_stride)
+            grid = grid_layers(model, g_stride) | cut
+
+        def to_grid(a):
+            """Full-rate [B, T, ...] -> grid [B, n_grid, ...]."""
+            return a[:, g_offset:g_offset + (n_grid - 1) * g_stride + 1:g_stride]
+
+        def get_input(layer: Layer, prev_name: Optional[str]) -> torch.Tensor:
+            # cut convs consume full-rate input (the stride lives in their
+            # convolution window)
+            on_grid = layer.name in grid and layer.name not in cut
+            if layer.input.ref.type == InputType.PREVIOUS:
+                names = [prev_name]
+            else:
+                names = list(layer.input.names)
+            parts = []
+            for n in names:
+                a = acts[n]
+                if on_grid and n not in grid:
+                    a = to_grid(a)          # the full->grid cut
+                parts.append(a)
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+        prev_name: Optional[str] = None
+        for layer in model.execution_order():
+            t = layer.type
+            s = (_grid_spec(layer, g_stride)
+                 if layer.name in grid and layer.name not in cut
+                 else layer.spec)
+            if t == LayerType.INPUT:
+                if layer.name == "ivector":
+                    if ivectors is None:
+                        raise ValueError("model requires ivectors")
+                    iv = ivectors.to(dtype)
+                    acts[layer.name] = iv[:, None, :].expand(B, T, iv.shape[-1])
+                else:
+                    acts[layer.name] = features.to(dtype)
+                prev_name = layer.name
+                continue
+
+            x = get_input(layer, prev_name)
+            p = params.get(layer.name, {})
+            st = state.get(layer.name)
+
+            if t == LayerType.IDCT:
+                out = _matmul(x, p["idct"], dtype)
+            elif t == LayerType.LINEAR:
+                out = _matmul(x, p["w"], dtype)
+            elif t == LayerType.BATCHNORM:
+                out, new_state[layer.name] = _batchnorm(
+                    x, st, s.target_rms, s.epsilon, train)
+            elif t == LayerType.SPEC_AUGMENT:
+                masks = None
+                if train and spec_masks is not None and layer.name in spec_masks:
+                    masks = spec_masks[layer.name]
+                elif train and generator is not None:
+                    masks = spec_augment_masks(s, B, x.shape[1], generator,
+                                               x.device)
+                out = x if masks is None else _fwd_spec_augment(x, masks)
+            elif t == LayerType.COMBINE_FEATURE_MAPS:
+                out = _fwd_combine_feature_maps(s, x)
+            elif t == LayerType.CONV_RELU_BATCHNORM:
+                gc = (g_stride, g_offset, n_grid) if layer.name in cut else None
+                out, new_state[layer.name] = _fwd_conv_relu_bn(
+                    s, p, st, x, train, dtype, grid_cut=gc)
+            elif t == LayerType.TDNNF:
+                out, new_state[layer.name] = _fwd_tdnnf(s, p, st, x, train,
+                                                        dtype)
+            elif t == LayerType.RELU_BATCHNORM:
+                out = _matmul(x, p["w"], dtype) + p["b"].float()
+                out = torch.relu(out).to(dtype)
+                out, new_state[layer.name] = _batchnorm(
+                    out, st, s.target_rms, 1e-3, train)
+            elif t == LayerType.PREFINAL:
+                big = _matmul(x, p["big_w"], dtype) + p["big_b"].float()
+                big = torch.relu(big).to(dtype)
+                big, ns1 = _batchnorm(big, st["bn1"], s.target_rms, 1e-3,
+                                      train)
+                small = _matmul(big, p["small_w"], dtype).to(dtype)
+                out, ns2 = _batchnorm(small, st["bn2"], s.target_rms, 1e-3,
+                                      train)
+                new_state[layer.name] = {"bn1": ns1, "bn2": ns2}
+            elif t == LayerType.OUTPUT:
+                out = _matmul(x, p["w"], dtype) + p["b"].float()
+                if s.include_log_softmax:
+                    out = torch.log_softmax(out, dim=-1)
+                outputs[layer.name] = out   # outputs stay fp32
+            else:                           # no-op-component
+                out = x
+
+            acts[layer.name] = out if t == LayerType.OUTPUT else out.to(dtype)
+            prev_name = layer.name
+
+        return outputs, new_state

@@ -1,0 +1,34 @@
+"""The PyTorch port must import without JAX (the GPU machine has none).
+
+In a fresh interpreter where `import jax` fails, every module of
+kaldi_fp16_tpu_torch and chip_smoke.py (imported, not run) must load.
+"""
+
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+SCRIPT = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["jaxlib"] = None
+import kaldi_fp16_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    kaldi_fp16_tpu_torch.__path__, "kaldi_fp16_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
+               for k, v in sys.modules.items() if v is not None)
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    # models x4, chain x7, ops x2, training x4, convert, the subpackages
+    assert int(proc.stdout.strip()) >= 20
