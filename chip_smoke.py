@@ -5,16 +5,32 @@
 Drives the port's main path, bench.py's chain training step, at full
 width: the flagship configs/cnn_tdnn.xconfig with random weights from
 seed 0, the 7052-state phone-LM den graph (F = 3526 chains, T_out = 49),
-B = 128 sequences of 150 frames.  Phases, one line of numbers each:
+B = 128 sequences of 150 frames; once with the den's loop scans (the
+den_matmul kernel) and once with its fused scans (the den_scan kernels);
+and the blocked den on the same graph (the segment_reduce kernel).
+Phases, one line of numbers each:
 
-  1. device   the card (nvidia-smi name and power limit); TF32 off
-  2. build    nvcc builds the CUDA kernels from kaldi_fp16_tpu_torch/csrc
-  3. kernel   den_matmul against its plain version and float64, timed
-  4. den      production-scale den forward-backward, kernel vs plain path;
-              a small den against the float64 oracle
-  5. small    a narrow fp32 train step on the card against the CPU
-  6. train    1 warm-up + 5 timed flagship train steps through the kernel
-  7. summary  the kernels' JSON line, then {"ok": true, "device": ...}
+  1. device          the card (nvidia-smi name and power limit); TF32 off
+  2. build           nvcc builds the CUDA kernels from kaldi_fp16_tpu_torch/csrc
+  3. kernel          den_matmul against its plain version and float64, timed
+  4. scan_kernels    den_scan forward / backward at the production shape
+                     against their plain versions, timed
+  5. den             production-scale den forward-backward, kernel vs plain
+                     path; a small den against the float64 oracle
+  6. den_fused       the same den with scan_impl="fused" against the loop
+                     path, timed; a small fused den against the oracle
+  7. den_blocked     the graph forced to the blocked layout, kernel and
+                     einsum posterior reduce, against each other and the
+                     structured den; a small blocked den against the oracle
+  8. segment_reduce  the kernel against its plain version at the production
+                     pdf-order shape, timed
+  9. small           a narrow fp32 train step on the card against the CPU
+ 10. train           1 warm-up + 5 timed flagship train steps, loop scans
+ 11. train_fused     the same with scan_impl="fused"
+ 12. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+
+Each path's kernel counts are set to 0 just before it is driven and read
+just after; comparison launches do not count.
 
 Any failure raises and exits non-zero: there is no CPU path and no
 fallback.  Needs one card, nvcc, no network and no JAX.
@@ -30,9 +46,11 @@ import numpy as np
 import torch
 
 from kaldi_fp16_tpu_torch.chain.den_layout import analyze_chain_structure
-from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
+from kaldi_fp16_tpu_torch.chain.den_structured import StructuredKernels
+from kaldi_fp16_tpu_torch.chain.denominator import AC, DenominatorComputation
 from kaldi_fp16_tpu_torch.chain.graph import (
     LOG_ZERO, DenominatorGraph, NumeratorGraphBatch, make_phone_lm_den_fst,
+    make_simple_den_fst,
 )
 from kaldi_fp16_tpu_torch.chain.objective import ChainTrainingOpts
 from kaldi_fp16_tpu_torch.chain.reference import (
@@ -42,8 +60,11 @@ from kaldi_fp16_tpu_torch.convert import params_to_numpy
 from kaldi_fp16_tpu_torch.models.model import (
     build_model, build_model_from_string,
 )
-from kaldi_fp16_tpu_torch.ops import _build
+from kaldi_fp16_tpu_torch.ops import _build, den_scan
 from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul, den_matmul_plain
+from kaldi_fp16_tpu_torch.ops.segment_reduce import (
+    segment_reduce, segment_reduce_plain,
+)
 from kaldi_fp16_tpu_torch.training.train_step import (
     TrainConfig, init_train_state, make_train_step,
 )
@@ -55,6 +76,17 @@ T_OUT = (T_IN - LEFT + STRIDE - 1) // STRIDE          # 49
 FP64_RTOL = 3e-6                 # tests/test_pallas_den_matmul.py:46-48
 LOGP_RTOL, POST_RTOL, POST_ATOL = 2e-5, 2e-4, 2e-6    # ibid. :94-97
 KERNEL_REPLACES = "kaldi_fp16_tpu/ops/pallas_den_matmul.py:95"
+SCAN_REPLACES = {"fwd": "kaldi_fp16_tpu/ops/pallas_den_scan.py:180",
+                 "bwd": "kaldi_fp16_tpu/ops/pallas_den_scan.py:307"}
+REDUCE_REPLACES = "kaldi_fp16_tpu/ops/pallas_reduce.py:88"
+# raw scan histories, kernel vs plain: fp32 products summed in another
+# order, compounded over T frames (tests/test_torch_den_scan.py)
+HIST_RTOL, HIST_ATOL_REL = 2e-5, 1e-7
+# against the float64 oracle (tests/test_pallas_den_scan.py:104-106)
+ORACLE_LOGP_ATOL, ORACLE_POST_RTOL, ORACLE_POST_ATOL = 5e-5, 1e-3, 5e-5
+# blocked vs structured log-prob (tests/test_chain_denominator.py:175-178)
+LOGP_ATOL = 2e-6
+REDUCE_TOL = 1e-5                # fp32 segment sums, tests/test_pallas_reduce.py:30
 # fp32 card vs CPU: summation order only, through two SGD steps
 SMALL_RTOL = 1e-4
 # the flagship's layer types at narrow widths (tests/test_torch_train_step.py)
@@ -97,6 +129,44 @@ def cuda_ms(fn, iters):
 def max_rel(out, ref):
     return float(np.max(np.abs(out.astype(np.float64) - ref)
                         / (np.abs(ref) + 1e-8)))
+
+
+def alternate_ms(plain, kernel):
+    """Mean device ms of one call each, in the order plain, kernel,
+    kernel, plain (after one warm-up call of each)."""
+    plain(), kernel()
+    ms = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ms[name].append(cuda_ms(kernel if name == "kernel" else plain, 1))
+    return float(np.mean(ms["kernel"])), float(np.mean(ms["plain"]))
+
+
+def den_input(dev):
+    """The production-scale den input [B, T_OUT, P], from seed 2."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    return torch.randn((B, T_OUT, P), generator=gen, device=dev)
+
+
+def check_vs_oracle(den, graph, x, rows, leaky, dev):
+    """The den on the card against the float64 oracle, at the bars of
+    tests/test_pallas_den_scan.py:104-106."""
+    lp, post = den.forward_backward(torch.from_numpy(x).to(dev))
+    for n in rows:
+        rlp, rpost = denominator_forward_backward_ref(graph, x[n],
+                                                      leaky=leaky)
+        if not abs(lp[n].item() - rlp) < ORACLE_LOGP_ATOL:
+            raise AssertionError(f"log-prob {lp[n].item()} vs float64 {rlp}")
+        np.testing.assert_allclose(post[n].cpu().numpy(), rpost,
+                                   rtol=ORACLE_POST_RTOL,
+                                   atol=ORACLE_POST_ATOL)
+
+
+def assert_hist_close(out, ref, name):
+    """Kernel vs plain scan output at the HIST bars; returns max abs err."""
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=HIST_RTOL,
+                               atol=HIST_ATOL_REL * scale, msg=name)
+    return float((out - ref).abs().max())
 
 
 def device_phase():
@@ -163,9 +233,62 @@ def kernel_phase(dev, layout):
     return result
 
 
+def scan_kernels_phase(dev, graph):
+    """den_scan forward and backward at the production shape (L = 2,
+    Fp = 3584, N = 128, T = 49) against their plain versions."""
+    sk = StructuredKernels(analyze_chain_structure(graph), 1e-5,
+                           scan_impl="fused", device=dev)
+    L, Fp = sk.lay.L, sk.lay.F
+    if (L, Fp) != (2, 3584):
+        raise AssertionError(f"fused layout is L={L}, Fp={Fp}, expected "
+                             f"2, 3584")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.exp(torch.randn((T_OUT, P, B), generator=gen, device=dev))
+    xs = sk._hoisted_emissions(x)
+    kw = dict(L=L, T=T_OUT, leaky=sk.leaky)
+
+    def fwd():
+        return den_scan.fused_forward(sk.M, *xs, sk.init, **kw)
+
+    def fwd_plain():
+        return den_scan.fused_forward_plain(sk.M.t(), *xs, sk.init, **kw)
+
+    out, again, ref = fwd(), fwd(), fwd_plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError("den_scan forward repeats differ")
+    err = {name: assert_hist_close(a, r, name) for name, a, r in zip(
+        ("adash_hist", "asum", "logc", "a_final"), out, ref)}
+    total = out[3] * (1.0 + sk.leaky * sk._init_sum)
+
+    def bwd():
+        return den_scan.fused_backward(sk.M, *xs, out[1], sk.init, sk.real,
+                                       total, **kw)
+
+    def bwd_plain():
+        return den_scan.fused_backward_plain(sk.M, *xs, out[1], sk.init,
+                                             sk.real, total, **kw)
+
+    beta, beta_again, beta_ref = bwd(), bwd(), bwd_plain()
+    torch.cuda.synchronize()
+    if not torch.equal(beta, beta_again):
+        raise AssertionError("den_scan backward repeats differ")
+    err["beta_hist"] = assert_hist_close(beta, beta_ref, "beta_hist")
+    rel = {k: float((a - r).abs().max() / r.abs().max())
+           for k, a, r in (("adash_hist", out[0], ref[0]),
+                           ("beta_hist", beta, beta_ref))}
+    fwd_ms, fwd_plain_ms = alternate_ms(fwd_plain, fwd)
+    bwd_ms, bwd_plain_ms = alternate_ms(bwd_plain, bwd)
+    result = {"L": L, "Fp": Fp, "N": B, "T": T_OUT, "bit_identical": True,
+              "max_abs_err": err, "max_err_rel_to_max": rel,
+              "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
+              "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms}
+    phase("scan_kernels", **result)
+    return result
+
+
 def den_phase(dev, graph):
-    gen = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn((B, T_OUT, P), generator=gen, device=dev)
+    x = den_input(dev)
     den_k = DenominatorComputation(graph, leaky=1e-5, device=dev)
     den_p = DenominatorComputation(graph, leaky=1e-5, matmul_impl="plain",
                                    device=dev)
@@ -209,6 +332,133 @@ def den_phase(dev, graph):
           plain_ms=float(np.mean(ms["plain"])), small_vs_fp64="ok")
     del post_k, post_p, post_r, x
     return den_k
+
+
+def den_fused_phase(dev, graph, den_loop):
+    """The production den with scan_impl="fused" against the loop path."""
+    x = den_input(dev)
+    den_f = DenominatorComputation(graph, leaky=1e-5, scan_impl="fused",
+                                   device=dev)
+    counts = (den_scan.fused_forward, den_scan.fused_backward, DenMatmul)
+    before = [c.launches for c in counts]
+    lp_f, post_f = den_f.forward_backward(x)
+    torch.cuda.synchronize()
+    launches = [c.launches - b for c, b in zip(counts, before)]
+    if launches != [1, 1, 0] or den_f._structured.scan_used != "fused":
+        raise AssertionError(f"fused den launched (fwd, bwd, den_matmul) "
+                             f"{launches} times, expected [1, 1, 0]")
+    lp_r, post_r = den_f.forward_backward(x)
+    lp_l, post_l = den_loop.forward_backward(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(lp_r, lp_f) and torch.equal(post_r, post_f)):
+        raise AssertionError("fused den repeats differ")
+    if not (torch.isfinite(lp_f).all() and torch.isfinite(post_f).all()):
+        raise AssertionError("fused den output not finite")
+    torch.testing.assert_close(lp_f, lp_l, rtol=LOGP_RTOL, atol=0)
+    torch.testing.assert_close(post_f, post_l, rtol=POST_RTOL,
+                               atol=POST_ATOL)
+    fused_ms, loop_ms = alternate_ms(lambda: den_loop.forward_backward(x),
+                                     lambda: den_f.forward_backward(x))
+    # a small fused den (N = 128) against the float64 oracle
+    small = DenominatorGraph.from_fst(
+        make_phone_lm_den_fst(24, 13, 2, 4, seed=7), 24)
+    xs = np.random.default_rng(4).normal(size=(128, 5, 24)).astype(np.float32)
+    check_vs_oracle(DenominatorComputation(small, leaky=1e-4,
+                                           scan_impl="fused", device=dev),
+                    small, xs, (0, 77), 1e-4, dev)
+    phase("den_fused", B=B, T=T_OUT, P=P, launches_fwd_bwd_matmul=launches,
+          bit_identical=True,
+          logp_max_rel_vs_loop=float(((lp_f - lp_l).abs()
+                                      / lp_l.abs()).max()),
+          post_max_abs_vs_loop=float((post_f - post_l).abs().max()),
+          fused_ms=fused_ms, loop_ms=loop_ms, small_vs_fp64="ok")
+    del post_f, post_r
+    return lp_l, post_l
+
+
+def segment_reduce_phase(dev, den_b):
+    """The kernel against its plain version at the blocked den's pdf-order
+    shape [NB, J*AC, Tc*N], with that order's labels."""
+    pdfo = den_b._pdf_o
+    n = den_b.frames_per_chunk(B, T_OUT) * B
+    gen = torch.Generator(device=dev).manual_seed(5)
+    vals = torch.rand((pdfo.num_blocks, pdfo.chunks * AC, n), generator=gen,
+                      device=dev)
+    labels = pdfo.local
+
+    def kernel():
+        return segment_reduce(vals, labels)
+
+    def plain():
+        return segment_reduce_plain(vals, labels)
+
+    out, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError("segment_reduce repeats differ")
+    torch.testing.assert_close(out, ref, rtol=REDUCE_TOL, atol=REDUCE_TOL)
+    err = float((out - ref).abs().max())
+    ms, plain_ms = alternate_ms(plain, kernel)
+    result = {"shape": list(vals.shape), "bit_identical": True,
+              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    phase("segment_reduce", **result)
+    return result
+
+
+def den_blocked_phase(dev, graph, lp_s, post_s):
+    """The production graph forced to the blocked layout: the kernel and
+    the einsum posterior reduce, against each other and the structured
+    den."""
+    x = den_input(dev)
+    den_k = DenominatorComputation(graph, leaky=1e-5, layout="blocked",
+                                   posterior_reduce="kernel", device=dev)
+    den_e = DenominatorComputation(graph, leaky=1e-5, layout="blocked",
+                                   posterior_reduce="einsum", device=dev)
+    if den_k.layout_used != "blocked":
+        raise AssertionError("layout='blocked' was not taken")
+    chunks = -(-T_OUT // den_k.frames_per_chunk(B, T_OUT))
+    # the main path of segment_reduce: its count starts at 0 here
+    segment_reduce.launches = 0
+    lp_k, post_k = den_k.forward_backward(x)
+    torch.cuda.synchronize()
+    launches = segment_reduce.launches
+    if launches != chunks:
+        raise AssertionError(f"blocked den launched segment_reduce "
+                             f"{launches} times, expected {chunks}")
+    lp_r, post_r = den_k.forward_backward(x)
+    lp_e, post_e = den_e.forward_backward(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(lp_r, lp_k) and torch.equal(post_r, post_k)):
+        raise AssertionError("blocked den repeats differ")
+    if not (torch.isfinite(lp_k).all() and torch.isfinite(post_k).all()):
+        raise AssertionError("blocked den output not finite")
+    for other in ((lp_e, post_e), (lp_s, post_s)):
+        torch.testing.assert_close(lp_k, other[0], rtol=LOGP_RTOL,
+                                   atol=LOGP_ATOL)
+        torch.testing.assert_close(post_k, other[1], rtol=POST_RTOL,
+                                   atol=POST_ATOL)
+    kernel_ms, einsum_ms = alternate_ms(lambda: den_e.forward_backward(x),
+                                        lambda: den_k.forward_backward(x))
+    # a small graph that does not decompose, against the float64 oracle
+    small = DenominatorGraph.from_fst(
+        make_simple_den_fst(num_pdfs=6, num_states=5, seed=3), 6)
+    xs = np.random.default_rng(6).normal(size=(3, 7, 6)).astype(np.float32)
+    den_s = DenominatorComputation(small, leaky=1e-5,
+                                   posterior_reduce="kernel", device=dev)
+    if den_s.layout_used != "blocked":
+        raise AssertionError("the small random graph decomposed")
+    check_vs_oracle(den_s, small, xs, range(3), 1e-5, dev)
+    phase("den_blocked", B=B, T=T_OUT, P=P, arcs=graph.num_transitions,
+          posterior_chunks=chunks, segment_reduce_launches=launches,
+          bit_identical=True,
+          logp_max_rel_kernel_vs_einsum=float(((lp_k - lp_e).abs()
+                                               / lp_e.abs()).max()),
+          post_max_abs_kernel_vs_einsum=float((post_k - post_e).abs().max()),
+          logp_max_rel_vs_structured=float(((lp_k - lp_s).abs()
+                                            / lp_s.abs()).max()),
+          post_max_abs_vs_structured=float((post_k - post_s).abs().max()),
+          kernel_ms=kernel_ms, einsum_ms=einsum_ms, small_vs_fp64="ok")
+    return launches, den_k
 
 
 def bench_num_graph(n_seq, n_frames, n_arcs, n_pdfs, rng):
@@ -274,7 +524,10 @@ def small_step_phase(dev):
           loss=float(outs["card"].loss), rel_diff=worst)
 
 
-def train_phase(dev, den):
+def train_phase(dev, den, name, counters, per_step):
+    """1 warm-up + 5 timed flagship steps.  counters: {kernel name: object
+    with a `launches` count}; each count is set to 0 before the steps and
+    must grow by per_step[name] in every step."""
     rng = np.random.default_rng(0)
     model = build_model(str(ROOT / "configs" / "cnn_tdnn.xconfig"))
     num_graph = bench_num_graph(B, T_OUT, AN, P, rng)
@@ -295,10 +548,11 @@ def train_phase(dev, den):
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: every kernel count starts at 0 here
-    DenMatmul.launches = 0
+    for counter in counters.values():
+        counter.launches = 0
     step_ms, losses = [], []
     for i in range(6):
-        before = DenMatmul.launches
+        before = {k: c.launches for k, c in counters.items()}
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -311,20 +565,22 @@ def train_phase(dev, den):
             raise AssertionError(f"step {i}: loss={loss} num_logprob={num_lp}"
                                  f" ok={bool(out.ok)} skipped="
                                  f"{bool(out.skipped)} (containment or skip)")
-        if DenMatmul.launches - before != 2 * T_OUT:
-            raise AssertionError(f"step {i} launched den_matmul "
-                                 f"{DenMatmul.launches - before} times")
+        for k, c in counters.items():
+            if c.launches - before[k] != per_step[k]:
+                raise AssertionError(f"step {i} launched {k} "
+                                     f"{c.launches - before[k]} times, "
+                                     f"expected {per_step[k]}")
         losses.append(loss)
         if i > 0:                       # step 0 is the warm-up
             step_ms.append(start.elapsed_time(end))
-    launches = DenMatmul.launches
+    launches = {k: c.launches for k, c in counters.items()}
     mean_ms = float(np.mean(step_ms))
-    phase("train", B=B, T_in=T_IN, T_out=T_OUT, timed_steps=len(step_ms),
+    phase(name, B=B, T_in=T_IN, T_out=T_OUT, timed_steps=len(step_ms),
           step_ms=mean_ms, step_ms_each=step_ms, losses=losses,
           train_audio_sec_per_s_per_chip=B * T_IN / 100.0 / (mean_ms / 1e3),
           max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-          den_matmul_launches=launches)
-    return launches
+          **{f"{k}_launches": v for k, v in launches.items()})
+    return launches, losses
 
 
 def main():
@@ -336,16 +592,50 @@ def main():
         raise AssertionError("phone-LM den graph did not decompose as "
                              "expected (7052 states, F=3526)")
     k = kernel_phase(dev, layout)
+    scan = scan_kernels_phase(dev, graph)
     den = den_phase(dev, graph)
+    lp_s, post_s = den_fused_phase(dev, graph, den)
+    red_launches, den_b = den_blocked_phase(dev, graph, lp_s, post_s)
+    del lp_s, post_s
+    red = segment_reduce_phase(dev, den_b)
+    del den_b
     small_step_phase(dev)
-    launches = train_phase(dev, den)
-    print(json.dumps({"kernels": [{
-        "name": "den_matmul", "route": "cuda",
-        "source": "kaldi_fp16_tpu_torch/csrc/den_matmul.cu",
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": k["max_abs_err_vs_plain"],
-        "ms": k["kernel_us"] / 1e3, "plain_ms": k["plain_us"] / 1e3}]}),
-        flush=True)
+    launches, losses = train_phase(dev, den, "train",
+                                   {"den_matmul": DenMatmul},
+                                   {"den_matmul": 2 * T_OUT})
+    den_f = DenominatorComputation(graph, leaky=1e-5, scan_impl="fused",
+                                   device=dev)
+    scan_counts = {"den_scan_fwd": den_scan.fused_forward,
+                   "den_scan_bwd": den_scan.fused_backward,
+                   "den_matmul": DenMatmul}
+    fused_launches, fused_losses = train_phase(
+        dev, den_f, "train_fused", scan_counts,
+        {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0})
+    # same seeds, weights, batch and SpecAugment generator as "train"
+    np.testing.assert_allclose(fused_losses[0], losses[0], rtol=SMALL_RTOL,
+                               err_msg="first loss, fused vs loop den")
+    src = "kaldi_fp16_tpu_torch/csrc/"
+    print(json.dumps({"kernels": [
+        {"name": "den_matmul", "route": "cuda", "source": src + "den_matmul.cu",
+         "replaces": KERNEL_REPLACES, "launches": launches["den_matmul"],
+         "max_abs_err": k["max_abs_err_vs_plain"],
+         "ms": k["kernel_us"] / 1e3, "plain_ms": k["plain_us"] / 1e3},
+        {"name": "den_scan_fwd", "route": "cuda", "source": src + "den_scan.cu",
+         "replaces": SCAN_REPLACES["fwd"],
+         "launches": fused_launches["den_scan_fwd"],
+         "max_abs_err": max(v for n, v in scan["max_abs_err"].items()
+                            if n != "beta_hist"),
+         "ms": scan["fwd_ms"], "plain_ms": scan["fwd_plain_ms"]},
+        {"name": "den_scan_bwd", "route": "cuda", "source": src + "den_scan.cu",
+         "replaces": SCAN_REPLACES["bwd"],
+         "launches": fused_launches["den_scan_bwd"],
+         "max_abs_err": scan["max_abs_err"]["beta_hist"],
+         "ms": scan["bwd_ms"], "plain_ms": scan["bwd_plain_ms"]},
+        {"name": "segment_reduce", "route": "cuda",
+         "source": src + "segment_reduce.cu", "replaces": REDUCE_REPLACES,
+         "launches": red_launches, "max_abs_err": red["max_abs_err"],
+         "ms": red["ms"], "plain_ms": red["plain_ms"]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,9 +6,11 @@ on the same numpy inputs.  This package imports torch and never jax; of
 the JAX package it uses only the jax-free `kaldi_fp16_tpu.io`.
 
   models/    xconfig -> layers -> nn.Module network (bf16 compute, fp32 masters)
-  chain/     LF-MMI objective: numerator, structured denominator, autograd
+  chain/     LF-MMI objective: numerator, structured and blocked
+             denominator, autograd
   ops/       hand-written CUDA kernels (csrc/) with their plain versions
   training/  SGD with max-change, loss scaling, orthonormal constraint, step
+  tools/     command-line twins of tools/*.py (chainbench)
   convert.py JAX parameter trees <-> the port's state_dict
 """
 

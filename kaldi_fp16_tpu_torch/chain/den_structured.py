@@ -13,13 +13,27 @@ x = exp(clip(nnet, -30, 30)); leaky HMM alpha' = alpha + sum(alpha) *
 leaky * init; per-frame rescale by 1/sum(alpha) with log corrections
 ("safe" divides where the sum is 0); all states final.
 
-The T-step recursions are Python loops (the JAX package's lax.scan).  Each
-in-scan M product (n = N <= 128 columns) goes to the hand-written CUDA
-kernel through `DenMatmul` (ops/den_matmul.py), 2*T launches per
-forward-backward; the wide bulk-posterior product stays an fp32
-torch.matmul, as the JAX package left it to XLA.  No op here uses float
-atomics (the per-pdf reduce is a product against a stored one-hot, not
-index_add_), so repeated runs on one card are bit-identical.
+Two scan implementations, as in the JAX package (`scan_impl`):
+
+  "loop"   the T-step recursions are Python loops (the JAX package's
+           lax.scan).  Each in-scan M product (n = N <= 128 columns) goes to
+           the hand-written CUDA kernel through `DenMatmul`
+           (ops/den_matmul.py), 2*T launches per forward-backward.
+  "fused"  each recursion is one call of the fused scan kernels
+           (ops/den_scan.py, csrc/den_scan.cu), which fuse every frame's M
+           product with its elementwise update.  Needs one chain-length
+           group with L >= 2, hoisted emissions and N % 128 == 0; the chain
+           axis is padded to a multiple of 128 (`pad_chains`) once, here,
+           and the whole instance (the loop path it takes for other batch
+           sizes, and the posteriors) then runs on the padded layout, as in
+           the JAX package.
+
+"auto" resolves to "loop", as the JAX package's "auto" resolves to its XLA
+scan.  Dispatch depends on shapes only: a build or launch failure raises
+and never switches the path.  The wide bulk-posterior product stays an
+fp32 torch.matmul, as the JAX package left it to XLA.  No op here uses
+float atomics (the per-pdf reduce is a product against a stored one-hot,
+not index_add_), so repeated runs on one card are bit-identical.
 """
 
 from __future__ import annotations
@@ -29,8 +43,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from kaldi_fp16_tpu_torch.chain.den_layout import ChainLayout
+from kaldi_fp16_tpu_torch.chain.den_layout import ChainLayout, pad_chains
 from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul, fp32_matmuls
+from kaldi_fp16_tpu_torch.ops.den_scan import (
+    fused_backward, fused_forward, fused_scan_supported,
+)
 
 SB = 128   # pdf block width of the posterior one-hot reduce
 AC = 128   # slots per chunk of the posterior one-hot reduce
@@ -43,14 +60,25 @@ class StructuredKernels:
     matmul_impl: "kernel" sends every in-scan M product (n <= 128) through
     `DenMatmul` (the CUDA kernel on a card, its plain version on the CPU);
     "plain" sends them to torch.matmul, for comparisons.
+    scan_impl: "auto" (= "loop"), "loop" or "fused" (module docstring).
     """
 
     def __init__(self, layout: ChainLayout, leaky: float,
                  hoist_bytes: int = 1 << 30, matmul_impl: str = "kernel",
-                 device=None):
+                 scan_impl: str = "auto", device=None):
         if matmul_impl not in ("kernel", "plain"):
             raise ValueError(f"matmul_impl must be 'kernel' or 'plain', "
                              f"got {matmul_impl!r}")
+        if scan_impl not in ("auto", "fused", "loop"):
+            raise ValueError(f"scan_impl must be 'auto', 'fused' or 'loop', "
+                             f"got {scan_impl!r}")
+        self.scan_impl = "loop" if scan_impl == "auto" else scan_impl
+        # the fused scans need the chain axis padded to the row-tile width;
+        # the inert fake chains change nothing on the loop path
+        self._fused_ready = (self.scan_impl == "fused"
+                             and len(layout.groups) == 1 and layout.L >= 2)
+        if self._fused_ready:
+            layout = pad_chains(layout)
         self.lay = layout
         self.leaky = float(leaky)
         self.hoist_bytes = hoist_bytes
@@ -74,6 +102,8 @@ class StructuredKernels:
         self.init = t(layout.init)                                 # [L, F]
         self.real = t(layout.real, torch.bool)                     # [L, F]
         self.groups: List[Tuple[int, int, int]] = list(layout.groups)
+        self._init_sum = float(layout.init.sum())
+        self.scan_used: Optional[str] = None   # set by each forward_backward
 
         # one-hot reduce over slots -> pdf bins (posteriors), in the JAX
         # package's padded slot order: [L*F self] + [(L-1)*F fwd] + [F res]
@@ -152,7 +182,15 @@ class StructuredKernels:
 
         if not hoist:
             return lambda t: per_frame(x_tpn[t])
+        xs_self, xs_fwd, xs_res = self._hoisted_emissions(x_tpn)
+        return lambda t: (xs_self[t], None if xs_fwd is None else xs_fwd[t],
+                          xs_res[t])
 
+    def _hoisted_emissions(self, x_tpn: torch.Tensor):
+        """All T frames' tables at once (den_structured.py:535-545):
+        xs_self [T, L, F, N], xs_fwd [T, L-1, F, N] or None, xs_res
+        [T, F, N], each contiguous."""
+        L, F = self.lay.L, self.lay.F
         T = x_tpn.shape[0]
         xs_self = (x_tpn.index_select(1, self.self_pdf)
                    .reshape(T, L, F, -1) * self.self_coef[None, :, :, None])
@@ -163,8 +201,7 @@ class StructuredKernels:
                       * self.fwd_coef[None, :, :, None])
         xs_res = (x_tpn.index_select(1, self.res_pdf)
                   * self.res_mask[None, :, None])
-        return lambda t: (xs_self[t], None if xs_fwd is None else xs_fwd[t],
-                          xs_res[t])
+        return xs_self, xs_fwd, xs_res
 
     # ---- core --------------------------------------------------------------
 
@@ -188,6 +225,9 @@ class StructuredKernels:
 
         # hoist budget: 2 passes of (2L+1)*F*N fp32 per frame
         hoist = T * (2 * L + 1) * F * N * 4 * 2 <= self.hoist_bytes
+        self.scan_used = "fused" if self._use_fused(N, hoist) else "loop"
+        if self.scan_used == "fused":
+            return self._forward_backward_fused(x_tpn, N, T, compute_grad)
         frame = self._emissions(x_tpn, hoist)
 
         # ---- forward (alpha recursion) -------------------------------------
@@ -245,6 +285,33 @@ class StructuredKernels:
             bd = bd * inv[None, None, :]
             beta_next = leakify(bd)
 
+        posteriors = self._bulk_posteriors(adash_hist, asum_hist, beta_hist,
+                                           x_tpn, N, T, P)
+        return log_prob, posteriors
+
+    # ---- fused scans (ops/den_scan.py) --------------------------------------
+
+    def _use_fused(self, N: int, hoist: bool) -> bool:
+        """den_structured.py:658-673: shapes only, never a failure."""
+        return (self._fused_ready and hoist and self.has_fwd
+                and fused_scan_supported(self.lay, N))
+
+    def _forward_backward_fused(self, x_tpn, N, T, compute_grad):
+        """den_structured.py:675-701, with the port's [T, N] stats."""
+        lay = self.lay
+        L, P = lay.L, lay.num_pdfs
+        leaky = self.leaky
+        xs_self, xs_fwd, xs_res = self._hoisted_emissions(x_tpn)
+        adash_hist, asum_hist, logcs, a_fin = fused_forward(
+            self.M, xs_self, xs_fwd, xs_res, self.init, L=L, T=T,
+            leaky=leaky)
+        total_prob = a_fin * (1.0 + leaky * self._init_sum)
+        log_prob = torch.log(total_prob) + logcs.sum(dim=0)
+        if not compute_grad:
+            return log_prob, None
+        beta_hist = fused_backward(
+            self.M, xs_self, xs_fwd, xs_res, asum_hist, self.init,
+            self.real, total_prob, L=L, T=T, leaky=leaky)
         posteriors = self._bulk_posteriors(adash_hist, asum_hist, beta_hist,
                                            x_tpn, N, T, P)
         return log_prob, posteriors

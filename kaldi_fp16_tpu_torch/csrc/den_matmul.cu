@@ -7,20 +7,11 @@
 // 3-term bf16 split with six MXU dots.  This card has fp32 FFMA units, so
 // the first port computes in fp32 directly: no split, no tensor cores.
 //
-// Design (simple and right first):
-//   * one block owns one BM x BN output tile and runs the whole K loop
-//     itself: no split-K, no atomics, so repeated calls are bit-identical;
-//   * M and v tiles go through shared memory BK rows deep; every thread
-//     keeps a TM x TN register tile of the output (strided by the thread
-//     grid, so shared-memory reads are conflict-free and stores coalesce);
-//   * summation is blocked: each BK-deep stage sums into a fresh partial
-//     that is then added to the accumulator, so the rounding error grows
-//     with BK + F/BK instead of F (the fp64 bar is 3e-6 relative);
-//   * M^T is read by strides, not from a transposed copy: the tile loader
-//     maps consecutive threads onto whichever index is contiguous in
-//     memory, so both orientations load coalesced and M is stored once;
-//   * F and n need not be multiples of anything: the loaders zero-fill
-//     and the store masks the ragged edges.
+// Design (simple and right first): one block owns one BM x BN output
+// tile and runs the whole K loop itself through den_tile.cuh's tile loop
+// (fp32 FFMA, blocked BK-deep partial sums, M^T read by strides, ragged
+// edges zero-filled and masked): no split-K, no atomics, so repeated calls
+// are bit-identical.
 //
 // What bounds it on an H100 SXM (data sheet): at F = 3526, n = 128 an
 // application is 3.2 GFLOP of fp32 FMA (67 TFLOP/s peak: >= 47 us) and
@@ -31,89 +22,31 @@
 
 #include <cuda_runtime.h>
 
+#include "den_tile.cuh"
+
 namespace {
 
-constexpr int BM = 64;                 // output rows per block
-constexpr int BN = 64;                 // output columns per block
-constexpr int BK = 32;                 // depth of one shared-memory stage
-constexpr int TM = 4;                  // output rows per thread
-constexpr int TN = 4;                  // output columns per thread
-constexpr int TX = BN / TN;            // threads along the columns (16)
-constexpr int TY = BM / TM;            // threads along the rows (16)
-constexpr int NT = TX * TY;            // threads per block (256)
-static_assert(BM * BK % NT == 0 && BK * BN % NT == 0,
-              "tile loads must divide evenly over the block");
+using namespace den_tile;
+
+struct LoadV {                         // B(k, j) = v[k, j]
+  const float* __restrict__ v;
+  int n;
+  __device__ float operator()(int k, int j) const {
+    return v[(size_t)k * n + j];
+  }
+};
 
 template <bool TRANS>
 __global__ void __launch_bounds__(NT)
 den_matmul_kernel(const float* __restrict__ M, const float* __restrict__ v,
                   float* __restrict__ out, int F, int n) {
-  // As[k][i] = A(row0 + i, k0 + k) with A = M or M^T; the +1 keeps the
-  // transposing store of the row-major load free of bank conflicts.
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  __shared__ Smem s;
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < F; k0 += BK) {
-#pragma unroll
-    for (int it = 0; it < BM * BK / NT; ++it) {
-      const int idx = tid + it * NT;
-      // consecutive threads walk the index that is contiguous in memory
-      const int r = TRANS ? idx % BM : idx / BK;
-      const int c = TRANS ? idx / BM : idx % BK;
-      const int gi = row0 + r;
-      const int gk = k0 + c;
-      float a = 0.f;
-      if (gi < F && gk < F)
-        a = TRANS ? M[(size_t)gk * F + gi] : M[(size_t)gi * F + gk];
-      As[c][r] = a;
-    }
-#pragma unroll
-    for (int it = 0; it < BK * BN / NT; ++it) {
-      const int idx = tid + it * NT;
-      const int c = idx / BN;
-      const int j = idx % BN;
-      const int gk = k0 + c;
-      const int gj = col0 + j;
-      Bs[c][j] = (gk < F && gj < n) ? v[(size_t)gk * n + gj] : 0.f;
-    }
-    __syncthreads();
-
-    float part[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[k][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
-    __syncthreads();
-  }
-
+  mm_tile<TRANS>(M, F, n, row0, col0, s, LoadV{v, n}, acc);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gi = row0 + ty + i * TY;

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`) into one shared
-library with a plain C interface, at first use, under
+Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`), one nvcc
+process per source, all started together, and the objects are linked into
+one shared library with a plain C interface, at first use, under
 `<checkout>/build/kaldi_fp16_tpu_torch/<hash>/`.  The hash covers the
-sources and the flags, so an edited kernel is rebuilt and an unchanged one
-is reused.  No PyTorch headers are involved, so a build takes seconds.
+sources, the `csrc/*.cuh` headers they include and the flags, so an edited
+kernel is rebuilt and an unchanged one is reused.  No PyTorch headers are
+involved, so a build takes seconds.
 
 Only sources in the repository are compiled and nothing is downloaded.
 A missing `nvcc` or a failed build raises: there is no fallback.
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kaldi_fp16_tpu_torch"
 LIB_NAME = "libkaldi_fp16_tpu_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class BuildError(RuntimeError):
@@ -70,21 +72,39 @@ def build() -> tuple:
     if lib.is_file():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # compile every source at once into a private directory, then link and
+    # rename: a concurrent build never sees a half-written library
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    compiles = []
+    for src in srcs:
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / (src.stem + ".o")),
+               str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, proc in compiles:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out[-4000:]}")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(work / LIB_NAME),
+               *(str(work / (src.stem + ".o")) for src in srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n"
+                          f"{proc.stderr[-4000:]}")
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise BuildError(f"nvcc failed (exit {proc.returncode}):\n"
-                         f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise BuildError("nvcc failed: " + "\n".join(failed))
+    os.replace(work / LIB_NAME, lib)
+    shutil.rmtree(work, ignore_errors=True)
     return lib, seconds
 
 
@@ -93,8 +113,21 @@ def library() -> ctypes.CDLL:
     """The built kernels, loaded once per process, with C signatures set."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # den_matmul(M, v, out, F, n, transpose, stream) -> cudaError_t
     lib.den_matmul.argtypes = [p, p, p, i, i, i, p]
     lib.den_matmul.restype = i
+    # den_scan_forward(M, xs_self, xs_fwd, xs_res, init, state, parts, hist,
+    #                  asum, logc, a_final, L, F, N, T, leaky, stream)
+    lib.den_scan_forward.argtypes = [p] * 11 + [i] * 4 + [f, p]
+    lib.den_scan_forward.restype = i
+    # den_scan_backward(M, xs_self, xs_fwd, xs_res, asum, init, real, total,
+    #                   state, parts, hist, L, F, N, T, leaky, stream)
+    lib.den_scan_backward.argtypes = [p] * 11 + [i] * 4 + [f, p]
+    lib.den_scan_backward.restype = i
+    lib.den_scan_row_block.argtypes = []
+    lib.den_scan_row_block.restype = i
+    # segment_reduce(vals, labels, out, NB, K, n, sb, stream)
+    lib.segment_reduce.argtypes = [p, p, p, i, i, i, i, p]
+    lib.segment_reduce.restype = i
     return lib

@@ -1,0 +1,79 @@
+"""Blocked segment sum for the blocked denominator's posterior pass.
+
+The port of kaldi_fp16_tpu/ops/pallas_reduce.py (`blocked_segment_reduce`):
+
+    out[b, s, n] = sum over k with labels[b, k] == s of vals[b, k, n]
+
+for vals [NB, K, n] fp32 and labels [NB, K] int32 local keys; a label
+outside [0, sb) is a padding slot and contributes nothing.  Exact mode
+only: the JAX `exact=False` (single-pass bf16) is rejected.
+
+`segment_reduce` launches the hand-written CUDA kernel
+(csrc/segment_reduce.cu) for CUDA tensors; for CPU tensors it computes the
+plain version, `segment_reduce_plain`, which the tests compare against.  A
+CUDA tensor never falls back to the plain version: if the kernel cannot
+be built or launched, the call raises.  `segment_reduce.launches` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def segment_reduce_plain(vals: torch.Tensor, labels: torch.Tensor,
+                         sb: int = 128) -> torch.Tensor:
+    """The plain version: an index_add_ of every slot into its block's row,
+    with one extra row per block that collects the padding slots."""
+    NB, K, n = vals.shape
+    key = labels.to(torch.int64)
+    key = torch.where((key >= 0) & (key < sb), key, sb)
+    rows = (torch.arange(NB, device=vals.device)[:, None] * (sb + 1)
+            + key).reshape(-1)
+    out = torch.zeros((NB * (sb + 1), n), dtype=torch.float32,
+                      device=vals.device)
+    out.index_add_(0, rows, vals.reshape(NB * K, n))
+    return out.reshape(NB, sb + 1, n)[:, :sb]
+
+
+def segment_reduce(vals: torch.Tensor, labels: torch.Tensor, sb: int = 128,
+                   exact: bool = True) -> torch.Tensor:
+    """vals [NB, K, n] f32, labels [NB, K] int32 (>= sb = padding)
+    -> [NB, sb, n] f32 per-block segment sums."""
+    if not exact:
+        raise ValueError("segment_reduce is exact-only (fp32 sums); the "
+                         "single-pass bf16 mode is not ported")
+    if vals.ndim != 3 or vals.dtype != torch.float32:
+        raise ValueError(f"vals must be float32 [NB, K, n], got {vals.dtype} "
+                         f"{tuple(vals.shape)}")
+    if labels.dtype != torch.int32 or tuple(labels.shape) != vals.shape[:2]:
+        raise ValueError(f"labels must be int32 {tuple(vals.shape[:2])}, got "
+                         f"{labels.dtype} {tuple(labels.shape)}")
+    if labels.device != vals.device:
+        raise ValueError(f"labels on {labels.device}, vals on {vals.device}")
+    if sb < 1:
+        raise ValueError(f"sb must be >= 1, got {sb}")
+    dev = vals.device
+    if dev.type == "cpu":
+        return segment_reduce_plain(vals, labels, sb)
+    if dev.type != "cuda":
+        raise ValueError(f"no segment_reduce kernel for {dev}")
+    if not (vals.is_contiguous() and labels.is_contiguous()):
+        raise ValueError("vals and labels must be contiguous")
+    NB, K, n = vals.shape
+    out = torch.empty((NB, sb, n), dtype=torch.float32, device=dev)
+    if n == 0 or NB == 0:
+        return out
+    from kaldi_fp16_tpu_torch.ops._build import library
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library().segment_reduce(vals.data_ptr(), labels.data_ptr(),
+                                       out.data_ptr(), NB, K, n, sb, stream)
+    if err != 0:
+        raise RuntimeError(f"segment_reduce kernel launch failed: "
+                           f"cudaError_t {err}")
+    segment_reduce.launches += 1
+    return out
+
+
+segment_reduce.launches = 0

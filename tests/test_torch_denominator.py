@@ -156,15 +156,21 @@ def test_forward_only_and_plain_impl_agree():
 
 
 def test_no_kernel_launch_on_cpu_and_no_blocked_fallback():
+    from kaldi_fp16_tpu_torch.ops.segment_reduce import segment_reduce
     _, pg = _graphs(**SMALL)
     before = DenMatmul.launches
     DenominatorComputation(pg).forward_backward(torch.zeros(1, 3, 24))
     assert DenMatmul.launches == before
-    # a random graph needs the blocked layout, which is not ported
+    # a random graph takes the blocked layout, which launches nothing on
+    # the CPU either (its reduce kernel's plain version runs there)
     uniform = port_graph.DenominatorGraph.from_fst(
         port_graph.make_simple_den_fst(num_pdfs=10, num_states=8, seed=2), 10)
-    with pytest.raises(NotImplementedError):
-        DenominatorComputation(uniform)
+    den = DenominatorComputation(uniform, posterior_reduce="kernel")
+    assert den.layout_used == "blocked"
+    before = (DenMatmul.launches, segment_reduce.launches)
+    lp, post = den.forward_backward(torch.zeros(1, 3, 10))
+    assert (DenMatmul.launches, segment_reduce.launches) == before
+    assert torch.isfinite(lp).all() and torch.isfinite(post).all()
     with pytest.raises(ValueError):
         DenominatorComputation(pg, matmul_impl="split3")
 
