@@ -6,19 +6,25 @@ Drives the port's main path, bench.py's chain training step, at full
 width: the flagship configs/cnn_tdnn.xconfig with random weights from
 seed 0, the 7052-state phone-LM den graph (F = 3526 chains, T_out = 49),
 B = 128 sequences of 150 frames; once with the den's loop scans (the
-den_matmul kernel) and once with its fused scans (the den_scan kernels);
-and the blocked den on the same graph (the segment_reduce kernel).
-Phases, one line of numbers each:
+den_matmul kernel) and once with the default den, whose scans resolve to
+the fused ones on a card (the den_scan kernels); the loop den once more
+with M pre-split (den_matmul, split="pre"); and the blocked den on the
+same graph (the segment_reduce kernel).  Phases, one line of numbers
+each:
 
   1. device          the card (nvidia-smi name and power limit); TF32 off
   2. build           nvcc builds the CUDA kernels from kaldi_fp16_tpu_torch/csrc
-  3. kernel          den_matmul against its plain version and float64, timed
-  4. scan_kernels    den_scan forward / backward at the production shape
-                     against their plain versions, timed
-  5. den             production-scale den forward-backward, kernel vs plain
-                     path; a small den against the float64 oracle
-  6. den_fused       the same den with scan_impl="fused" against the loop
-                     path, timed; a small fused den against the oracle
+  3. kernel          den_matmul, split="kernel" and "pre", against float64
+                     and the split's plain version, repeats bit-identical;
+                     timed with L2 warm and flushed beside torch.matmul
+  4. scan_kernels    den_scan forward / backward at the production shape,
+                     both splits, against their plain versions, timed
+  5. den             production-scale loop den forward-backward, kernel
+                     (both splits) vs plain path; a small den against the
+                     float64 oracle
+  6. den_fused       the default den (scan_impl="auto": the fused scans)
+                     against the loop path, timed; a small fused den against
+                     the oracle
   7. den_blocked     the graph forced to the blocked layout, kernel and
                      einsum posterior reduce, against each other and the
                      structured den; a small blocked den against the oracle
@@ -26,11 +32,14 @@ Phases, one line of numbers each:
                      pdf-order shape, timed
   9. small           a narrow fp32 train step on the card against the CPU
  10. train           1 warm-up + 5 timed flagship train steps, loop scans
- 11. train_fused     the same with scan_impl="fused"
+ 11. train_fused     the same with the default den (fused scans)
  12. summary         the kernels' JSON line, then {"ok": true, "device": ...}
 
 Each path's kernel counts are set to 0 just before it is driven and read
-just after; comparison launches do not count.
+just after; comparison launches do not count.  Each kernel's bound is the
+larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its operations over 989 TFLOP/s (bf16 tensor cores;
+H100 SXM data sheet).
 
 Any failure raises and exits non-zero: there is no CPU path and no
 fallback.  Needs one card, nvcc, no network and no JAX.
@@ -61,7 +70,9 @@ from kaldi_fp16_tpu_torch.models.model import (
     build_model, build_model_from_string,
 )
 from kaldi_fp16_tpu_torch.ops import _build, den_scan
-from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul, den_matmul_plain
+from kaldi_fp16_tpu_torch.ops.den_matmul import (
+    DenMatmul, den_matmul_split_plain,
+)
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
     segment_reduce, segment_reduce_plain,
 )
@@ -76,6 +87,7 @@ T_OUT = (T_IN - LEFT + STRIDE - 1) // STRIDE          # 49
 FP64_RTOL = 3e-6                 # tests/test_pallas_den_matmul.py:46-48
 LOGP_RTOL, POST_RTOL, POST_ATOL = 2e-5, 2e-4, 2e-6    # ibid. :94-97
 KERNEL_REPLACES = "kaldi_fp16_tpu/ops/pallas_den_matmul.py:95"
+PRE_REPLACES = "_probe_pallas_den.py:57"
 SCAN_REPLACES = {"fwd": "kaldi_fp16_tpu/ops/pallas_den_scan.py:180",
                  "bwd": "kaldi_fp16_tpu/ops/pallas_den_scan.py:307"}
 REDUCE_REPLACES = "kaldi_fp16_tpu/ops/pallas_reduce.py:88"
@@ -89,6 +101,9 @@ LOGP_ATOL = 2e-6
 REDUCE_TOL = 1e-5                # fp32 segment sums, tests/test_pallas_reduce.py:30
 # fp32 card vs CPU: summation order only, through two SGD steps
 SMALL_RTOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, ibid.
+FLUSH_BYTES = 128 << 20          # > the 50 MB L2
 # the flagship's layer types at narrow widths (tests/test_torch_train_step.py)
 SMALL_XCONFIG = """
 input name=ivector dim=10
@@ -124,6 +139,51 @@ def cuda_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, flops):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def captured(fn, reps):
+    """A CUDA graph of `reps` back-to-back calls of fn: replaying it times
+    the device work alone, without the host's time to enqueue each call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def warm_ms(fn, reps):
+    """Mean device ms of one call of fn among `reps` back-to-back calls
+    (L2 warm), replayed from a CUDA graph."""
+    graph = captured(fn, reps)
+    return cuda_ms(graph.replay, 1) / reps
+
+
+def cold_ms(fn, flush, iters):
+    """Mean device ms of one call of fn with the L2 flushed before each,
+    replayed from a CUDA graph."""
+    graph = captured(fn, 1)
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def max_rel(out, ref):
@@ -197,101 +257,147 @@ def build_phase():
 
 
 def kernel_phase(dev, layout):
+    """den_matmul at F = 3526, n = 128, both splits and orientations."""
     M = layout.M
     F = M.shape[0]
     v = np.random.default_rng(1).random((F, B)).astype(np.float32)
-    dm = DenMatmul(M, dev)
     vd = torch.from_numpy(v).to(dev)
+    Md = torch.from_numpy(M).to(dev)
     M64, v64 = M.astype(np.float64), v.astype(np.float64)
-    result = {"F": F, "n": B}
-    worst_abs = 0.0
-    times = {"kernel": [], "plain": []}
-    for transpose in (False, True):
-        ref = (M64.T if transpose else M64) @ v64
-        out = dm.apply(vd, transpose)
-        plain = den_matmul_plain(dm.M, vd, transpose)
-        torch.cuda.synchronize()
-        rel = max_rel(out.cpu().numpy(), ref)
-        rel_plain = max_rel(plain.cpu().numpy(), ref)
-        worst_abs = max(worst_abs, float((out - plain).abs().max()))
-        tag = "MT" if transpose else "M"
-        result[f"max_rel_err_fp64_{tag}"] = rel
-        result[f"plain_max_rel_err_fp64_{tag}"] = rel_plain
-        if not rel <= FP64_RTOL:
-            raise AssertionError(f"den_matmul ({tag}) rel err {rel} > "
-                                 f"{FP64_RTOL} against float64")
-        # plain, kernel, kernel, plain: 2*T back-to-back applications each
-        for name in ("plain", "kernel", "kernel", "plain"):
-            fn = ((lambda: dm.apply(vd, transpose)) if name == "kernel"
-                  else (lambda: den_matmul_plain(dm.M, vd, transpose)))
-            fn()
-            times[name].append(cuda_ms(fn, 2 * T_OUT))
-    result["max_abs_err_vs_plain"] = worst_abs
-    result["kernel_us"] = 1e3 * float(np.mean(times["kernel"]))
-    result["plain_us"] = 1e3 * float(np.mean(times["plain"]))
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    result = {"F": F, "n": B, "terms": 6}
+    for split in ("kernel", "pre"):
+        dm = DenMatmul(M, dev, split=split)
+        worst_abs = 0.0
+        times = {"kernel": [], "plain": [], "kernel_cold": [], "library": [],
+                 "library_cold": []}
+        for transpose in (False, True):
+            tag = f"{split}_{'MT' if transpose else 'M'}"
+            ref = (M64.T if transpose else M64) @ v64
+            out, again = dm.apply(vd, transpose), dm.apply(vd, transpose)
+            plain = den_matmul_split_plain(dm.M, vd, transpose)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"den_matmul ({tag}) repeats differ")
+            rel = max_rel(out.cpu().numpy(), ref)
+            result[f"max_rel_err_fp64_{tag}"] = rel
+            result[f"plain_max_rel_err_fp64_{tag}"] = max_rel(
+                plain.cpu().numpy(), ref)
+            if not rel <= FP64_RTOL:
+                raise AssertionError(f"den_matmul ({tag}) rel err {rel} > "
+                                     f"{FP64_RTOL} against float64")
+            worst_abs = max(worst_abs, float((out - plain).abs().max()))
+
+            def kernel():
+                return dm.apply(vd, transpose)
+
+            def split_plain():
+                return den_matmul_split_plain(dm.M, vd, transpose)
+
+            def library():
+                return (Md.t() if transpose else Md) @ vd
+
+            # device time from CUDA graphs: L2 warm, 2*T back-to-back
+            # applications, plain, kernel, kernel, plain; then one
+            # application at a time with the L2 flushed
+            # (the plain version allocates its fp32 split copies of M on
+            # every call: 8 calls per graph)
+            for name in ("plain", "kernel", "kernel", "plain"):
+                times[name].append(warm_ms(kernel, 2 * T_OUT) if name == "kernel"
+                                   else warm_ms(split_plain, 8))
+            times["kernel_cold"].append(cold_ms(kernel, flush, 10))
+            times["library"].append(warm_ms(library, 2 * T_OUT))
+            times["library_cold"].append(cold_ms(library, flush, 10))
+        for name, t in times.items():
+            result[f"{split}_{name}_us"] = 1e3 * float(np.mean(t))
+        result[f"{split}_max_abs_err_vs_plain"] = worst_abs
+        del dm
+        torch.cuda.empty_cache()
+    result["bit_identical"] = True
     phase("kernel", **result)
     return result
 
 
 def scan_kernels_phase(dev, graph):
     """den_scan forward and backward at the production shape (L = 2,
-    Fp = 3584, N = 128, T = 49) against their plain versions."""
-    sk = StructuredKernels(analyze_chain_structure(graph), 1e-5,
-                           scan_impl="fused", device=dev)
-    L, Fp = sk.lay.L, sk.lay.F
-    if (L, Fp) != (2, 3584):
-        raise AssertionError(f"fused layout is L={L}, Fp={Fp}, expected "
-                             f"2, 3584")
-    gen = torch.Generator(device=dev).manual_seed(4)
-    x = torch.exp(torch.randn((T_OUT, P, B), generator=gen, device=dev))
-    xs = sk._hoisted_emissions(x)
-    kw = dict(L=L, T=T_OUT, leaky=sk.leaky)
+    Fp = 3584, N = 128, T = 49), split="kernel" and "pre", against their
+    plain versions."""
+    result = {"N": B, "T": T_OUT, "bit_identical": True}
+    for split in ("kernel", "pre"):
+        sk = StructuredKernels(analyze_chain_structure(graph), 1e-5,
+                               scan_impl="fused", split=split, device=dev)
+        L, Fp = sk.lay.L, sk.lay.F
+        if (L, Fp) != (2, 3584):
+            raise AssertionError(f"fused layout is L={L}, Fp={Fp}, expected "
+                                 f"2, 3584")
+        gen = torch.Generator(device=dev).manual_seed(4)
+        x = torch.exp(torch.randn((T_OUT, P, B), generator=gen, device=dev))
+        xs = sk._hoisted_emissions(x)
+        kw = dict(L=L, T=T_OUT, leaky=sk.leaky)
 
-    def fwd():
-        return den_scan.fused_forward(sk.M, *xs, sk.init, **kw)
+        def fwd():
+            return den_scan.fused_forward(sk.M, *xs, sk.init,
+                                          planes=sk._planes, **kw)
 
-    def fwd_plain():
-        return den_scan.fused_forward_plain(sk.M.t(), *xs, sk.init, **kw)
+        def fwd_plain():
+            return den_scan.fused_forward_plain(sk.M.t(), *xs, sk.init, **kw)
 
-    out, again, ref = fwd(), fwd(), fwd_plain()
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(out, again)):
-        raise AssertionError("den_scan forward repeats differ")
-    err = {name: assert_hist_close(a, r, name) for name, a, r in zip(
-        ("adash_hist", "asum", "logc", "a_final"), out, ref)}
-    total = out[3] * (1.0 + sk.leaky * sk._init_sum)
+        out, again, ref = fwd(), fwd(), fwd_plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"den_scan forward ({split}) repeats differ")
+        err = {name: assert_hist_close(a, r, name) for name, a, r in zip(
+            ("adash_hist", "asum", "logc", "a_final"), out, ref)}
+        total = out[3] * (1.0 + sk.leaky * sk._init_sum)
 
-    def bwd():
-        return den_scan.fused_backward(sk.M, *xs, out[1], sk.init, sk.real,
-                                       total, **kw)
+        def bwd():
+            return den_scan.fused_backward(sk.M, *xs, out[1], sk.init,
+                                           sk.real, total, planes=sk._planes,
+                                           **kw)
 
-    def bwd_plain():
-        return den_scan.fused_backward_plain(sk.M, *xs, out[1], sk.init,
-                                             sk.real, total, **kw)
+        def bwd_plain():
+            return den_scan.fused_backward_plain(sk.M, *xs, out[1], sk.init,
+                                                 sk.real, total, **kw)
 
-    beta, beta_again, beta_ref = bwd(), bwd(), bwd_plain()
-    torch.cuda.synchronize()
-    if not torch.equal(beta, beta_again):
-        raise AssertionError("den_scan backward repeats differ")
-    err["beta_hist"] = assert_hist_close(beta, beta_ref, "beta_hist")
-    rel = {k: float((a - r).abs().max() / r.abs().max())
-           for k, a, r in (("adash_hist", out[0], ref[0]),
-                           ("beta_hist", beta, beta_ref))}
-    fwd_ms, fwd_plain_ms = alternate_ms(fwd_plain, fwd)
-    bwd_ms, bwd_plain_ms = alternate_ms(bwd_plain, bwd)
-    result = {"L": L, "Fp": Fp, "N": B, "T": T_OUT, "bit_identical": True,
-              "max_abs_err": err, "max_err_rel_to_max": rel,
-              "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
-              "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms}
+        beta, beta_again, beta_ref = bwd(), bwd(), bwd_plain()
+        torch.cuda.synchronize()
+        if not torch.equal(beta, beta_again):
+            raise AssertionError(f"den_scan backward ({split}) repeats differ")
+        err["beta_hist"] = assert_hist_close(beta, beta_ref, "beta_hist")
+        result[f"{split}_max_abs_err"] = err
+        result[f"{split}_max_err_rel_to_max"] = {
+            k: float((a - r).abs().max() / r.abs().max())
+            for k, a, r in (("adash_hist", out[0], ref[0]),
+                            ("beta_hist", beta, beta_ref))}
+        for tag, pair in (("fwd", (fwd_plain, fwd)), ("bwd", (bwd_plain, bwd))):
+            ms, plain_ms = alternate_ms(*pair)
+            result[f"{split}_{tag}_ms"] = ms
+            result[f"{split}_{tag}_plain_ms"] = plain_ms
+        del out, again, ref, beta, beta_again, beta_ref, xs, x, sk
+    # bounds of one scan: T frames of six bf16 products of M [Fp, Fp] with
+    # [Fp, N]; bytes of each input read once and each output written once
+    LFN, FN = 2 * 3584 * B, 3584 * B
+    flops = T_OUT * 6 * 2 * 3584 ** 2 * B
+    emissions = T_OUT * (LFN + (LFN - FN) + FN)
+    result["fwd_bound"] = bound(4 * (3584 ** 2 + emissions + 2 * 3584
+                                     + T_OUT * LFN + 2 * T_OUT * B + B), flops)
+    result["bwd_bound"] = bound(4 * (3584 ** 2 + emissions + T_OUT * B
+                                     + 4 * 3584 + B + T_OUT * LFN), flops)
     phase("scan_kernels", **result)
     return result
 
 
 def den_phase(dev, graph):
+    """The loop den (scan_impl="loop") through den_matmul, split="kernel"
+    and split="pre", against the torch.matmul path; the pre run is
+    den_matmul_pre's path."""
     x = den_input(dev)
-    den_k = DenominatorComputation(graph, leaky=1e-5, device=dev)
-    den_p = DenominatorComputation(graph, leaky=1e-5, matmul_impl="plain",
+    den_k = DenominatorComputation(graph, leaky=1e-5, scan_impl="loop",
                                    device=dev)
+    den_p = DenominatorComputation(graph, leaky=1e-5, matmul_impl="plain",
+                                   scan_impl="loop", device=dev)
+    den_pre = DenominatorComputation(graph, leaky=1e-5, scan_impl="loop",
+                                     split="pre", device=dev)
     before = DenMatmul.launches
     lp_k, post_k = den_k.forward_backward(x)
     torch.cuda.synchronize()
@@ -299,6 +405,14 @@ def den_phase(dev, graph):
     if launches != 2 * T_OUT:
         raise AssertionError(f"den forward-backward launched den_matmul "
                              f"{launches} times, expected {2 * T_OUT}")
+    # den_matmul_pre's path: its count starts at 0 here
+    DenMatmul.launches_pre = 0
+    lp_pre, post_pre = den_pre.forward_backward(x)
+    torch.cuda.synchronize()
+    pre_launches = DenMatmul.launches_pre
+    if pre_launches != 2 * T_OUT:
+        raise AssertionError(f"den (split='pre') launched den_matmul_pre "
+                             f"{pre_launches} times, expected {2 * T_OUT}")
     lp_p, post_p = den_p.forward_backward(x)
     lp_r, post_r = den_k.forward_backward(x)
     torch.cuda.synchronize()
@@ -306,11 +420,13 @@ def den_phase(dev, graph):
         raise AssertionError("den forward-backward repeats differ")
     if not (torch.isfinite(lp_k).all() and torch.isfinite(post_k).all()):
         raise AssertionError("den output not finite")
-    torch.testing.assert_close(lp_k, lp_p, rtol=LOGP_RTOL, atol=0)
-    torch.testing.assert_close(post_k, post_p, rtol=POST_RTOL, atol=POST_ATOL)
-    ms = {"kernel": [], "plain": []}
-    for name, den in (("plain", den_p), ("kernel", den_k), ("kernel", den_k),
-                      ("plain", den_p)):
+    for lp, post in ((lp_k, post_k), (lp_pre, post_pre)):
+        torch.testing.assert_close(lp, lp_p, rtol=LOGP_RTOL, atol=0)
+        torch.testing.assert_close(post, post_p, rtol=POST_RTOL,
+                                   atol=POST_ATOL)
+    ms = {"kernel": [], "plain": [], "pre": []}
+    for name, den in (("plain", den_p), ("kernel", den_k), ("pre", den_pre),
+                      ("pre", den_pre), ("kernel", den_k), ("plain", den_p)):
         ms[name].append(cuda_ms(lambda: den.forward_backward(x), 1))
 
     # the same code on a small graph against the float64 oracle
@@ -324,21 +440,26 @@ def den_phase(dev, graph):
         np.testing.assert_allclose(lp_s[b].item(), rlp, rtol=LOGP_RTOL)
         np.testing.assert_allclose(post_s[b].cpu().numpy(), rpost,
                                    rtol=POST_RTOL, atol=POST_ATOL)
-    phase("den", B=B, T=T_OUT, P=P, launches=launches, bit_identical=True,
+    phase("den", B=B, T=T_OUT, P=P, launches=launches,
+          pre_launches=pre_launches, bit_identical=True,
           logp_max_rel_vs_plain=float(((lp_k - lp_p).abs()
                                        / lp_p.abs()).max()),
           post_max_abs_vs_plain=float((post_k - post_p).abs().max()),
+          pre_logp_max_rel_vs_plain=float(((lp_pre - lp_p).abs()
+                                           / lp_p.abs()).max()),
+          pre_post_max_abs_vs_plain=float((post_pre - post_p).abs().max()),
           kernel_ms=float(np.mean(ms["kernel"])),
+          pre_ms=float(np.mean(ms["pre"])),
           plain_ms=float(np.mean(ms["plain"])), small_vs_fp64="ok")
-    del post_k, post_p, post_r, x
-    return den_k
+    del post_k, post_p, post_r, post_pre, x, den_pre
+    return den_k, pre_launches
 
 
 def den_fused_phase(dev, graph, den_loop):
-    """The production den with scan_impl="fused" against the loop path."""
+    """The default den (scan_impl="auto", which a card resolves to the
+    fused scans) against the loop path."""
     x = den_input(dev)
-    den_f = DenominatorComputation(graph, leaky=1e-5, scan_impl="fused",
-                                   device=dev)
+    den_f = DenominatorComputation(graph, leaky=1e-5, device=dev)
     counts = (den_scan.fused_forward, den_scan.fused_backward, DenMatmul)
     before = [c.launches for c in counts]
     lp_f, post_f = den_f.forward_backward(x)
@@ -367,13 +488,13 @@ def den_fused_phase(dev, graph, den_loop):
                                            scan_impl="fused", device=dev),
                     small, xs, (0, 77), 1e-4, dev)
     phase("den_fused", B=B, T=T_OUT, P=P, launches_fwd_bwd_matmul=launches,
-          bit_identical=True,
+          bit_identical=True, fused_faster=fused_ms < loop_ms,
           logp_max_rel_vs_loop=float(((lp_f - lp_l).abs()
                                       / lp_l.abs()).max()),
           post_max_abs_vs_loop=float((post_f - post_l).abs().max()),
           fused_ms=fused_ms, loop_ms=loop_ms, small_vs_fp64="ok")
     del post_f, post_r
-    return lp_l, post_l
+    return lp_l, post_l, den_f
 
 
 def segment_reduce_phase(dev, den_b):
@@ -399,8 +520,22 @@ def segment_reduce_phase(dev, den_b):
     torch.testing.assert_close(out, ref, rtol=REDUCE_TOL, atol=REDUCE_TOL)
     err = float((out - ref).abs().max())
     ms, plain_ms = alternate_ms(plain, kernel)
+    # the library call: one index_add_ of every slot into its block's row
+    # (the plain version without its index set-up), on a zeroed output
+    NB, K, n = vals.shape
+    key = labels.to(torch.int64)
+    rows = (torch.arange(NB, device=dev)[:, None] * (AC + 1)
+            + torch.where((key >= 0) & (key < AC), key, AC)).reshape(-1)
+    acc = torch.zeros((NB * (AC + 1), n), device=dev)
+    flat = vals.reshape(NB * K, n)
+    acc.index_add_(0, rows, flat)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, rows, flat), 3)
+    # bytes: vals and labels read once, out written once
     result = {"shape": list(vals.shape), "bit_identical": True,
-              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              "bound": bound(4 * (vals.numel() + labels.numel() + out.numel()),
+                             vals.numel())}
     phase("segment_reduce", **result)
     return result
 
@@ -524,10 +659,21 @@ def small_step_phase(dev):
           loss=float(outs["card"].loss), rel_diff=worst)
 
 
-def train_phase(dev, den, name, counters, per_step):
+def train_phase(dev, den, name, counters, per_step, check_den=None):
     """1 warm-up + 5 timed flagship steps.  counters: {kernel name: object
     with a `launches` count}; each count is set to 0 before the steps and
-    must grow by per_step[name] in every step."""
+    must grow by per_step[name] in every step.  check_den: another den
+    that each step's den input is run through afterwards, to hold `den`
+    against it on the nnet outputs that training produced."""
+    seen = []
+    if check_den is not None:
+        run = den.forward_backward
+
+        def keep_input(x, *args, **kwargs):
+            seen.append(x.detach().clone())
+            return run(x, *args, **kwargs)
+
+        den.forward_backward = keep_input
     rng = np.random.default_rng(0)
     model = build_model(str(ROOT / "configs" / "cnn_tdnn.xconfig"))
     num_graph = bench_num_graph(B, T_OUT, AN, P, rng)
@@ -550,7 +696,7 @@ def train_phase(dev, den, name, counters, per_step):
     # the main path: every kernel count starts at 0 here
     for counter in counters.values():
         counter.launches = 0
-    step_ms, losses = [], []
+    step_ms, losses, den_logprobs = [], [], []
     for i in range(6):
         before = {k: c.launches for k, c in counters.items()}
         start = torch.cuda.Event(enable_timing=True)
@@ -571,12 +717,31 @@ def train_phase(dev, den, name, counters, per_step):
                                      f"{c.launches - before[k]} times, "
                                      f"expected {per_step[k]}")
         losses.append(loss)
+        den_logprobs.append(float(out.den_logprob))
         if i > 0:                       # step 0 is the warm-up
             step_ms.append(start.elapsed_time(end))
     launches = {k: c.launches for k, c in counters.items()}
     mean_ms = float(np.mean(step_ms))
+    checked = {}
+    if check_den is not None:
+        del den.forward_backward
+        worst_lp = worst_post = 0.0
+        for x in seen:
+            lp, post = den.forward_backward(x)
+            lp_c, post_c = check_den.forward_backward(x)
+            torch.testing.assert_close(lp, lp_c, rtol=LOGP_RTOL, atol=0)
+            torch.testing.assert_close(post, post_c, rtol=POST_RTOL,
+                                       atol=POST_ATOL)
+            worst_lp = max(worst_lp, float(((lp - lp_c).abs()
+                                            / lp_c.abs()).max()))
+            worst_post = max(worst_post, float((post - post_c).abs().max()))
+        checked = {"den_inputs_checked": len(seen),
+                   "den_logp_max_rel_vs_check": worst_lp,
+                   "den_post_max_abs_vs_check": worst_post}
+        del seen
     phase(name, B=B, T_in=T_IN, T_out=T_OUT, timed_steps=len(step_ms),
           step_ms=mean_ms, step_ms_each=step_ms, losses=losses,
+          den_logprobs=den_logprobs, **checked,
           train_audio_sec_per_s_per_chip=B * T_IN / 100.0 / (mean_ms / 1e3),
           max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
           **{f"{k}_launches": v for k, v in launches.items()})
@@ -593,8 +758,8 @@ def main():
                              "expected (7052 states, F=3526)")
     k = kernel_phase(dev, layout)
     scan = scan_kernels_phase(dev, graph)
-    den = den_phase(dev, graph)
-    lp_s, post_s = den_fused_phase(dev, graph, den)
+    den, pre_launches = den_phase(dev, graph)
+    lp_s, post_s, den_f = den_fused_phase(dev, graph, den)
     red_launches, den_b = den_blocked_phase(dev, graph, lp_s, post_s)
     del lp_s, post_s
     red = segment_reduce_phase(dev, den_b)
@@ -603,38 +768,53 @@ def main():
     launches, losses = train_phase(dev, den, "train",
                                    {"den_matmul": DenMatmul},
                                    {"den_matmul": 2 * T_OUT})
-    den_f = DenominatorComputation(graph, leaky=1e-5, scan_impl="fused",
-                                   device=dev)
     scan_counts = {"den_scan_fwd": den_scan.fused_forward,
                    "den_scan_bwd": den_scan.fused_backward,
                    "den_matmul": DenMatmul}
     fused_launches, fused_losses = train_phase(
         dev, den_f, "train_fused", scan_counts,
-        {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0})
+        {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0},
+        check_den=den)
     # same seeds, weights, batch and SpecAugment generator as "train"
     np.testing.assert_allclose(fused_losses[0], losses[0], rtol=SMALL_RTOL,
                                err_msg="first loss, fused vs loop den")
     src = "kaldi_fp16_tpu_torch/csrc/"
+    F, n = k["F"], k["n"]
+    mm_io = 4 * 2 * F * n                     # v read, out written
+    mm_flops = 6 * 2 * F * F * n              # six bf16 products
+    mm_bound = {"kernel": bound(4 * F * F + mm_io, mm_flops),
+                "pre": bound(3 * 2 * F * F + mm_io, mm_flops)}
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              library_ms):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     print(json.dumps({"kernels": [
-        {"name": "den_matmul", "route": "cuda", "source": src + "den_matmul.cu",
-         "replaces": KERNEL_REPLACES, "launches": launches["den_matmul"],
-         "max_abs_err": k["max_abs_err_vs_plain"],
-         "ms": k["kernel_us"] / 1e3, "plain_ms": k["plain_us"] / 1e3},
-        {"name": "den_scan_fwd", "route": "cuda", "source": src + "den_scan.cu",
-         "replaces": SCAN_REPLACES["fwd"],
-         "launches": fused_launches["den_scan_fwd"],
-         "max_abs_err": max(v for n, v in scan["max_abs_err"].items()
-                            if n != "beta_hist"),
-         "ms": scan["fwd_ms"], "plain_ms": scan["fwd_plain_ms"]},
-        {"name": "den_scan_bwd", "route": "cuda", "source": src + "den_scan.cu",
-         "replaces": SCAN_REPLACES["bwd"],
-         "launches": fused_launches["den_scan_bwd"],
-         "max_abs_err": scan["max_abs_err"]["beta_hist"],
-         "ms": scan["bwd_ms"], "plain_ms": scan["bwd_plain_ms"]},
-        {"name": "segment_reduce", "route": "cuda",
-         "source": src + "segment_reduce.cu", "replaces": REDUCE_REPLACES,
-         "launches": red_launches, "max_abs_err": red["max_abs_err"],
-         "ms": red["ms"], "plain_ms": red["plain_ms"]},
+        entry("den_matmul", "den_matmul.cu", KERNEL_REPLACES,
+              launches["den_matmul"], k["kernel_max_abs_err_vs_plain"],
+              k["kernel_kernel_us"] / 1e3, k["kernel_plain_us"] / 1e3,
+              mm_bound["kernel"], k["kernel_library_us"] / 1e3),
+        entry("den_matmul_pre", "den_matmul.cu", PRE_REPLACES, pre_launches,
+              k["pre_max_abs_err_vs_plain"], k["pre_kernel_us"] / 1e3,
+              k["pre_plain_us"] / 1e3, mm_bound["pre"],
+              k["pre_library_us"] / 1e3),
+        entry("den_scan_fwd", "den_scan.cu", SCAN_REPLACES["fwd"],
+              fused_launches["den_scan_fwd"],
+              max(v for n, v in scan["kernel_max_abs_err"].items()
+                  if n != "beta_hist"),
+              scan["kernel_fwd_ms"], scan["kernel_fwd_plain_ms"],
+              scan["fwd_bound"], None),
+        entry("den_scan_bwd", "den_scan.cu", SCAN_REPLACES["bwd"],
+              fused_launches["den_scan_bwd"],
+              scan["kernel_max_abs_err"]["beta_hist"], scan["kernel_bwd_ms"],
+              scan["kernel_bwd_plain_ms"], scan["bwd_bound"], None),
+        entry("segment_reduce", "segment_reduce.cu", REDUCE_REPLACES,
+              red_launches, red["max_abs_err"], red["ms"], red["plain_ms"],
+              red["bound"], red["library_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,13 @@
 
 The JAX package beside it is the reference: every module here has a
 counterpart of the same name there, and tests/test_torch_*.py run both
-on the same numpy inputs.  This package imports torch and never jax; of
-the JAX package it uses only the jax-free `kaldi_fp16_tpu.io`.
+on the same numpy inputs.  This package imports torch and never jax, and
+nothing of the JAX package: what it needs of a jax-free module there
+(the FST classes, the CSR conversion) it carries as its own copy.
+Entry points run on the current CUDA device unless given a device
+(`device.default_device`); CPU runs pass device="cpu".
 
+  io/        FST data classes and CSR conversion (numpy)
   models/    xconfig -> layers -> nn.Module network (bf16 compute, fp32 masters)
   chain/     LF-MMI objective: numerator, structured and blocked
              denominator, autograd

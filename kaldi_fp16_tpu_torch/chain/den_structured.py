@@ -17,8 +17,8 @@ Two scan implementations, as in the JAX package (`scan_impl`):
 
   "loop"   the T-step recursions are Python loops (the JAX package's
            lax.scan).  Each in-scan M product (n = N <= 128 columns) goes to
-           the hand-written CUDA kernel through `DenMatmul`
-           (ops/den_matmul.py), 2*T launches per forward-backward.
+           the hand-written CUDA kernels through `DenMatmul`
+           (ops/den_matmul.py), 2*T applications per forward-backward.
   "fused"  each recursion is one call of the fused scan kernels
            (ops/den_scan.py, csrc/den_scan.cu), which fuse every frame's M
            product with its elementwise update.  Needs one chain-length
@@ -28,8 +28,12 @@ Two scan implementations, as in the JAX package (`scan_impl`):
            sizes, and the posteriors) then runs on the padded layout, as in
            the JAX package.
 
-"auto" resolves to "loop", as the JAX package's "auto" resolves to its XLA
-scan.  Dispatch depends on shapes only: a build or launch failure raises
+"auto" resolves to "fused" on a card and to "loop" on the CPU
+(`resolve_scan_impl`): on the H100 the fused scans' tensor-core products
+take the den forward-backward from the loop's host-bound 27-39 ms to
+~15 ms (PERF.md), while on the CPU the plain loop is what the tests
+compare with the JAX package's XLA scan.  Dispatch depends on
+shapes only: a build or launch failure raises
 and never switches the path.  The wide bulk-posterior product stays an
 fp32 torch.matmul, as the JAX package left it to XLA.  No op here uses
 float atomics (the per-pdf reduce is a product against a stored one-hot,
@@ -44,7 +48,10 @@ import numpy as np
 import torch
 
 from kaldi_fp16_tpu_torch.chain.den_layout import ChainLayout, pad_chains
-from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul, fp32_matmuls
+from kaldi_fp16_tpu_torch.device import resolve_device
+from kaldi_fp16_tpu_torch.ops.den_matmul import (
+    DenMatmul, fp32_matmuls, split_planes,
+)
 from kaldi_fp16_tpu_torch.ops.den_scan import (
     fused_backward, fused_forward, fused_scan_supported,
 )
@@ -54,25 +61,43 @@ AC = 128   # slots per chunk of the posterior one-hot reduce
 KERNEL_MAX_N = 128   # widest vector the in-scan kernel path takes
 
 
+def resolve_scan_impl(scan_impl: str, device: torch.device) -> str:
+    """"auto" -> "fused" on a CUDA device, "loop" elsewhere; other values
+    unchanged.  "fused" still runs the loop where the layout or batch does
+    not fit the fused scans (`fused_scan_supported`)."""
+    if scan_impl != "auto":
+        return scan_impl
+    return "fused" if torch.device(device).type == "cuda" else "loop"
+
+
 class StructuredKernels:
     """Device-side forward/backward over a ChainLayout (exact mode).
 
     matmul_impl: "kernel" sends every in-scan M product (n <= 128) through
     `DenMatmul` (the CUDA kernel on a card, its plain version on the CPU);
     "plain" sends them to torch.matmul, for comparisons.
-    scan_impl: "auto" (= "loop"), "loop" or "fused" (module docstring).
+    scan_impl: "auto" ("fused" on a card, else "loop"), "loop" or
+    "fused" (module docstring).
+    split: where the kernels split M into bf16 terms, "kernel" (in
+    registers, from the fp32 M) or "pre" (once, into planes that every
+    product streams); the loop's DenMatmul and the fused scans both use it.
+    device: default the current CUDA device.
     """
 
     def __init__(self, layout: ChainLayout, leaky: float,
                  hoist_bytes: int = 1 << 30, matmul_impl: str = "kernel",
-                 scan_impl: str = "auto", device=None):
+                 scan_impl: str = "auto", split: str = "kernel",
+                 device=None):
         if matmul_impl not in ("kernel", "plain"):
             raise ValueError(f"matmul_impl must be 'kernel' or 'plain', "
                              f"got {matmul_impl!r}")
+        if split not in ("kernel", "pre"):
+            raise ValueError(f"split must be 'kernel' or 'pre', got {split!r}")
         if scan_impl not in ("auto", "fused", "loop"):
             raise ValueError(f"scan_impl must be 'auto', 'fused' or 'loop', "
                              f"got {scan_impl!r}")
-        self.scan_impl = "loop" if scan_impl == "auto" else scan_impl
+        dev = resolve_device(device)
+        self.scan_impl = resolve_scan_impl(scan_impl, dev)
         # the fused scans need the chain axis padded to the row-tile width;
         # the inert fake chains change nothing on the loop path
         self._fused_ready = (self.scan_impl == "fused"
@@ -83,14 +108,18 @@ class StructuredKernels:
         self.leaky = float(leaky)
         self.hoist_bytes = hoist_bytes
         L, F = layout.L, layout.F
-        dev = torch.device("cpu") if device is None else torch.device(device)
 
         def t(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
         self.M = t(layout.M).contiguous()                          # [F, F]
-        self._kernel = (DenMatmul(self.M, dev) if matmul_impl == "kernel"
-                        else None)
+        self._kernel = (DenMatmul(self.M, dev, split=split)
+                        if matmul_impl == "kernel" else None)
+        # the fused scans' split="pre" operand (the planes DenMatmul made)
+        self._planes = None
+        if self._fused_ready and split == "pre" and dev.type == "cuda":
+            self._planes = (self._kernel.A if self._kernel is not None
+                            else split_planes(self.M, self.M.shape[0]))
         self.self_pdf = t(layout.self_pdf.reshape(-1), torch.long)  # [L*F]
         self.self_coef = t(layout.self_coef)                       # [L, F]
         self.has_fwd = L > 1 and float(np.abs(layout.fwd_coef).sum()) > 0
@@ -304,14 +333,15 @@ class StructuredKernels:
         xs_self, xs_fwd, xs_res = self._hoisted_emissions(x_tpn)
         adash_hist, asum_hist, logcs, a_fin = fused_forward(
             self.M, xs_self, xs_fwd, xs_res, self.init, L=L, T=T,
-            leaky=leaky)
+            leaky=leaky, planes=self._planes)
         total_prob = a_fin * (1.0 + leaky * self._init_sum)
         log_prob = torch.log(total_prob) + logcs.sum(dim=0)
         if not compute_grad:
             return log_prob, None
         beta_hist = fused_backward(
             self.M, xs_self, xs_fwd, xs_res, asum_hist, self.init,
-            self.real, total_prob, L=L, T=T, leaky=leaky)
+            self.real, total_prob, L=L, T=T, leaky=leaky,
+            planes=self._planes)
         posteriors = self._bulk_posteriors(adash_hist, asum_hist, beta_hist,
                                            x_tpn, N, T, P)
         return log_prob, posteriors

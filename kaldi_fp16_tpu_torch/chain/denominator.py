@@ -39,6 +39,7 @@ import torch
 from kaldi_fp16_tpu_torch.chain.den_layout import analyze_chain_structure
 from kaldi_fp16_tpu_torch.chain.den_structured import StructuredKernels
 from kaldi_fp16_tpu_torch.chain.graph import DenominatorGraph
+from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.ops.den_matmul import fp32_matmuls
 from kaldi_fp16_tpu_torch.ops.segment_reduce import segment_reduce
 
@@ -87,7 +88,7 @@ class _BlockedOrder:
         self.chunks = J
         self.padded = Ap
         self.onehot = onehot.reshape(NB, J, AC, SB)
-        dev = torch.device("cpu") if device is None else torch.device(device)
+        dev = resolve_device(device)
 
         def t(a):
             return torch.as_tensor(a, device=dev)
@@ -107,9 +108,11 @@ class DenominatorComputation:
     layout: "auto" (structured when the graph decomposes, else blocked),
     "structured" (ValueError if it does not decompose) or "blocked".
     `layout_used` says which one runs.
-    matmul_impl, scan_impl: the structured layout's options
-    (den_structured.py): "kernel" / "plain" den matmul, "auto" (= "loop") /
-    "loop" / "fused" scans.
+    matmul_impl, scan_impl, split: the structured layout's options
+    (den_structured.py): "kernel" / "plain" den matmul, "auto" ("fused"
+    on a card, "loop" on the CPU) / "loop" / "fused" scans, "kernel" /
+    "pre" split of M.
+    device: default the current CUDA device; CPU runs pass "cpu".
     posterior_reduce: the blocked layout's per-pdf posterior reduce,
     "einsum" (one-hot product) or "kernel" (segment_reduce).
     """
@@ -117,7 +120,8 @@ class DenominatorComputation:
     def __init__(self, graph: DenominatorGraph, leaky: float = 1e-5,
                  hoist_bytes: int = 1 << 30, matmul_impl: str = "kernel",
                  scan_impl: str = "auto", layout: str = "auto",
-                 posterior_reduce: str = "einsum", device=None):
+                 posterior_reduce: str = "einsum", split: str = "kernel",
+                 device=None):
         if layout not in ("auto", "structured", "blocked"):
             raise ValueError(f"layout must be 'auto', 'structured' or "
                              f"'blocked', got {layout!r}")
@@ -133,7 +137,7 @@ class DenominatorComputation:
             if lay is not None:
                 self._structured = StructuredKernels(
                     lay, leaky, hoist_bytes, matmul_impl=matmul_impl,
-                    scan_impl=scan_impl, device=device)
+                    scan_impl=scan_impl, split=split, device=device)
             elif layout == "structured":
                 raise ValueError(
                     "layout='structured' requested but the graph does not "
@@ -143,7 +147,7 @@ class DenominatorComputation:
         if self._structured is not None:
             return
 
-        dev = torch.device("cpu") if device is None else torch.device(device)
+        dev = resolve_device(device)
         S, P = graph.num_states, graph.num_pdfs
         # secondary within-block sort = the gather index each order uses
         self._dst_o = _BlockedOrder(graph.dst, S, graph, graph.src, dev)

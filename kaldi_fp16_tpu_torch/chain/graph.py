@@ -12,9 +12,9 @@ CSR uploads (ref: chain_loss.go:44-127).  Padding arcs carry mask=0 and
 are routed to a dummy state/pdf so they contribute nothing.
 
 Copy of kaldi_fp16_tpu/chain/graph.py (numpy only).  The JAX package's
-`chain/__init__` imports jax, so the port carries its own copy; it reuses
-the jax-free `kaldi_fp16_tpu.io` parsers.  tests/test_torch_denominator.py
-holds the two equal.
+`chain/__init__` imports jax, so the port carries its own copy, and its
+own copies of the FST classes and the CSR conversion (kaldi_fp16_tpu_torch/
+io).  tests/test_torch_denominator.py holds the two equal.
 """
 
 from __future__ import annotations
@@ -24,8 +24,8 @@ from typing import List, Sequence
 
 import numpy as np
 
-from kaldi_fp16_tpu.io.fst import Fst
-from kaldi_fp16_tpu.io.sparse import CSR, fst_to_csr
+from kaldi_fp16_tpu_torch.io.fst import Fst, FstArc, FstState
+from kaldi_fp16_tpu_torch.io.sparse import CSR, fst_to_csr
 
 LOG_ZERO = -1.0e30  # matches reference kLogZero (chain.cu:37)
 
@@ -105,7 +105,6 @@ def make_simple_den_fst(num_pdfs: int, num_states: int = 4,
 
     Every state is final with weight 0 (prob 1), matching the chain
     denominator convention "all states final" (ref: chain_den.cu:7)."""
-    from kaldi_fp16_tpu.io.fst import FstArc, FstState
     rng = np.random.default_rng(seed)
     states = [FstState(final=0.0) for _ in range(num_states)]
     for s in range(num_states):
@@ -134,7 +133,6 @@ def make_phone_lm_den_fst(num_pdfs: int = 3080, num_phones: int = 3526,
     random generator this graph has gather locality (self-loops and
     in-phone arcs touch neighboring states), which is what the blocked
     denominator kernels see in production."""
-    from kaldi_fp16_tpu.io.fst import FstArc, FstState
     rng = np.random.default_rng(seed)
     S = num_phones * states_per_phone
     states = [FstState(final=0.0) for _ in range(S)]

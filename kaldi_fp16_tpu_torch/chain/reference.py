@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from kaldi_fp16_tpu_torch.chain.graph import DenominatorGraph, LOG_ZERO
-from kaldi_fp16_tpu.io.sparse import CSR
+from kaldi_fp16_tpu_torch.io.sparse import CSR
 
 
 def _logadd(a: float, b: float) -> float:

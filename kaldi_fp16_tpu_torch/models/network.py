@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.models.layers import (
     CombineFeatureMapsSpec, ConvReluBNSpec, Layer, SpecAugmentSpec, TDNNFSpec,
 )
@@ -294,6 +295,7 @@ def spec_augment_masks(spec: SpecAugmentSpec, B: int, T: int,
     [0, freq_max_proportion * D], and time masks covering about
     time_zeroed_proportion of the frames."""
     D = spec.dim
+    device = resolve_device(device)
     gdev = generator.device
 
     def randint(high, size):
@@ -446,6 +448,7 @@ class _BNState(nn.Module):
 
     def __init__(self, dim: int, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.register_buffer("count", torch.zeros((), device=device))
         self.register_buffer("mean", torch.zeros(dim, device=device))
         self.register_buffer("var", torch.ones(dim, device=device))
@@ -460,6 +463,7 @@ class _LayerState(nn.Module):
     def __init__(self, params: Dict[str, torch.Tensor],
                  bn_dims: Dict[str, int], device=None):
         super().__init__()
+        device = resolve_device(device)
         for name, value in params.items():
             self.register_parameter(name, nn.Parameter(value))
         for name, dim in bn_dims.items():
@@ -479,6 +483,7 @@ class Network(nn.Module):
     def __init__(self, model: Model, generator: torch.Generator,
                  device=None):
         super().__init__()
+        device = resolve_device(device)
         self.model = model
         self.layers = nn.ModuleDict()
         self._keys: Dict[str, str] = {}

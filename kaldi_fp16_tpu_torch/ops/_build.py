@@ -24,6 +24,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kaldi_fp16_tpu_torch"
 LIB_NAME = "libkaldi_fp16_tpu_torch.so"
@@ -108,22 +110,50 @@ def build() -> tuple:
     return lib, seconds
 
 
+def launch(name: str, dev: torch.device, *args) -> None:
+    """Call the C entry point `name` on `dev`'s current stream.  Tensors
+    are passed as pointers (each must be contiguous), other arguments as
+    they are; a launch error raises."""
+    for a in args:
+        if isinstance(a, torch.Tensor) and not a.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous")
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(library(), name)(*c_args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The built kernels, loaded once per process, with C signatures set."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # den_matmul(M, v, out, F, n, transpose, stream) -> cudaError_t
-    lib.den_matmul.argtypes = [p, p, p, i, i, i, p]
+    # den_split_v(v, panels, F, n, Fp, stream) -> cudaError_t
+    lib.den_split_v.argtypes = [p, p, i, i, i, p]
+    lib.den_split_v.restype = i
+    # den_split_planes(M, planes, F, Fp, stream)
+    lib.den_split_planes.argtypes = [p, p, i, i, p]
+    lib.den_split_planes.restype = i
+    # den_mma_slices(Fp, np) -> K slices of the product
+    lib.den_mma_slices.argtypes = [i, i]
+    lib.den_mma_slices.restype = i
+    # den_matmul(A, pre, v, out, panels, ws, F, Fp, n, slices, transpose,
+    #            terms, stream)
+    lib.den_matmul.argtypes = [p, i, p, p, p, p] + [i] * 6 + [p]
     lib.den_matmul.restype = i
-    # den_scan_forward(M, xs_self, xs_fwd, xs_res, init, state, parts, hist,
-    #                  asum, logc, a_final, L, F, N, T, leaky, stream)
-    lib.den_scan_forward.argtypes = [p] * 11 + [i] * 4 + [f, p]
+    # den_scan_forward(A, pre, xs_self, xs_fwd, xs_res, init, state, parts,
+    #                  panels, ws, hist, asum, logc, a_final,
+    #                  L, F, N, T, slices, leaky, stream)
+    lib.den_scan_forward.argtypes = [p, i] + [p] * 12 + [i] * 5 + [f, p]
     lib.den_scan_forward.restype = i
-    # den_scan_backward(M, xs_self, xs_fwd, xs_res, asum, init, real, total,
-    #                   state, parts, hist, L, F, N, T, leaky, stream)
-    lib.den_scan_backward.argtypes = [p] * 11 + [i] * 4 + [f, p]
+    # den_scan_backward(A, pre, xs_self, xs_fwd, xs_res, asum, init, real,
+    #                   total, state, parts, panels, ws, tot, hist,
+    #                   L, F, N, T, slices, leaky, stream)
+    lib.den_scan_backward.argtypes = [p, i] + [p] * 13 + [i] * 5 + [f, p]
     lib.den_scan_backward.restype = i
     lib.den_scan_row_block.argtypes = []
     lib.den_scan_row_block.restype = i

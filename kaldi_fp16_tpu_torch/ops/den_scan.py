@@ -25,8 +25,12 @@ tensors and a_final as [N].  `fused_backward` takes asum [T, N] (stats
 row 0) and total_prob [N] (row 0 of the TPU's [8, N]).
 
 `fused_forward` / `fused_backward` launch the hand-written CUDA kernels
-(csrc/den_scan.cu: one C call per scan enqueues the T frame launches) for
-CUDA tensors; for CPU tensors they compute the plain versions below, which
+(csrc/den_scan.cu: one C call per scan enqueues the 3T frame launches;
+each frame's product runs on the tensor cores through csrc/den_mma.cuh in
+the TPU kernels' 6-term bf16 split) for CUDA tensors; given `planes` (M
+split into bf16 planes by ops/den_matmul.py `split_planes`) the product
+streams them instead of splitting the fp32 M in registers (split="pre").
+For CPU tensors they compute the plain versions below, in fp32, which
 the tests compare against.  A CUDA tensor never falls back to a plain
 version: if the kernel cannot be built or launched, the call raises.
 Each wrapper's `launches` counts its kernel calls (one per scan).
@@ -36,7 +40,8 @@ from __future__ import annotations
 
 import torch
 
-from kaldi_fp16_tpu_torch.ops.den_matmul import fp32_matmuls
+from kaldi_fp16_tpu_torch.ops._build import launch, library
+from kaldi_fp16_tpu_torch.ops.den_matmul import fp32_matmuls, slices
 
 TK = 128     # chain-axis multiple the fused path requires (pad_chains)
 LANE = 128   # batch multiple the fused path requires
@@ -131,54 +136,64 @@ def _check(M, xs_self, xs_fwd, xs_res, init, L, T):
     return Fp, N
 
 
-def _launch(name, dev, *args):
-    """Call a den_scan C entry point on `dev`'s current stream; tensors are
-    passed as pointers.  Raise on a launch error."""
-    from kaldi_fp16_tpu_torch.ops._build import library
-    for a in args:
-        if isinstance(a, torch.Tensor) and not a.is_contiguous():
-            raise ValueError(f"{name}: every tensor must be contiguous")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-                  for a in args]
-        err = getattr(library(), name)(*c_args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+def _operand(M, planes, Fp):
+    """The product's A operand: the fp32 M, or its bf16 planes."""
+    if planes is None:
+        return M, 0
+    if (tuple(planes.shape) != (3, Fp, Fp) or planes.dtype != torch.bfloat16
+            or planes.device != M.device):
+        raise ValueError(f"planes must be bfloat16 (3, {Fp}, {Fp}) on "
+                         f"{M.device}, got {planes.dtype} "
+                         f"{tuple(planes.shape)} on {planes.device}")
+    return planes, 1
 
 
 def _workspace(L, Fp, N, dev):
-    from kaldi_fp16_tpu_torch.ops._build import library
-    rb = -(-Fp // library().den_scan_row_block())
-    return (torch.empty((2, L, Fp, N), dtype=torch.float32, device=dev),
-            torch.empty((2, rb, N), dtype=torch.float32, device=dev))
+    """(state [2, L, Fp, N], parts [2, Fp / chunk, N], panels, slice
+    partials, K slices)."""
+    nch = Fp // library().den_scan_row_block()
+    S = slices(Fp, N, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((2, L, Fp, N), **f32), torch.empty((2, nch, N), **f32),
+            torch.empty(3 * Fp * N, dtype=torch.bfloat16, device=dev),
+            torch.empty((S, Fp, N), **f32), S)
 
 
-def fused_forward(M, xs_self, xs_fwd, xs_res, init, *, L, T, leaky):
+def _check_cuda(dev, Fp, N):
+    if dev.type != "cuda":
+        raise ValueError(f"no den_scan kernel for {dev}")
+    if Fp % TK or N % LANE:
+        raise ValueError(f"the den_scan kernels need Fp % {TK} == 0 and "
+                         f"N % {LANE} == 0, got Fp={Fp}, N={N}")
+
+
+def fused_forward(M, xs_self, xs_fwd, xs_res, init, *, L, T, leaky,
+                  planes=None):
     """Alpha scan (see `fused_forward_plain`, which takes M^T).  M is the
-    untransposed [Fp, Fp] matrix: the kernel reads M^T by strides."""
+    untransposed [Fp, Fp] matrix: the kernel reads M^T from it (or from
+    its bf16 `planes`, if given)."""
     Fp, N = _check(M, xs_self, xs_fwd, xs_res, init, L, T)
     dev = xs_res.device
     if dev.type == "cpu":
         return fused_forward_plain(M.t(), xs_self, xs_fwd, xs_res, init,
                                    L=L, T=T, leaky=leaky)
-    if dev.type != "cuda":
-        raise ValueError(f"no den_scan kernel for {dev}")
+    _check_cuda(dev, Fp, N)
+    A, pre = _operand(M, planes, Fp)
     hist = torch.empty((T, L, Fp, N), dtype=torch.float32, device=dev)
     asum = torch.empty((T, N), dtype=torch.float32, device=dev)
     logc = torch.empty((T, N), dtype=torch.float32, device=dev)
     a_final = torch.empty((N,), dtype=torch.float32, device=dev)
-    state, parts = _workspace(L, Fp, N, dev)
-    _launch("den_scan_forward", dev, M, xs_self, xs_fwd, xs_res, init,
-            state, parts, hist, asum, logc, a_final, L, Fp, N, T,
-            float(leaky))
+    state, parts, panels, ws, S = _workspace(L, Fp, N, dev)
+    launch("den_scan_forward", dev, A, pre, xs_self, xs_fwd, xs_res, init,
+            state, parts, panels, ws, hist, asum, logc, a_final, L, Fp, N, T,
+            S, float(leaky))
     fused_forward.launches += 1
     return hist, asum, logc, a_final
 
 
 def fused_backward(M, xs_self, xs_fwd, xs_res, asum, init, real, total_prob,
-                   *, L, T, leaky):
-    """Beta scan (see `fused_backward_plain`)."""
+                   *, L, T, leaky, planes=None):
+    """Beta scan (see `fused_backward_plain`); `planes` as `fused_forward`."""
     Fp, N = _check(M, xs_self, xs_fwd, xs_res, init, L, T)
     dev = xs_res.device
     real = real.to(torch.float32)
@@ -191,13 +206,14 @@ def fused_backward(M, xs_self, xs_fwd, xs_res, asum, init, real, total_prob,
     if dev.type == "cpu":
         return fused_backward_plain(M, xs_self, xs_fwd, xs_res, asum, init,
                                     real, total_prob, L=L, T=T, leaky=leaky)
-    if dev.type != "cuda":
-        raise ValueError(f"no den_scan kernel for {dev}")
+    _check_cuda(dev, Fp, N)
+    A, pre = _operand(M, planes, Fp)
     hist = torch.empty((T, L, Fp, N), dtype=torch.float32, device=dev)
-    state, parts = _workspace(L, Fp, N, dev)
-    _launch("den_scan_backward", dev, M, xs_self, xs_fwd, xs_res, asum,
-            init, real.contiguous(), total_prob, state, parts, hist, L, Fp,
-            N, T, float(leaky))
+    state, parts, panels, ws, S = _workspace(L, Fp, N, dev)
+    tot = torch.empty((N,), dtype=torch.float32, device=dev)
+    launch("den_scan_backward", dev, A, pre, xs_self, xs_fwd, xs_res, asum,
+            init, real.contiguous(), total_prob, state, parts, panels, ws,
+            tot, hist, L, Fp, N, T, S, float(leaky))
     fused_backward.launches += 1
     return hist
 

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from kaldi_fp16_tpu_torch.ops._build import launch
+
 
 def segment_reduce_plain(vals: torch.Tensor, labels: torch.Tensor,
                          sb: int = 128) -> torch.Tensor:
@@ -64,14 +66,7 @@ def segment_reduce(vals: torch.Tensor, labels: torch.Tensor, sb: int = 128,
     out = torch.empty((NB, sb, n), dtype=torch.float32, device=dev)
     if n == 0 or NB == 0:
         return out
-    from kaldi_fp16_tpu_torch.ops._build import library
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library().segment_reduce(vals.data_ptr(), labels.data_ptr(),
-                                       out.data_ptr(), NB, K, n, sb, stream)
-    if err != 0:
-        raise RuntimeError(f"segment_reduce kernel launch failed: "
-                           f"cudaError_t {err}")
+    launch("segment_reduce", dev, vals, labels, out, NB, K, n, sb)
     segment_reduce.launches += 1
     return out
 

@@ -13,6 +13,8 @@ from typing import Iterator, NamedTuple, Tuple
 
 import torch
 
+from kaldi_fp16_tpu_torch.device import resolve_device
+
 
 class LossScaleState(NamedTuple):
     scale: torch.Tensor        # current multiplier
@@ -28,6 +30,8 @@ def init_loss_scale(initial: float = 65536.0, growth_interval: int = 2000,
                     growth_factor: float = 2.0, backoff_factor: float = 0.5,
                     min_scale: float = 1.0, max_scale: float = 2.0 ** 24,
                     device=None) -> LossScaleState:
+    device = resolve_device(device)
+
     def f(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
 

@@ -28,6 +28,7 @@ import torch
 
 from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
 from kaldi_fp16_tpu_torch.chain.graph import NumeratorGraphBatch
+from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.chain.objective import (
     ChainTrainingOpts, make_chain_objf_with_post,
 )
@@ -219,7 +220,9 @@ def make_train_step(model: Model, net: Network,
 
 def init_train_state(model: Model, generator: torch.Generator,
                      config: TrainConfig = TrainConfig(), device=None):
-    """(net, opt_state, loss_scale_state)."""
+    """(net, opt_state, loss_scale_state), on `device` (default: the
+    current CUDA device)."""
+    device = resolve_device(device)
     net = Network(model, generator, device)
     opt_state = init_sgd_state(net.params)
     scale_state = (init_loss_scale(device=device) if config.use_loss_scaling

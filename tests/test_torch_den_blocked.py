@@ -54,7 +54,8 @@ def test_blocked_orders_equal_the_originals(kind):
         jo = jax_den._BlockedOrder(getattr(jg, keys), num, jg,
                                    secondary=getattr(jg, secondary))
         po = port_den._BlockedOrder(getattr(pg, keys), num, pg,
-                                    secondary=getattr(pg, secondary))
+                                    secondary=getattr(pg, secondary),
+                                    device="cpu")
         assert (po.num_blocks, po.chunks, po.padded) == \
             (jo.num_blocks, jo.chunks, jo.padded)
         np.testing.assert_array_equal(po.onehot, jo.onehot)
@@ -67,6 +68,7 @@ def test_blocked_orders_equal_the_originals(kind):
 
 def _port(pg, x, **kw):
     lp, post = port_den.DenominatorComputation(pg, layout="blocked",
+                                               device="cpu",
                                                **kw).forward_backward(
         torch.from_numpy(x))
     return lp.numpy(), post.numpy()
@@ -105,13 +107,14 @@ def test_blocked_matches_structured_in_the_port(leaky):
     _, pg = _graphs("phone-lm")
     x = torch.from_numpy(np.random.default_rng(1).normal(
         size=(4, 7, 24)).astype(np.float32))
-    structured = port_den.DenominatorComputation(pg, leaky=leaky)
+    structured = port_den.DenominatorComputation(pg, leaky=leaky,
+                                                 device="cpu")
     assert structured.layout_used == "structured"
     lp_s, post_s = structured.forward_backward(x)
     for reduce in ("einsum", "kernel"):
         lp_b, post_b = port_den.DenominatorComputation(
-            pg, leaky=leaky, layout="blocked",
-            posterior_reduce=reduce).forward_backward(x)
+            pg, leaky=leaky, layout="blocked", posterior_reduce=reduce,
+            device="cpu").forward_backward(x)
         torch.testing.assert_close(lp_b, lp_s, rtol=LOGP_RTOL, atol=2e-6)
         torch.testing.assert_close(post_b, post_s, rtol=POST_RTOL,
                                    atol=POST_ATOL)
@@ -119,14 +122,16 @@ def test_blocked_matches_structured_in_the_port(leaky):
 
 def test_layouts_options_repeats_and_no_launch_on_cpu():
     jg, pg = _graphs("simple")
-    den = port_den.DenominatorComputation(pg, posterior_reduce="kernel")
+    den = port_den.DenominatorComputation(pg, posterior_reduce="kernel",
+                                          device="cpu")
     assert den.layout_used == "blocked"
     with pytest.raises(ValueError):
-        port_den.DenominatorComputation(pg, layout="structured")
+        port_den.DenominatorComputation(pg, layout="structured", device="cpu")
     with pytest.raises(ValueError):
-        port_den.DenominatorComputation(pg, layout="dense")
+        port_den.DenominatorComputation(pg, layout="dense", device="cpu")
     with pytest.raises(ValueError):
-        port_den.DenominatorComputation(pg, posterior_reduce="pallas")
+        port_den.DenominatorComputation(pg, posterior_reduce="pallas",
+                                        device="cpu")
     x = torch.from_numpy(np.random.default_rng(2).normal(
         size=(2, 5, 6)).astype(np.float32))
     before = (segment_reduce.launches, DenMatmul.launches)

@@ -29,7 +29,9 @@ import torch
 from kaldi_fp16_tpu_torch.chain.den_layout import (
     analyze_chain_structure, pad_chains,
 )
-from kaldi_fp16_tpu_torch.chain.den_structured import StructuredKernels
+from kaldi_fp16_tpu_torch.chain.den_structured import (
+    StructuredKernels, resolve_scan_impl,
+)
 from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
 from kaldi_fp16_tpu_torch.chain.graph import (
     DenominatorGraph, make_phone_lm_den_fst,
@@ -38,7 +40,7 @@ from kaldi_fp16_tpu_torch.chain.reference import (
     denominator_forward_backward_ref,
 )
 from kaldi_fp16_tpu_torch.ops import den_scan
-from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul
+from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul, split_planes
 
 LOGP_RTOL = 2e-5
 POST_RTOL, POST_ATOL = 2e-4, 2e-6
@@ -79,7 +81,8 @@ def test_fused_den_matches_jax_fused_and_fp64(jax_fused, key, T):
     import jax.numpy as jnp
     g = _graph(key)
     x = _nnet((128, T, g.num_pdfs), seed=T)
-    den = DenominatorComputation(g, leaky=1e-4, scan_impl="fused")
+    den = DenominatorComputation(g, leaky=1e-4, scan_impl="fused",
+                                 device="cpu")
     assert den._structured._use_fused(128, True)
     lp, post = den.forward_backward(torch.from_numpy(x))
     assert den._structured.scan_used == "fused"
@@ -100,7 +103,8 @@ def test_fused_forward_only_matches_jax(jax_fused):
     import jax.numpy as jnp
     g = _graph("L2")
     x = _nnet((128, 5, g.num_pdfs), seed=1)
-    lp = DenominatorComputation(g, leaky=1e-4, scan_impl="fused").forward(
+    lp = DenominatorComputation(g, leaky=1e-4, scan_impl="fused",
+                                device="cpu").forward(
         torch.from_numpy(x))
     jlp = jax_fused(g, leaky=1e-4, scan_impl="fused").forward(
         jnp.asarray(x))
@@ -111,7 +115,7 @@ def _tables(key, T, seed):
     """The fused path's padded layout and its hoisted emission tables."""
     g = _graph(key)
     sk = StructuredKernels(analyze_chain_structure(g), 1e-4,
-                           scan_impl="fused")
+                           scan_impl="fused", device="cpu")
     x = torch.from_numpy(_nnet((T, g.num_pdfs, 128), seed)).clamp(-30, 30)
     return sk, sk._hoisted_emissions(torch.exp(x))
 
@@ -174,8 +178,9 @@ def test_fused_matches_loop_in_the_port(key, leaky):
     g = _graph(key)
     x = torch.from_numpy(_nnet((128, 6, g.num_pdfs), seed=9))
     lp_f, post_f = DenominatorComputation(
-        g, leaky=leaky, scan_impl="fused").forward_backward(x)
-    loop = DenominatorComputation(g, leaky=leaky, scan_impl="loop")
+        g, leaky=leaky, scan_impl="fused", device="cpu").forward_backward(x)
+    loop = DenominatorComputation(g, leaky=leaky, scan_impl="loop",
+                                  device="cpu")
     lp_l, post_l = loop.forward_backward(x)
     assert loop._structured.scan_used == "loop"
     torch.testing.assert_close(lp_f, lp_l, rtol=LOGP_RTOL, atol=0)
@@ -188,7 +193,8 @@ def test_odd_batch_takes_the_loop_path_and_launches_nothing():
     multiple, so the fused instance runs its loop path (on the padded
     layout) and matches a loop instance."""
     g = _graph("L2")
-    den = DenominatorComputation(g, leaky=1e-4, scan_impl="fused")
+    den = DenominatorComputation(g, leaky=1e-4, scan_impl="fused",
+                                 device="cpu")
     assert not den._structured._use_fused(3, True)
     before = (den_scan.fused_forward.launches,
               den_scan.fused_backward.launches, DenMatmul.launches)
@@ -197,28 +203,39 @@ def test_odd_batch_takes_the_loop_path_and_launches_nothing():
     assert den._structured.scan_used == "loop"
     assert (den_scan.fused_forward.launches,
             den_scan.fused_backward.launches, DenMatmul.launches) == before
-    lp_l, post_l = DenominatorComputation(g, leaky=1e-4).forward_backward(x)
+    lp_l, post_l = DenominatorComputation(
+        g, leaky=1e-4, device="cpu").forward_backward(x)
     torch.testing.assert_close(lp, lp_l, rtol=LOGP_RTOL, atol=0)
     torch.testing.assert_close(post, post_l, rtol=POST_RTOL, atol=POST_ATOL)
 
 
 def test_scan_impl_options_and_padding():
     g = _graph("L2")
-    auto = DenominatorComputation(g, scan_impl="auto")._structured
+    auto = DenominatorComputation(g, scan_impl="auto",
+                                  device="cpu")._structured
     assert auto.scan_impl == "loop" and not auto._fused_ready
     assert auto.lay.F == 13                    # loop path stays unpadded
-    fused = DenominatorComputation(g, scan_impl="fused")._structured
+    fused = DenominatorComputation(g, scan_impl="fused",
+                                   device="cpu")._structured
     assert fused._fused_ready and fused.lay.F == 128
     assert den_scan.fused_scan_supported(fused.lay, 128)
     assert not den_scan.fused_scan_supported(fused.lay, 64)
     assert not den_scan.fused_scan_supported(auto.lay, 128)
     with pytest.raises(ValueError):
-        DenominatorComputation(g, scan_impl="xla")
+        DenominatorComputation(g, scan_impl="xla", device="cpu")
     # a one-state-per-phone graph (L = 1) is never fused
     one = DenominatorGraph.from_fst(make_phone_lm_den_fst(16, 9, 1, 3,
                                                           seed=5), 16)
     assert not DenominatorComputation(
-        one, scan_impl="fused")._structured._fused_ready
+        one, scan_impl="fused", device="cpu")._structured._fused_ready
+
+
+@pytest.mark.parametrize("device,want", [("cpu", "loop"), ("cuda", "fused"),
+                                         (torch.device("cuda", 0), "fused")])
+def test_auto_scan_resolves_to_fused_on_a_card(device, want):
+    assert resolve_scan_impl("auto", device) == want
+    for explicit in ("loop", "fused"):
+        assert resolve_scan_impl(explicit, device) == explicit
 
 
 def test_cpu_wrappers_are_the_plain_versions_and_launch_nothing():
@@ -305,9 +322,10 @@ def test_train_step_with_the_fused_den_matches_the_loop_den():
                          compute_dtype="float32")
     outs = {}
     for scan in ("fused", "loop"):
-        den = DenominatorComputation(g, leaky=1e-5, scan_impl=scan)
+        den = DenominatorComputation(g, leaky=1e-5, scan_impl=scan,
+                                     device="cpu")
         net, opt, scale = init_train_state(
-            model, torch.Generator().manual_seed(0), config)
+            model, torch.Generator().manual_seed(0), config, device="cpu")
         step = make_train_step(model, net, den, num_graph,
                                ChainTrainingOpts(), config,
                                num_frames_out=t_out)
@@ -330,24 +348,32 @@ def test_cuda_scans_against_plain(key, T):
     xs_self, xs_fwd, xs_res = (t.to(dev) for t in tables)
     M, init, real = sk.M.to(dev), sk.init.to(dev), sk.real.to(dev)
     L, leaky = sk.lay.L, 1e-4
-    before = den_scan.fused_forward.launches
-    out = den_scan.fused_forward(M, xs_self, xs_fwd, xs_res, init, L=L, T=T,
-                                 leaky=leaky)
-    again = den_scan.fused_forward(M, xs_self, xs_fwd, xs_res, init, L=L,
-                                   T=T, leaky=leaky)
-    torch.cuda.synchronize()
-    assert den_scan.fused_forward.launches == before + 2
+    kw = dict(L=L, T=T, leaky=leaky)
     ref = den_scan.fused_forward_plain(M.t(), xs_self, xs_fwd, xs_res, init,
-                                       L=L, T=T, leaky=leaky)
-    for a, b, r in zip(out, again, ref):
-        assert torch.equal(a, b)                 # fixed-order sums
-        torch.testing.assert_close(a, r, rtol=HIST_RTOL,
-                                   atol=HIST_ATOL_REL * float(r.abs().max()))
-    total = out[3] * (1.0 + leaky * sk._init_sum)
-    beta = den_scan.fused_backward(M, xs_self, xs_fwd, xs_res, out[1], init,
-                                   real, total, L=L, T=T, leaky=leaky)
-    beta_ref = den_scan.fused_backward_plain(M, xs_self, xs_fwd, xs_res,
+                                       **kw)
+    # split="kernel" (the fp32 M) and split="pre" (its bf16 planes)
+    for planes in (None, split_planes(M, M.shape[0])):
+        before = den_scan.fused_forward.launches
+        out = den_scan.fused_forward(M, xs_self, xs_fwd, xs_res, init,
+                                     planes=planes, **kw)
+        again = den_scan.fused_forward(M, xs_self, xs_fwd, xs_res, init,
+                                       planes=planes, **kw)
+        torch.cuda.synchronize()
+        assert den_scan.fused_forward.launches == before + 2
+        for a, b, r in zip(out, again, ref):
+            assert torch.equal(a, b)                 # fixed-order sums
+            torch.testing.assert_close(a, r, rtol=HIST_RTOL,
+                                       atol=HIST_ATOL_REL * float(r.abs().max()))
+        total = out[3] * (1.0 + leaky * sk._init_sum)
+        beta = den_scan.fused_backward(M, xs_self, xs_fwd, xs_res, out[1],
+                                       init, real, total, planes=planes, **kw)
+        beta_again = den_scan.fused_backward(M, xs_self, xs_fwd, xs_res,
                                              out[1], init, real, total,
-                                             L=L, T=T, leaky=leaky)
-    torch.testing.assert_close(beta, beta_ref, rtol=HIST_RTOL,
-                               atol=HIST_ATOL_REL * float(beta_ref.abs().max()))
+                                             planes=planes, **kw)
+        beta_ref = den_scan.fused_backward_plain(M, xs_self, xs_fwd, xs_res,
+                                                 out[1], init, real, total,
+                                                 **kw)
+        assert torch.equal(beta, beta_again)
+        torch.testing.assert_close(
+            beta, beta_ref, rtol=HIST_RTOL,
+            atol=HIST_ATOL_REL * float(beta_ref.abs().max()))

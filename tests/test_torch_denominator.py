@@ -89,7 +89,7 @@ def test_layout_declines_the_same_graphs():
 
 
 def _run_port(pg, x, **kw):
-    lp, post = DenominatorComputation(pg, **kw).forward_backward(
+    lp, post = DenominatorComputation(pg, device="cpu", **kw).forward_backward(
         torch.from_numpy(x))
     return lp.numpy(), post.numpy()
 
@@ -141,8 +141,9 @@ def test_three_state_chains_and_clipped_outputs():
 def test_forward_only_and_plain_impl_agree():
     _, pg = _graphs(**SMALL)
     x = np.random.default_rng(5).normal(size=(2, 5, 24)).astype(np.float32)
-    kernel = DenominatorComputation(pg, leaky=1e-5)
-    plain = DenominatorComputation(pg, leaky=1e-5, matmul_impl="plain")
+    kernel = DenominatorComputation(pg, leaky=1e-5, device="cpu")
+    plain = DenominatorComputation(pg, leaky=1e-5, matmul_impl="plain",
+                                   device="cpu")
     lp_k, post_k = kernel.forward_backward(torch.from_numpy(x))
     lp_p, post_p = plain.forward_backward(torch.from_numpy(x))
     # on the CPU the kernel path computes the same plain fp32 products
@@ -159,20 +160,22 @@ def test_no_kernel_launch_on_cpu_and_no_blocked_fallback():
     from kaldi_fp16_tpu_torch.ops.segment_reduce import segment_reduce
     _, pg = _graphs(**SMALL)
     before = DenMatmul.launches
-    DenominatorComputation(pg).forward_backward(torch.zeros(1, 3, 24))
+    DenominatorComputation(pg, device="cpu").forward_backward(
+        torch.zeros(1, 3, 24))
     assert DenMatmul.launches == before
     # a random graph takes the blocked layout, which launches nothing on
     # the CPU either (its reduce kernel's plain version runs there)
     uniform = port_graph.DenominatorGraph.from_fst(
         port_graph.make_simple_den_fst(num_pdfs=10, num_states=8, seed=2), 10)
-    den = DenominatorComputation(uniform, posterior_reduce="kernel")
+    den = DenominatorComputation(uniform, posterior_reduce="kernel",
+                                 device="cpu")
     assert den.layout_used == "blocked"
     before = (DenMatmul.launches, segment_reduce.launches)
     lp, post = den.forward_backward(torch.zeros(1, 3, 10))
     assert (DenMatmul.launches, segment_reduce.launches) == before
     assert torch.isfinite(lp).all() and torch.isfinite(post).all()
     with pytest.raises(ValueError):
-        DenominatorComputation(pg, matmul_impl="split3")
+        DenominatorComputation(pg, matmul_impl="split3", device="cpu")
 
 
 def test_fp64_oracle_copy_equals_the_original():

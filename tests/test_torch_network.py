@@ -97,7 +97,7 @@ def nets():
         compute_dtype=jnp.float32)
     params = jax.tree_util.tree_map(np.asarray, params)
     state = jax.tree_util.tree_map(np.asarray, state)
-    net = port_net.Network(pm, torch.Generator().manual_seed(0))
+    net = port_net.Network(pm, torch.Generator().manual_seed(0), "cpu")
     net.load_state_dict(params_from_jax(pm, params, state), strict=True)
     return jm, params, state, net, feats, ivecs
 
@@ -123,7 +123,7 @@ def test_params_round_trip_and_own_init_shapes(nets):
         np.testing.assert_array_equal(v, _flat(s2)[k], err_msg=k)
     # the port's own initialisation has the JAX package's tree and shapes
     own, _ = params_to_numpy(port_net.Network(
-        net.model, torch.Generator().manual_seed(1)))
+        net.model, torch.Generator().manual_seed(1), "cpu"))
     fo = _flat(own)
     assert {k: v.shape for k, v in fo.items()} == \
         {k: v.shape for k, v in fp.items()}
@@ -203,13 +203,14 @@ def test_spec_augment_masks_from_a_generator():
     pm = build_model_from_string(NARROW)
     spec = pm.layer_map["idct-spec-augment"].spec
     g = torch.Generator().manual_seed(4)
-    f_keep, t_keep = port_net.spec_augment_masks(spec, 64, 40, g)
+    f_keep, t_keep = port_net.spec_augment_masks(spec, 64, 40, g, "cpu")
     assert f_keep.shape == (64, 8) and t_keep.shape == (64, 40)
     # the band is at most freq_max_proportion * D wide
     assert ((~f_keep).sum(1) <= int(0.5 * 8)).all()
     assert (~t_keep).any() and t_keep.any()
     again = port_net.spec_augment_masks(spec, 64, 40,
-                                        torch.Generator().manual_seed(4))
+                                        torch.Generator().manual_seed(4),
+                                        "cpu")
     assert torch.equal(again[0], f_keep) and torch.equal(again[1], t_keep)
 
 
@@ -231,4 +232,4 @@ def test_unported_layers_raise():
             "input name=input dim=8\n"
             "attention-relu-batchnorm-layer name=a num-heads=1 value-dim=4 "
             "key-dim=4 num-left-inputs=1 num-right-inputs=1\n"),
-            torch.Generator())
+            torch.Generator(), "cpu")

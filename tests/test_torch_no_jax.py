@@ -1,7 +1,9 @@
-"""The PyTorch port must import without JAX (the GPU machine has none).
+"""The PyTorch port must import without JAX (the GPU machine has none)
+and without the JAX package.
 
-In a fresh interpreter where `import jax` fails, every module of
-kaldi_fp16_tpu_torch and chip_smoke.py (imported, not run) must load.
+In a fresh interpreter where `import jax` and `import kaldi_fp16_tpu` both
+fail, every module of kaldi_fp16_tpu_torch and chip_smoke.py (imported,
+not run) must load: the port carries its own copies of what it needs.
 """
 
 import pathlib
@@ -14,6 +16,7 @@ SCRIPT = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["jaxlib"] = None
+sys.modules["kaldi_fp16_tpu"] = None   # and so does the JAX package
 import kaldi_fp16_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     kaldi_fp16_tpu_torch.__path__, "kaldi_fp16_tpu_torch.")]
@@ -21,6 +24,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
+               or k == "kaldi_fp16_tpu" or k.startswith("kaldi_fp16_tpu.")
                for k, v in sys.modules.items() if v is not None)
 print(len(names))
 """
@@ -30,6 +34,6 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # models x4, chain x7, ops x4, training x4, tools x1, convert, the
-    # subpackages
-    assert int(proc.stdout.strip()) >= 26
+    # models x4, chain x7, ops x4, training x4, tools x1, io x2, convert,
+    # device, the subpackages
+    assert int(proc.stdout.strip()) >= 30

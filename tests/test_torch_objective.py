@@ -50,7 +50,8 @@ def _setup(dead_final=False):
     jden = JaxDen(jax_graph.DenominatorGraph.from_fst(
         jax_graph.make_phone_lm_den_fst(**DEN_KW), P), leaky=1e-5)
     pden = DenominatorComputation(port_graph.DenominatorGraph.from_fst(
-        port_graph.make_phone_lm_den_fst(**DEN_KW), P), leaky=1e-5)
+        port_graph.make_phone_lm_den_fst(**DEN_KW), P), leaky=1e-5,
+        device="cpu")
     x = rng.normal(size=(B, T, P)).astype(np.float32)
     x[0, 0, :3] = [35.0, -41.0, 31.0]       # even frame: penalised
     x[0, 1, 3] = 50.0                       # odd frame: not penalised

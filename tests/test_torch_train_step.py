@@ -91,12 +91,13 @@ def _setup(config_kw, nan_features=False, deriv_weights=False):
     jstate = list(jax_ts.init_train_state(jm, jax.random.PRNGKey(0), jcfg))
 
     pm = build_model_from_string(XCONFIG)
-    net = Network(pm, torch.Generator().manual_seed(0))
+    net = Network(pm, torch.Generator().manual_seed(0), "cpu")
     net.load_state_dict(params_from_jax(
         pm, jax.tree_util.tree_map(np.asarray, jstate[0]),
         jax.tree_util.tree_map(np.asarray, jstate[1])), strict=True)
     pden = DenominatorComputation(port_graph.DenominatorGraph.from_fst(
-        port_graph.make_phone_lm_den_fst(**DEN_KW), P), leaky=1e-5)
+        port_graph.make_phone_lm_den_fst(**DEN_KW), P), leaky=1e-5,
+        device="cpu")
     pcfg = port_ts.TrainConfig(**cfg)
     pstep = port_ts.make_train_step(
         pm, net, pden, port_graph.build_numerator_batch(csrs),
@@ -117,8 +118,8 @@ def _flat(tree, prefix=""):
 def _run(steps, config_kw=(), **kw):
     jstep, jstate, pstep, net, np_batch, pcfg = _setup(dict(config_kw), **kw)
     opt = init_sgd_state(net.params)
-    scale = (init_loss_scale() if pcfg.use_loss_scaling
-             else init_loss_scale(1.0))
+    scale = (init_loss_scale(device="cpu") if pcfg.use_loss_scaling
+             else init_loss_scale(1.0, device="cpu"))
     jbatch = {k: jnp.asarray(v) for k, v in np_batch.items()}
     pbatch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
     key = jax.random.PRNGKey(1)
@@ -161,7 +162,7 @@ def test_non_finite_batch_skips_and_keeps_bn_state():
     jstep, jstate, pstep, net, np_batch, _ = _setup({}, nan_features=True)
     before_p, before_s = params_to_numpy(net)
     opt = init_sgd_state(net.params)
-    opt, _, pout = pstep(opt, init_loss_scale(1.0),
+    opt, _, pout = pstep(opt, init_loss_scale(1.0, device="cpu"),
                          {k: torch.from_numpy(v) for k, v in np_batch.items()})
     *_, jout = jstep(*jstate, {k: jnp.asarray(v) for k, v in np_batch.items()},
                      jax.random.PRNGKey(1))
