@@ -25,11 +25,14 @@ each:
   6. den_fused       the default den (scan_impl="auto": the fused scans)
                      against the loop path, timed; a small fused den against
                      the oracle
-  7. den_blocked     the graph forced to the blocked layout, kernel and
-                     einsum posterior reduce, against each other and the
-                     structured den; a small blocked den against the oracle
-  8. segment_reduce  the kernel against its plain version at the production
-                     pdf-order shape, timed
+  7. den_blocked     the graph forced to the blocked layout, the default
+                     posterior reduce (the kernel on a card) and the einsum
+                     one, against each other and the structured den; a
+                     small blocked den against the oracle
+  8. segment_reduce  the kernel and its order pass against their plain
+                     versions (on the card and the CPU) at the production
+                     pdf-order shape, its labels sorted and shuffled; timed
+                     from CUDA graphs beside index_add_
   9. small           a narrow fp32 train step on the card against the CPU
  10. train           1 warm-up + 5 timed flagship train steps, loop scans
  11. train_fused     the same with the default den (fused scans)
@@ -56,7 +59,9 @@ import torch
 
 from kaldi_fp16_tpu_torch.chain.den_layout import analyze_chain_structure
 from kaldi_fp16_tpu_torch.chain.den_structured import StructuredKernels
-from kaldi_fp16_tpu_torch.chain.denominator import AC, DenominatorComputation
+from kaldi_fp16_tpu_torch.chain.denominator import (
+    AC, SB, DenominatorComputation,
+)
 from kaldi_fp16_tpu_torch.chain.graph import (
     LOG_ZERO, DenominatorGraph, NumeratorGraphBatch, make_phone_lm_den_fst,
     make_simple_den_fst,
@@ -74,7 +79,7 @@ from kaldi_fp16_tpu_torch.ops.den_matmul import (
     DenMatmul, den_matmul_split_plain,
 )
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
-    segment_reduce, segment_reduce_plain,
+    segment_order, segment_order_plain, segment_reduce, segment_reduce_plain,
 )
 from kaldi_fp16_tpu_torch.training.train_step import (
     TrainConfig, init_train_state, make_train_step,
@@ -99,6 +104,7 @@ ORACLE_LOGP_ATOL, ORACLE_POST_RTOL, ORACLE_POST_ATOL = 5e-5, 1e-3, 5e-5
 # blocked vs structured log-prob (tests/test_chain_denominator.py:175-178)
 LOGP_ATOL = 2e-6
 REDUCE_TOL = 1e-5                # fp32 segment sums, tests/test_pallas_reduce.py:30
+REDUCE_REPS = 10                 # segment_reduce calls per timed CUDA graph
 # fp32 card vs CPU: summation order only, through two SGD steps
 SMALL_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -498,59 +504,107 @@ def den_fused_phase(dev, graph, den_loop):
 
 
 def segment_reduce_phase(dev, den_b):
-    """The kernel against its plain version at the blocked den's pdf-order
-    shape [NB, J*AC, Tc*N], with that order's labels."""
+    """The kernel at the blocked den's pdf-order shape [NB, J*AC, Tc*N],
+    with that order's labels (sorted, padding last) and with each block's
+    slots shuffled (same labels, seed 5): against its plain version on the
+    card and on the CPU, repeats bit-identical, its order pass against
+    segment_order_plain; device times from CUDA-graph replays beside the
+    plain version's and index_add_'s."""
     pdfo = den_b._pdf_o
     n = den_b.frames_per_chunk(B, T_OUT) * B
     gen = torch.Generator(device=dev).manual_seed(5)
     vals = torch.rand((pdfo.num_blocks, pdfo.chunks * AC, n), generator=gen,
                       device=dev)
-    labels = pdfo.local
-
-    def kernel():
-        return segment_reduce(vals, labels)
-
-    def plain():
-        return segment_reduce_plain(vals, labels)
-
-    out, again, ref = kernel(), kernel(), plain()
-    torch.cuda.synchronize()
-    if not torch.equal(out, again):
-        raise AssertionError("segment_reduce repeats differ")
-    torch.testing.assert_close(out, ref, rtol=REDUCE_TOL, atol=REDUCE_TOL)
-    err = float((out - ref).abs().max())
-    ms, plain_ms = alternate_ms(plain, kernel)
-    # the library call: one index_add_ of every slot into its block's row
-    # (the plain version without its index set-up), on a zeroed output
     NB, K, n = vals.shape
-    key = labels.to(torch.int64)
-    rows = (torch.arange(NB, device=dev)[:, None] * (AC + 1)
-            + torch.where((key >= 0) & (key < AC), key, AC)).reshape(-1)
-    acc = torch.zeros((NB * (AC + 1), n), device=dev)
+    perm = np.argsort(np.random.default_rng(5).random((NB, K)), axis=1)
+    shuffled = torch.gather(pdfo.local, 1,
+                            torch.from_numpy(perm).to(dev)).contiguous()
+    vals_cpu = vals.cpu()
     flat = vals.reshape(NB * K, n)
-    acc.index_add_(0, rows, flat)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, rows, flat), 3)
-    # bytes: vals and labels read once, out written once
-    result = {"shape": list(vals.shape), "bit_identical": True,
-              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms,
-              "bound": bound(4 * (vals.numel() + labels.numel() + out.numel()),
-                             vals.numel())}
+    result = {"shape": [NB, K, n], "bit_identical": True}
+    for tag, labels in (("sorted", pdfo.local), ("shuffled", shuffled)):
+        def kernel():
+            return segment_reduce(vals, labels)
+
+        def plain():
+            return segment_reduce_plain(vals, labels)
+
+        out, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"segment_reduce ({tag}) repeats differ")
+        torch.testing.assert_close(out, ref, rtol=REDUCE_TOL, atol=REDUCE_TOL)
+        ref_cpu = segment_reduce_plain(vals_cpu, labels.cpu())
+        torch.testing.assert_close(out.cpu(), ref_cpu, rtol=REDUCE_TOL,
+                                   atol=REDUCE_TOL)
+        # the order pass alone, against its plain version on the CPU
+        order, offsets = segment_order(labels)
+        order_ref, offsets_ref = segment_order_plain(labels.cpu())
+        offsets = offsets.cpu()
+        if not torch.equal(offsets, offsets_ref):
+            raise AssertionError(f"segment_order ({tag}) offsets differ")
+        order = order.cpu()
+        for b in range(NB):
+            used = int(offsets[b, -1])
+            if not torch.equal(order[b, :used], order_ref[b, :used]):
+                raise AssertionError(f"segment_order ({tag}) block {b} "
+                                     f"differs")
+        # L2 warm, REDUCE_REPS back-to-back calls per graph, plain, kernel,
+        # kernel, plain; the library call: one index_add_ of every slot
+        # into its block's row (the plain version without its index set-up)
+        ms = {"kernel": [], "plain": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            ms[name].append(warm_ms(kernel if name == "kernel" else plain,
+                                    REDUCE_REPS))
+        key = labels.to(torch.int64)
+        rows = (torch.arange(NB, device=dev)[:, None] * (SB + 1)
+                + torch.where((key >= 0) & (key < SB), key, SB)).reshape(-1)
+        acc = torch.zeros((NB * (SB + 1), n), device=dev)
+        labelled = int(((labels >= 0) & (labels < SB)).sum())
+        result[tag] = {
+            "max_abs_err": float((out - ref).abs().max()),
+            "max_abs_err_vs_cpu_plain": float((out.cpu() - ref_cpu)
+                                              .abs().max()),
+            "equal_to_cpu_plain": torch.equal(out.cpu(), ref_cpu),
+            "ms": float(np.mean(ms["kernel"])),
+            "ms_each": ms["kernel"],
+            "plain_ms": float(np.mean(ms["plain"])),
+            "library_ms": warm_ms(lambda: acc.index_add_(0, rows, flat),
+                                  REDUCE_REPS),
+            "order_pass_ms": warm_ms(lambda: segment_order(labels),
+                                     REDUCE_REPS),
+            "labelled_slots": labelled,
+            # bytes the labelled values need (each read once), the labels
+            # and the output; one add per labelled value
+            "bound": bound(4 * (labelled * n + labels.numel() + out.numel()),
+                           labelled * n),
+            "bound_all_slots_ms": bound(4 * (vals.numel() + labels.numel()
+                                             + out.numel()),
+                                        vals.numel())[0],
+        }
+        del out, again, ref, ref_cpu, acc, rows
+    result["max_abs_err"] = max(result[t]["max_abs_err"]
+                                for t in ("sorted", "shuffled"))
     phase("segment_reduce", **result)
     return result
 
 
 def den_blocked_phase(dev, graph, lp_s, post_s):
-    """The production graph forced to the blocked layout: the kernel and
-    the einsum posterior reduce, against each other and the structured
+    """The production graph forced to the blocked layout: the default
+    posterior reduce (posterior_reduce="auto", which a card resolves to the
+    kernel) and the einsum reduce, against each other and the structured
     den."""
     x = den_input(dev)
     den_k = DenominatorComputation(graph, leaky=1e-5, layout="blocked",
-                                   posterior_reduce="kernel", device=dev)
+                                   device=dev)
     den_e = DenominatorComputation(graph, leaky=1e-5, layout="blocked",
                                    posterior_reduce="einsum", device=dev)
     if den_k.layout_used != "blocked":
         raise AssertionError("layout='blocked' was not taken")
+    if den_k.posterior_reduce != "kernel":
+        raise AssertionError(f"the default posterior reduce resolved to "
+                             f"{den_k.posterior_reduce!r} on the card, "
+                             f"expected 'kernel'")
     chunks = -(-T_OUT // den_k.frames_per_chunk(B, T_OUT))
     # the main path of segment_reduce: its count starts at 0 here
     segment_reduce.launches = 0
@@ -584,8 +638,9 @@ def den_blocked_phase(dev, graph, lp_s, post_s):
         raise AssertionError("the small random graph decomposed")
     check_vs_oracle(den_s, small, xs, range(3), 1e-5, dev)
     phase("den_blocked", B=B, T=T_OUT, P=P, arcs=graph.num_transitions,
+          default_posterior_reduce=den_k.posterior_reduce,
           posterior_chunks=chunks, segment_reduce_launches=launches,
-          bit_identical=True,
+          bit_identical=True, kernel_faster=kernel_ms < einsum_ms,
           logp_max_rel_kernel_vs_einsum=float(((lp_k - lp_e).abs()
                                                / lp_e.abs()).max()),
           post_max_abs_kernel_vs_einsum=float((post_k - post_e).abs().max()),
@@ -813,8 +868,9 @@ def main():
               scan["kernel_max_abs_err"]["beta_hist"], scan["kernel_bwd_ms"],
               scan["kernel_bwd_plain_ms"], scan["bwd_bound"], None),
         entry("segment_reduce", "segment_reduce.cu", REDUCE_REPLACES,
-              red_launches, red["max_abs_err"], red["ms"], red["plain_ms"],
-              red["bound"], red["library_ms"]),
+              red_launches, red["max_abs_err"], red["sorted"]["ms"],
+              red["sorted"]["plain_ms"], red["sorted"]["bound"],
+              red["sorted"]["library_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

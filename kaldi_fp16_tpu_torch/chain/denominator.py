@@ -19,7 +19,11 @@ exact mode only, with both of its layouts:
               frames, whose per-pdf reduce is that same product
               (`posterior_reduce="einsum"`) or the hand-written
               segment_reduce kernel (`"kernel"`, the JAX `"pallas"`;
-              ops/segment_reduce.py).
+              ops/segment_reduce.py).  `"auto"`, the default, resolves to
+              the kernel on a card, where its segmented row sum beats the
+              one-hot product end to end (PERF.md), and to the product on
+              the CPU, where the tests compare it with the JAX einsum
+              (`resolve_posterior_reduce`).
 
 Kaldi semantics (the JAX module docstring): x = exp(clip(nnet, -30, 30));
 leaky HMM alpha' = alpha + sum(alpha) * leaky * init; per-frame rescale by
@@ -45,6 +49,15 @@ from kaldi_fp16_tpu_torch.ops.segment_reduce import segment_reduce
 
 SB = 128   # state/pdf block width
 AC = 128   # arcs per chunk
+
+
+def resolve_posterior_reduce(posterior_reduce: str,
+                             device: torch.device) -> str:
+    """"auto" -> "kernel" on a CUDA device, "einsum" elsewhere; other
+    values unchanged."""
+    if posterior_reduce != "auto":
+        return posterior_reduce
+    return "kernel" if torch.device(device).type == "cuda" else "einsum"
 
 
 class _BlockedOrder:
@@ -114,30 +127,34 @@ class DenominatorComputation:
     "pre" split of M.
     device: default the current CUDA device; CPU runs pass "cpu".
     posterior_reduce: the blocked layout's per-pdf posterior reduce,
-    "einsum" (one-hot product) or "kernel" (segment_reduce).
+    "auto" ("kernel" on a card, else "einsum"), "einsum" (one-hot
+    product) or "kernel" (segment_reduce); `posterior_reduce` holds the
+    resolved value.
     """
 
     def __init__(self, graph: DenominatorGraph, leaky: float = 1e-5,
                  hoist_bytes: int = 1 << 30, matmul_impl: str = "kernel",
                  scan_impl: str = "auto", layout: str = "auto",
-                 posterior_reduce: str = "einsum", split: str = "kernel",
+                 posterior_reduce: str = "auto", split: str = "kernel",
                  device=None):
         if layout not in ("auto", "structured", "blocked"):
             raise ValueError(f"layout must be 'auto', 'structured' or "
                              f"'blocked', got {layout!r}")
-        if posterior_reduce not in ("einsum", "kernel"):
-            raise ValueError(f"posterior_reduce must be 'einsum' or 'kernel', "
-                             f"got {posterior_reduce!r}")
+        if posterior_reduce not in ("auto", "einsum", "kernel"):
+            raise ValueError(f"posterior_reduce must be 'auto', 'einsum' or "
+                             f"'kernel', got {posterior_reduce!r}")
+        dev = resolve_device(device)
         self.leaky = leaky
         self.hoist_bytes = hoist_bytes
-        self.posterior_reduce = posterior_reduce
+        self.posterior_reduce = resolve_posterior_reduce(posterior_reduce,
+                                                         dev)
         self._structured = None
         if layout in ("auto", "structured"):
             lay = analyze_chain_structure(graph)
             if lay is not None:
                 self._structured = StructuredKernels(
                     lay, leaky, hoist_bytes, matmul_impl=matmul_impl,
-                    scan_impl=scan_impl, split=split, device=device)
+                    scan_impl=scan_impl, split=split, device=dev)
             elif layout == "structured":
                 raise ValueError(
                     "layout='structured' requested but the graph does not "
@@ -147,7 +164,6 @@ class DenominatorComputation:
         if self._structured is not None:
             return
 
-        dev = resolve_device(device)
         S, P = graph.num_states, graph.num_pdfs
         # secondary within-block sort = the gather index each order uses
         self._dst_o = _BlockedOrder(graph.dst, S, graph, graph.src, dev)
@@ -164,7 +180,7 @@ class DenominatorComputation:
         self._oh_dst = onehot_t(self._dst_o)
         self._oh_src = onehot_t(self._src_o)
         self._oh_pdf = (onehot_t(self._pdf_o)
-                        if posterior_reduce == "einsum" else None)
+                        if self.posterior_reduce == "einsum" else None)
         self._Sp = self._dst_o.num_blocks * SB
         self._Pp = self._pdf_o.num_blocks * SB
         init_pad = np.zeros(self._Sp, np.float32)

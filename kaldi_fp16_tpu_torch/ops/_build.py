@@ -157,7 +157,10 @@ def library() -> ctypes.CDLL:
     lib.den_scan_backward.restype = i
     lib.den_scan_row_block.argtypes = []
     lib.den_scan_row_block.restype = i
-    # segment_reduce(vals, labels, out, NB, K, n, sb, stream)
-    lib.segment_reduce.argtypes = [p, p, p, i, i, i, i, p]
+    # segment_order(labels, order, offsets, NB, K, sb, stream)
+    lib.segment_order.argtypes = [p, p, p, i, i, i, p]
+    lib.segment_order.restype = i
+    # segment_reduce(vals, labels, order, offsets, out, NB, K, n, sb, stream)
+    lib.segment_reduce.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.segment_reduce.restype = i
     return lib

@@ -9,11 +9,15 @@ outside [0, sb) is a padding slot and contributes nothing.  Exact mode
 only: the JAX `exact=False` (single-pass bf16) is rejected.
 
 `segment_reduce` launches the hand-written CUDA kernel
-(csrc/segment_reduce.cu) for CUDA tensors; for CPU tensors it computes the
-plain version, `segment_reduce_plain`, which the tests compare against.  A
-CUDA tensor never falls back to the plain version: if the kernel cannot
-be built or launched, the call raises.  `segment_reduce.launches` counts
-kernel launches.
+(csrc/segment_reduce.cu: an order pass, then a segmented row sum) for CUDA
+tensors; for CPU tensors it computes the plain version,
+`segment_reduce_plain`, which the tests compare against.  `segment_order`
+runs the kernel's order pass alone (a stable counting sort of each block's
+labels), beside its plain version `segment_order_plain`.  A CUDA tensor
+never falls back to a plain version: if the kernel cannot be built or
+launched, the call raises.  `segment_reduce.launches` and
+`segment_order.launches` count calls that launched the kernel (one per
+call, however many launches the C entry point makes).
 """
 
 from __future__ import annotations
@@ -36,6 +40,52 @@ def segment_reduce_plain(vals: torch.Tensor, labels: torch.Tensor,
                       device=vals.device)
     out.index_add_(0, rows, vals.reshape(NB * K, n))
     return out.reshape(NB, sb + 1, n)[:, :sb]
+
+
+def segment_order_plain(labels: torch.Tensor, sb: int = 128):
+    """The order pass in plain PyTorch: labels [NB, K] int32 ->
+    (order [NB, K] int32, offsets [NB, sb + 1] int32).  order[b, :offsets[b,
+    sb]] holds the slots of labels in [0, sb) grouped by label, in
+    increasing k within a group, segment s at offsets[b, s] .. offsets[b, s
+    + 1]; the padding slots follow in k order (the kernel leaves that tail
+    unwritten)."""
+    NB, K = labels.shape
+    key = labels.to(torch.int64)
+    key = torch.where((key >= 0) & (key < sb), key, sb)
+    order = torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
+    counts = torch.zeros((NB, sb + 1), dtype=torch.int64,
+                         device=labels.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    offsets = torch.zeros((NB, sb + 1), dtype=torch.int64,
+                          device=labels.device)
+    offsets[:, 1:] = torch.cumsum(counts[:, :sb], dim=1)
+    return order, offsets.to(torch.int32)
+
+
+def segment_order(labels: torch.Tensor, sb: int = 128):
+    """The kernel's order pass alone: labels [NB, K] int32 -> (order [NB,
+    K], offsets [NB, sb + 1]) int32, as `segment_order_plain` except that on
+    a card order past offsets[b, sb] is left unwritten."""
+    if labels.ndim != 2 or labels.dtype != torch.int32:
+        raise ValueError(f"labels must be int32 [NB, K], got {labels.dtype} "
+                         f"{tuple(labels.shape)}")
+    if sb < 1:
+        raise ValueError(f"sb must be >= 1, got {sb}")
+    if labels.device.type == "cpu":
+        return segment_order_plain(labels, sb)
+    if labels.device.type != "cuda":
+        raise ValueError(f"no segment_order kernel for {labels.device}")
+    if not labels.is_contiguous():
+        raise ValueError("labels must be contiguous")
+    NB, K = labels.shape
+    order = torch.empty((NB, K), dtype=torch.int32, device=labels.device)
+    offsets = torch.empty((NB, sb + 1), dtype=torch.int32,
+                          device=labels.device)
+    if NB == 0:
+        return order, offsets
+    launch("segment_order", labels.device, labels, order, offsets, NB, K, sb)
+    segment_order.launches += 1
+    return order, offsets
 
 
 def segment_reduce(vals: torch.Tensor, labels: torch.Tensor, sb: int = 128,
@@ -66,9 +116,13 @@ def segment_reduce(vals: torch.Tensor, labels: torch.Tensor, sb: int = 128,
     out = torch.empty((NB, sb, n), dtype=torch.float32, device=dev)
     if n == 0 or NB == 0:
         return out
-    launch("segment_reduce", dev, vals, labels, out, NB, K, n, sb)
+    order = torch.empty((NB, K), dtype=torch.int32, device=dev)
+    offsets = torch.empty((NB, sb + 1), dtype=torch.int32, device=dev)
+    launch("segment_reduce", dev, vals, labels, order, offsets, out, NB, K, n,
+           sb)
     segment_reduce.launches += 1
     return out
 
 
 segment_reduce.launches = 0
+segment_order.launches = 0

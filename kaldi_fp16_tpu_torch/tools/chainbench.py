@@ -6,7 +6,7 @@ JSON line (less `vs_baseline`, which divided by another card's number):
 
     python -m kaldi_fp16_tpu_torch.tools.chainbench [--topology phone-lm]
         [--layout auto|structured|blocked] [--scan-impl auto|loop|fused]
-        [--posterior-reduce einsum|kernel] [--batch 8] [--frames 50]
+        [--posterior-reduce auto|einsum|kernel] [--batch 8] [--frames 50]
         [--pdfs 3080] [--device cuda]
 
 On a card (`--device cuda`, the default) each fn is timed with CUDA events
@@ -52,10 +52,11 @@ def parse_args(argv=None):
                     choices=["auto", "loop", "fused"],
                     help="structured den scans: den_matmul per frame "
                          "(loop) or the fused scan kernels")
-    ap.add_argument("--posterior-reduce", default="einsum",
-                    choices=["einsum", "kernel"],
+    ap.add_argument("--posterior-reduce", default="auto",
+                    choices=["auto", "einsum", "kernel"],
                     help="blocked den per-pdf posterior reduce: one-hot "
-                         "product or the segment_reduce kernel")
+                         "product or the segment_reduce kernel (auto: the "
+                         "kernel on a card, the product on the CPU)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap.parse_args(argv)
 

@@ -6,8 +6,10 @@
 On one card, at bench.py's den geometry (the 7052-state phone-LM graph,
 F = 3526 chains, N = --batch sequences, T = --frames), it profiles one
 call of each: a den_matmul application (M^T @ v, n = N), a fused forward
-scan, a fused backward scan, and the default den's forward-backward, and
-prints one JSON line per call with the device microseconds of every
+scan, a fused backward scan, the default den's forward-backward, and the
+same graph's forward-backward forced to the blocked layout (its default
+posterior reduce: the segment_reduce kernel on a card), and prints one
+JSON line per call with the device microseconds of every
 kernel by name (total and per launch), sorted by total.  The first line
 is the card's name and power limit as nvidia-smi gives them.  Each call
 runs once unprofiled first, so the kernels are built and warm.
@@ -99,6 +101,11 @@ def main(argv=None):
     nnet = torch.randn((N, T, P), generator=gen, device=dev)
     report(f"den_forward_backward ({den._structured.scan_impl} scans)",
            lambda: den.forward_backward(nnet))
+    del den
+    blocked = DenominatorComputation(graph, leaky=1e-5, layout="blocked",
+                                     device=dev)
+    report(f"den_forward_backward (blocked, {blocked.posterior_reduce} "
+           f"posterior reduce)", lambda: blocked.forward_backward(nnet))
     return 0
 
 

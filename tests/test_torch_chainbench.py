@@ -19,6 +19,10 @@ from kaldi_fp16_tpu_torch.tools import chainbench
     (["--topology", "random", "--pdfs", "12", "--den-states", "30",
       "--den-arcs", "120", "--batch", "3", "--frames", "4",
       "--posterior-reduce", "kernel"], "blocked", None, "kernel"),
+    # the den's default reduce, "auto", is the one-hot product on the CPU
+    (["--topology", "random", "--pdfs", "12", "--den-states", "30",
+      "--den-arcs", "120", "--batch", "3", "--frames", "4"], "blocked", None,
+     "einsum"),
 ])
 def test_chainbench_twin_on_cpu(capsys, argv, layout, scan, reduce):
     chainbench.main(argv + ["--iters", "1", "--num-arcs", "8",

@@ -120,6 +120,23 @@ def test_blocked_matches_structured_in_the_port(leaky):
                                    atol=POST_ATOL)
 
 
+def test_posterior_reduce_auto_resolves_to_einsum_on_cpu():
+    _, pg = _graphs("simple")
+    den = port_den.DenominatorComputation(pg, device="cpu")
+    assert den.layout_used == "blocked"
+    assert den.posterior_reduce == "einsum" and den._oh_pdf is not None
+    for reduce in ("einsum", "kernel"):
+        den = port_den.DenominatorComputation(pg, posterior_reduce=reduce,
+                                              device="cpu")
+        assert den.posterior_reduce == reduce
+    assert port_den.resolve_posterior_reduce("auto", torch.device("cuda")) \
+        == "kernel"
+    assert port_den.resolve_posterior_reduce("auto", torch.device("cpu")) \
+        == "einsum"
+    assert port_den.resolve_posterior_reduce("einsum", torch.device("cuda")) \
+        == "einsum"
+
+
 def test_layouts_options_repeats_and_no_launch_on_cpu():
     jg, pg = _graphs("simple")
     den = port_den.DenominatorComputation(pg, posterior_reduce="kernel",

@@ -8,9 +8,18 @@ bar of tests/test_pallas_reduce.py:30 (fp32 sums of up to K terms).  The
 shapes are that file's: padding labels, all padding, and K larger than
 the JAX kernel's k_block.
 
-The CUDA kernel itself runs only on a card: the `gpu` test compares it
-with the plain version there.  JAX is imported inside the tests that use
-it, so this file also runs on a machine without JAX:
+The label layouts the kernel must take whatever their order: sorted with
+trailing padding (the blocked den's), shuffled, one label everywhere,
+empty segments and negative padding, at ragged widths.
+`segment_order_plain` (the kernel's order pass in plain PyTorch) is held
+against numpy's stable argsort and bincount.
+
+The CUDA kernel itself runs only on a card: the `gpu` tests compare it and
+its order pass with the plain versions there, including the phone-LM
+graph's real pdf-order labels at the production shape, and hold it equal
+bit for bit to the plain version run on the CPU (both sum each segment
+from zero in increasing k, without atomics).  JAX is imported inside the
+tests that use it, so this file also runs on a machine without JAX:
 `python -m pytest --noconftest -m gpu tests/test_torch_segment_reduce.py`.
 """
 
@@ -19,7 +28,7 @@ import pytest
 import torch
 
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
-    segment_reduce, segment_reduce_plain,
+    segment_order, segment_order_plain, segment_reduce, segment_reduce_plain,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -43,6 +52,33 @@ def _inputs(NB, K, N, seed=0, high=129):
     return vals, labels
 
 
+LAYOUTS = ["sorted-padding-last", "shuffled", "one-label", "empty-segments",
+           "negative-padding"]
+
+
+def _labels(layout, NB, K, sb, seed=0):
+    """[NB, K] int32 labels of one layout; padding is sb (or < 0)."""
+    rng = np.random.default_rng(seed)
+    out = np.full((NB, K), sb, np.int32)
+    for b in range(NB):
+        if layout in ("sorted-padding-last", "shuffled"):
+            # the blocked den's: a run per label, padding at the end
+            counts = rng.integers(0, 3, sb)
+            lab = np.repeat(np.arange(sb, dtype=np.int32), counts)[:K]
+            out[b, :len(lab)] = lab
+            if layout == "shuffled":
+                out[b] = out[b, rng.permutation(K)]
+        elif layout == "one-label":
+            out[b] = sb // 3
+        elif layout == "empty-segments":
+            # odd labels only, and padding
+            out[b] = rng.integers(0, sb // 2 + 1, K) * 2 + 1
+            out[b, out[b] > sb] = sb
+        else:                                   # negative-padding
+            out[b] = rng.integers(-3, sb + 3, K)
+    return out
+
+
 def _jax(vals, labels, **kw):
     pytest.importorskip("jax")
     import jax.numpy as jnp
@@ -63,6 +99,43 @@ def test_matches_jax_and_fp64(NB, K, N):
     np.testing.assert_allclose(plain.numpy(), ref, **TOL)
     np.testing.assert_allclose(_jax(vals, labels), ref, **TOL)
     np.testing.assert_allclose(plain.numpy(), _jax(vals, labels), **TOL)
+
+
+@pytest.mark.parametrize("N", [1, 3, 5, 130])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_label_layouts_match_jax_and_fp64(layout, N):
+    NB, K = 2, 256
+    vals = np.random.default_rng(N).random((NB, K, N)).astype(np.float32)
+    labels = _labels(layout, NB, K, 128, seed=N)
+    ref = _fp64(vals, labels, 128)
+    out = segment_reduce(torch.from_numpy(vals), torch.from_numpy(labels))
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    np.testing.assert_allclose(_jax(vals, labels), ref, **TOL)
+    np.testing.assert_allclose(out.numpy(), _jax(vals, labels), **TOL)
+
+
+@pytest.mark.parametrize("sb", [128, 32])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_order_plain_is_a_stable_counting_sort(layout, sb):
+    NB, K = 3, 300
+    labels = _labels(layout, NB, K, sb, seed=sb)
+    order, offsets = segment_order_plain(torch.from_numpy(labels), sb)
+    assert order.dtype == offsets.dtype == torch.int32
+    assert order.shape == (NB, K) and offsets.shape == (NB, sb + 1)
+    for b in range(NB):
+        lab = labels[b]
+        valid = (lab >= 0) & (lab < sb)
+        key = np.where(valid, lab, sb)
+        np.testing.assert_array_equal(order[b].numpy(),
+                                      np.argsort(key, kind="stable"))
+        counts = np.bincount(lab[valid], minlength=sb)
+        np.testing.assert_array_equal(
+            offsets[b].numpy(), np.concatenate([[0], np.cumsum(counts)]))
+    # on CPU tensors the wrapper is the plain version and launches nothing
+    before = segment_order.launches
+    again = segment_order(torch.from_numpy(labels), sb)
+    assert segment_order.launches == before
+    assert torch.equal(again[0], order) and torch.equal(again[1], offsets)
 
 
 def test_padding_labels_contribute_nothing():
@@ -102,6 +175,10 @@ def test_rejects_what_the_kernel_does_not_take():
         segment_reduce(vals, labels.long())
     with pytest.raises(ValueError):
         segment_reduce(vals, labels[:, :8])
+    with pytest.raises(ValueError):
+        segment_order(labels.long())
+    with pytest.raises(ValueError):
+        segment_order(labels[0])
 
 
 @pytest.mark.gpu
@@ -123,6 +200,89 @@ def test_cuda_kernel_against_plain(NB, K, N, sb):
     assert segment_reduce.launches == before + 2
     assert torch.equal(out, again)               # no atomics: fixed order
     torch.testing.assert_close(out, segment_reduce_plain(v, lab, sb), **TOL)
+    # summed from zero in increasing k, as index_add_ does on the CPU
+    assert torch.equal(out.cpu(), segment_reduce_plain(
+        torch.from_numpy(vals), torch.from_numpy(labels), sb))
     if NB * K <= 2048:
         np.testing.assert_allclose(out.cpu().numpy(),
                                    _fp64(vals, labels, sb), **TOL)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the segment_reduce kernel is CUDA "
+                    "only")
+    return torch.device("cuda")
+
+
+def _check_on_card(vals, labels, sb):
+    """The kernel on the card: repeats bit-identical, equal bit for bit to
+    the plain version on the CPU, within TOL of the plain version on the
+    card; its order pass equal to the plain one on the labelled prefix."""
+    dev = _card()
+    v, lab = vals.to(dev), labels.to(dev)
+    before = segment_reduce.launches
+    out = segment_reduce(v, lab, sb=sb)
+    again = segment_reduce(v, lab, sb=sb)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == before + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), segment_reduce_plain(vals.cpu(),
+                                                       labels.cpu(), sb))
+    torch.testing.assert_close(out, segment_reduce_plain(v, lab, sb), **TOL)
+    order, offsets = segment_order(lab, sb)
+    order_ref, offsets_ref = segment_order_plain(labels.cpu(), sb)
+    assert torch.equal(offsets.cpu(), offsets_ref)
+    for b in range(labels.shape[0]):
+        used = int(offsets_ref[b, -1])
+        assert torch.equal(order[b, :used].cpu(), order_ref[b, :used])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 3, 5, 130, 385])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_cuda_kernel_label_layouts_and_ragged_n(layout, N):
+    NB, K = 3, 1000
+    labels = torch.from_numpy(_labels(layout, NB, K, 128, seed=N))
+    vals = torch.from_numpy(np.random.default_rng(N).random(
+        (NB, K, N)).astype(np.float32))
+    out = _check_on_card(vals, labels, 128)
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               _fp64(vals.numpy(), labels.numpy(), 128),
+                               **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [8, 130])
+def test_cuda_kernel_misaligned_base(N):
+    """vals starting 4 bytes past an aligned address take the scalar
+    loads."""
+    NB, K = 2, 300
+    buf = torch.from_numpy(np.random.default_rng(7).random(
+        NB * K * N + 1).astype(np.float32))
+    vals = buf[1:].view(NB, K, N)
+    assert vals.is_contiguous()
+    labels = torch.from_numpy(_labels("shuffled", NB, K, 128, seed=7))
+    dev = _card()
+    vd = buf.to(dev)[1:].view(NB, K, N)
+    out = segment_reduce(vd, labels.to(dev))
+    assert torch.equal(out.cpu(), segment_reduce_plain(vals, labels))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_on_the_phone_lm_pdf_order():
+    """The blocked den's real labels: the phone-LM graph's pdf order at the
+    production shape [25, 6144, 3 * 128]."""
+    from kaldi_fp16_tpu_torch.chain.denominator import _BlockedOrder
+    from kaldi_fp16_tpu_torch.chain.graph import (
+        DenominatorGraph, make_phone_lm_den_fst,
+    )
+    graph = DenominatorGraph.from_fst(make_phone_lm_den_fst(num_pdfs=3080),
+                                      3080)
+    pdfo = _BlockedOrder(graph.pdf, 3080, graph, graph.src, device="cpu")
+    labels = pdfo.local
+    assert tuple(labels.shape) == (25, 6144)
+    vals = torch.from_numpy(np.random.default_rng(8).random(
+        (25, 6144, 384)).astype(np.float32))
+    _check_on_card(vals, labels, 128)
