@@ -9,8 +9,12 @@ B = 128 sequences of 150 frames; once with the den's loop scans (the
 den_matmul kernel) and once with the default den, whose scans resolve to
 the fused ones on a card (the den_scan kernels); the loop den once more
 with M pre-split (den_matmul, split="pre"); and the blocked den on the
-same graph (the segment_reduce kernel).  Phases, one line of numbers
-each:
+same graph (the segment_reduce kernel).  Then the flagship recipe's
+production loop: synthetic cegs files at flagship geometry, the
+DataLoader, and `python -m kaldi_fp16_tpu_torch.tools.train`'s main with
+configs/train_flagship.sh's flags (NG-SGD, the xent head, loss scaling,
+the orthonormal constraint, checkpoints) at B = 128, killed and resumed.
+Phases, one line of numbers each:
 
   1. device          the card (nvidia-smi name and power limit); TF32 off
   2. build           nvcc builds the CUDA kernels from kaldi_fp16_tpu_torch/csrc
@@ -36,7 +40,28 @@ each:
   9. small           a narrow fp32 train step on the card against the CPU
  10. train           1 warm-up + 5 timed flagship train steps, loop scans
  11. train_fused     the same with the default den (fused scans)
- 12. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 12. ng_vs_cpu       one NG update step at flagship width (B = 128, T_in =
+                     164, ranks 20 / 80, patch-lowered convs) on the card;
+                     its NG calls re-run on the CPU from the same inputs
+                     and states, equal at the NG tests' bars
+ 13. egs             2 x 512 synthetic cegs (164 frames in, 50 out, 3080
+                     pdfs) and the 7052-state den.fst written by the port's
+                     tool and read back; the DataLoader's batches with the
+                     native and the Python parser, and the ProcessLoader's
+                     (2 spawned workers), equal; ms per batch of each
+ 14. trainer         tools.train's main, train_flagship.sh's flags at
+                     B = 128: 8 steps (checkpoint at 4), the first step's
+                     den input [128, 50, 3080] through the Trainer's den
+                     against the loop den and its scans against the plain
+                     ones, the run resumed from step 4 equal to it bit for
+                     bit, 1 + 1 den_scan launches and no den_matmul launch
+                     per step; device and loop ms per step, idle share over
+                     one window, the same 8 steps without NG (the NG cost),
+                     peak memory
+ 15. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+
+small_step_vs_cpu also holds a narrow NG step (patch-lowered convs) on
+the card against the CPU.
 
 Each path's kernel counts are set to 0 just before it is driven and read
 just after; comparison launches do not count.  Each kernel's bound is the
@@ -49,6 +74,7 @@ fallback.  Needs one card, nvcc, no network and no JAX.
 """
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -63,14 +89,17 @@ from kaldi_fp16_tpu_torch.chain.denominator import (
     AC, SB, DenominatorComputation,
 )
 from kaldi_fp16_tpu_torch.chain.graph import (
-    LOG_ZERO, DenominatorGraph, NumeratorGraphBatch, make_phone_lm_den_fst,
-    make_simple_den_fst,
+    DenominatorGraph, make_phone_lm_den_fst, make_simple_den_fst,
 )
 from kaldi_fp16_tpu_torch.chain.objective import ChainTrainingOpts
 from kaldi_fp16_tpu_torch.chain.reference import (
     denominator_forward_backward_ref,
 )
 from kaldi_fp16_tpu_torch.convert import params_to_numpy
+from kaldi_fp16_tpu_torch.io.dataloader import (
+    DataLoader, DataLoaderConfig, ProcessLoader,
+)
+from kaldi_fp16_tpu_torch.io.fst import read_fst_file
 from kaldi_fp16_tpu_torch.models.model import (
     build_model, build_model_from_string,
 )
@@ -81,9 +110,16 @@ from kaldi_fp16_tpu_torch.ops.den_matmul import (
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
     segment_order, segment_order_plain, segment_reduce, segment_reduce_plain,
 )
+from kaldi_fp16_tpu_torch.tools import make_synthetic_egs, ng_precision
+from kaldi_fp16_tpu_torch.tools.profile_step import (
+    supervision as bench_num_graph,
+)
+from kaldi_fp16_tpu_torch.tools import train as train_tool
+from kaldi_fp16_tpu_torch.training.checkpoint import CheckpointManager
 from kaldi_fp16_tpu_torch.training.train_step import (
     TrainConfig, init_train_state, make_train_step,
 )
+from kaldi_fp16_tpu_torch.training.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
 B, T_IN, P, AN = 128, 150, 3080, 256
@@ -107,6 +143,17 @@ REDUCE_TOL = 1e-5                # fp32 segment sums, tests/test_pallas_reduce.p
 REDUCE_REPS = 10                 # segment_reduce calls per timed CUDA graph
 # fp32 card vs CPU: summation order only, through two SGD steps
 SMALL_RTOL = 1e-4
+# NG ranks of the small NG step: at the default ranks each narrow site
+# keeps half its dimensions, where a near-tie between kept and dropped
+# eigenvalues leaves the factor's span to fp32 rounding
+# (tests/test_torch_trainer.py)
+SMALL_NG_RANK = 4
+# the production loop: the dataset's smallest chunk (io/batch.py:8), 50
+# supervision frames at stride 3; 2 files x 512 examples = 8 batches of 128
+EGS_T_IN, EGS_T_OUT, EGS_FILES, EGS_PER_FILE = 164, 50, 2, 512
+TRAIN_STEPS, CKPT_STEP = 8, 4
+NG_UPDATE_STEP = 5             # NG counters 0 and 4: steps 1 and 5
+WORK = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, ibid.
 FLUSH_BYTES = 128 << 20          # > the 50 MB L2
@@ -324,6 +371,49 @@ def kernel_phase(dev, layout):
     return result
 
 
+def check_scans(sk, x_tpn, tag):
+    """sk's fused forward and backward scans on the emissions of x_tpn
+    [T, P, N], each run twice and beside its plain version: repeats
+    bit-identical, the kernels within the HIST bars of the plain versions.
+    Returns (max abs errors, the same relative to the largest entry,
+    {"fwd": (plain, kernel), "bwd": (plain, kernel)} calls to time)."""
+    xs = sk._hoisted_emissions(x_tpn)
+    kw = dict(L=sk.lay.L, T=x_tpn.shape[0], leaky=sk.leaky)
+
+    def fwd():
+        return den_scan.fused_forward(sk.M, *xs, sk.init, planes=sk._planes,
+                                      **kw)
+
+    def fwd_plain():
+        return den_scan.fused_forward_plain(sk.M.t(), *xs, sk.init, **kw)
+
+    out, again, ref = fwd(), fwd(), fwd_plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"den_scan forward ({tag}) repeats differ")
+    err = {name: assert_hist_close(a, r, f"{tag} {name}") for name, a, r in
+           zip(("adash_hist", "asum", "logc", "a_final"), out, ref)}
+    total = out[3] * (1.0 + sk.leaky * sk._init_sum)
+
+    def bwd():
+        return den_scan.fused_backward(sk.M, *xs, out[1], sk.init, sk.real,
+                                       total, planes=sk._planes, **kw)
+
+    def bwd_plain():
+        return den_scan.fused_backward_plain(sk.M, *xs, out[1], sk.init,
+                                             sk.real, total, **kw)
+
+    beta, beta_again, beta_ref = bwd(), bwd(), bwd_plain()
+    torch.cuda.synchronize()
+    if not torch.equal(beta, beta_again):
+        raise AssertionError(f"den_scan backward ({tag}) repeats differ")
+    err["beta_hist"] = assert_hist_close(beta, beta_ref, f"{tag} beta_hist")
+    rel = {k: float((a - r).abs().max() / r.abs().max())
+           for k, a, r in (("adash_hist", out[0], ref[0]),
+                           ("beta_hist", beta, beta_ref))}
+    return err, rel, {"fwd": (fwd_plain, fwd), "bwd": (bwd_plain, bwd)}
+
+
 def scan_kernels_phase(dev, graph):
     """den_scan forward and backward at the production shape (L = 2,
     Fp = 3584, N = 128, T = 49), split="kernel" and "pre", against their
@@ -338,48 +428,14 @@ def scan_kernels_phase(dev, graph):
                                  f"2, 3584")
         gen = torch.Generator(device=dev).manual_seed(4)
         x = torch.exp(torch.randn((T_OUT, P, B), generator=gen, device=dev))
-        xs = sk._hoisted_emissions(x)
-        kw = dict(L=L, T=T_OUT, leaky=sk.leaky)
-
-        def fwd():
-            return den_scan.fused_forward(sk.M, *xs, sk.init,
-                                          planes=sk._planes, **kw)
-
-        def fwd_plain():
-            return den_scan.fused_forward_plain(sk.M.t(), *xs, sk.init, **kw)
-
-        out, again, ref = fwd(), fwd(), fwd_plain()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(out, again)):
-            raise AssertionError(f"den_scan forward ({split}) repeats differ")
-        err = {name: assert_hist_close(a, r, name) for name, a, r in zip(
-            ("adash_hist", "asum", "logc", "a_final"), out, ref)}
-        total = out[3] * (1.0 + sk.leaky * sk._init_sum)
-
-        def bwd():
-            return den_scan.fused_backward(sk.M, *xs, out[1], sk.init,
-                                           sk.real, total, planes=sk._planes,
-                                           **kw)
-
-        def bwd_plain():
-            return den_scan.fused_backward_plain(sk.M, *xs, out[1], sk.init,
-                                                 sk.real, total, **kw)
-
-        beta, beta_again, beta_ref = bwd(), bwd(), bwd_plain()
-        torch.cuda.synchronize()
-        if not torch.equal(beta, beta_again):
-            raise AssertionError(f"den_scan backward ({split}) repeats differ")
-        err["beta_hist"] = assert_hist_close(beta, beta_ref, "beta_hist")
+        err, rel, calls = check_scans(sk, x, split)
         result[f"{split}_max_abs_err"] = err
-        result[f"{split}_max_err_rel_to_max"] = {
-            k: float((a - r).abs().max() / r.abs().max())
-            for k, a, r in (("adash_hist", out[0], ref[0]),
-                            ("beta_hist", beta, beta_ref))}
-        for tag, pair in (("fwd", (fwd_plain, fwd)), ("bwd", (bwd_plain, bwd))):
+        result[f"{split}_max_err_rel_to_max"] = rel
+        for tag, pair in calls.items():
             ms, plain_ms = alternate_ms(*pair)
             result[f"{split}_{tag}_ms"] = ms
             result[f"{split}_{tag}_plain_ms"] = plain_ms
-        del out, again, ref, beta, beta_again, beta_ref, xs, x, sk
+        del calls, x, sk
     # bounds of one scan: T frames of six bf16 products of M [Fp, Fp] with
     # [Fp, N]; bytes of each input read once and each output written once
     LFN, FN = 2 * 3584 * B, 3584 * B
@@ -651,29 +707,20 @@ def den_blocked_phase(dev, graph, lp_s, post_s):
     return launches, den_k
 
 
-def bench_num_graph(n_seq, n_frames, n_arcs, n_pdfs, rng):
-    """bench.py:134-144: a linear supervision chain of exactly n_frames
-    arcs, tiled with parallel alternative-pdf arcs up to n_arcs, so the
-    final state is reached and the numerator is finite."""
-    Sn = n_frames + 1
-    arcs = np.arange(n_arcs, dtype=np.int32) % n_frames
-    return NumeratorGraphBatch(
-        arc_src=np.tile(arcs, (n_seq, 1)),
-        arc_dst=np.tile(arcs + 1, (n_seq, 1)),
-        arc_pdf=rng.integers(0, n_pdfs, size=(n_seq, n_arcs)).astype(np.int32),
-        arc_logw=np.zeros((n_seq, n_arcs), np.float32),
-        arc_mask=np.ones((n_seq, n_arcs), np.float32),
-        start=np.zeros(n_seq, np.int32),
-        final_logw=np.where(np.arange(Sn)[None, :] == Sn - 1, 0.0,
-                            LOG_ZERO).astype(np.float32).repeat(n_seq, 0),
-        num_states=Sn, num_arcs=n_arcs)
-
-
 def small_step_phase(dev):
     """Two fp32 train steps of a narrow flagship-shaped model on the card
     against the same steps on the CPU (where the port runs the plain
     versions): the card's path (cuDNN convs, the kernel, the recursions)
-    must agree with the CPU reference to summation-order noise."""
+    must agree with the CPU reference to summation-order noise.  Then the
+    same with NG-SGD, xent and loss scaling (patch-lowered convs, one NG
+    update in the first step)."""
+    result = {}
+    for ng in (False, True):
+        result["ng" if ng else "plain"] = small_step_pair(dev, ng)
+    phase("small_step_vs_cpu", **result)
+
+
+def small_step_pair(dev, natural_gradient):
     n_seq, t_in, n_pdfs = 4, 30, 24
     t_out = (t_in - LEFT + STRIDE - 1) // STRIDE
     rng = np.random.default_rng(5)
@@ -681,9 +728,12 @@ def small_step_phase(dev):
     graph = DenominatorGraph.from_fst(
         make_phone_lm_den_fst(n_pdfs, 13, 2, 4, seed=3), n_pdfs)
     num_graph = bench_num_graph(n_seq, t_out, 2 * t_out, n_pdfs, rng)
+    ng = (dict(natural_gradient=True, ng_rank_in=SMALL_NG_RANK,
+               ng_rank_out=SMALL_NG_RANK, xent_regularize=0.1,
+               use_loss_scaling=True) if natural_gradient else {})
     config = TrainConfig(learning_rate=0.01, momentum=0.9,
                          frame_subsampling_factor=STRIDE, left_context=LEFT,
-                         compute_dtype="float32")
+                         compute_dtype="float32", **ng)
     batch = {"features": rng.normal(size=(n_seq, t_in, 8)).astype(np.float32),
              "ivectors": rng.normal(size=(n_seq, 10)).astype(np.float32)}
     outs, params = {}, {}
@@ -710,8 +760,8 @@ def small_step_phase(dev):
             np.testing.assert_allclose(params["card"][lname][pname], w,
                                        rtol=SMALL_RTOL, atol=1e-5,
                                        err_msg=f"{lname}/{pname}")
-    phase("small_step_vs_cpu", B=n_seq, T_in=t_in,
-          loss=float(outs["card"].loss), rel_diff=worst)
+    return {"B": n_seq, "T_in": t_in, "natural_gradient": natural_gradient,
+            "loss": float(outs["card"].loss), "rel_diff": worst}
 
 
 def train_phase(dev, den, name, counters, per_step, check_den=None):
@@ -803,6 +853,388 @@ def train_phase(dev, den, name, counters, per_step, check_den=None):
     return launches, losses
 
 
+def ng_vs_cpu_phase(dev, den):
+    """NG-SGD at flagship width, the card against the CPU.  One recipe
+    step (train_flagship.sh's options: xent 0.1, loss scaling, l2 5e-5, NG
+    at the default ranks 20 / 80, so patch-lowered convs) at B = 128,
+    T_in = 164, T_out = 50 on the card, every NG counter due; what its NG
+    calls (update_ng_states: the batched eigensolves; then
+    apply_natural_gradient) get and give is recorded, and the same calls
+    run from the same states, inputs X, output derivatives G and grads: on
+    the card in float64, on the CPU in float32 and in float64
+    (tools/ng_precision.py).  At tests/test_torch_natural_gradient.py's
+    bars (t exactly, d and rho rtol 1e-4, d atol 1e-4 max d, Vᵀdiag(d)V
+    within 1e-4 of its largest entry, the preconditioned grads rtol 1e-4,
+    atol 1e-6 ||dw||, dw the site's gradient with its bias row):
+
+      * float64, every site: the card equals the CPU;
+      * float32 (the training step's), every site whose two states keep
+        fewer than half their dimensions (2R < D - 1): the card equals the
+        CPU, and the CPU's float32 result lies within the bars of its
+        float64 one.  Where 2R >= D - 1 the update is ill-conditioned in
+        float32 on any device (natural_gradient.py): those sites are listed
+        with both devices' distances from the float64 result."""
+    rec = ng_precision.record_ng_step(dev, den, B, EGS_T_IN, EGS_T_OUT,
+                                      left_context=LEFT)
+    out = rec["out"]
+    if not (bool(out.ok) and not bool(out.skipped)
+            and np.isfinite(float(out.loss))):
+        raise AssertionError(f"NG step on the card: ok={bool(out.ok)} "
+                             f"skipped={bool(out.skipped)} loss={out.loss}")
+    cpu = torch.device("cpu")
+    runs = {"card32": (ng_precision.cast(rec["new"], cpu),
+                       ng_precision.cast(rec["pre"], cpu)),
+            "card64": ng_precision.ng_calls(rec, dev, torch.float64)}
+    patch_bytes = max(x.numel() * x.element_size()
+                      for x in rec["xs"].values())
+    for key in ("states", "xs", "gs", "grads"):
+        rec[key] = ng_precision.cast(rec[key], cpu)
+    del rec["new"], rec["pre"], rec["out"], out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs["cpu32"] = ng_precision.ng_calls(rec, cpu, torch.float32)
+    cpu_s = time.perf_counter() - t0
+    runs["cpu64"] = ng_precision.ng_calls(rec, cpu, torch.float64)
+
+    sites, grads = rec["sites"], rec["grads"]
+
+    def dist(a, b):
+        return ng_precision.ng_excess(runs[a], runs[b], sites, grads)
+
+    fp64, fp32 = dist("card64", "cpu64"), dist("card32", "cpu32")
+    cpu32_vs_64, card32_vs_64 = dist("cpu32", "cpu64"), dist("card32",
+                                                             "cpu64")
+    posed = ng_precision.well_posed(rec["states"])
+    bad = [f"{nm} float64: {e:.3g} x its bar" for nm, e in fp64.items()
+           if not e <= 1.0]
+    bad += [f"{nm} float32: {fp32[nm]:.3g} x its bar" for nm in posed
+            if not fp32[nm] <= 1.0]
+    bad += [f"{nm} CPU float32 vs float64: {cpu32_vs_64[nm]:.3g} x its bar"
+            for nm in posed if not cpu32_vs_64[nm] <= 1.0]
+    if bad:
+        raise AssertionError(f"NG at flagship width, card vs CPU: "
+                             f"{len(bad)} outside the bars: {bad[:20]}")
+    ill = {nm: {"cpu32_vs_cpu64": cpu32_vs_64[nm],
+                "card32_vs_cpu64": card32_vs_64[nm],
+                "card32_vs_cpu32": fp32[nm]}
+           for nm in fp32 if nm not in posed}
+    shapes = {(tuple(st.v.shape), side) for nm in rec["states"]
+              for side, st in rec["states"][nm].items()}
+    phase("ng_vs_cpu", B=B, T_in=EGS_T_IN, T_out=EGS_T_OUT,
+          rank_in=rec["cfg_in"].rank, rank_out=rec["cfg_out"].rank,
+          sites=len(sites), states=2 * len(sites), state_shapes=len(shapes),
+          largest_input_bytes=patch_bytes,
+          float64_max_excess=max(fp64.values()),
+          float32_sites_held=len(posed),
+          float32_max_excess=max((fp32[nm] for nm in posed), default=0.0),
+          float32_max_excess_cpu32_vs_cpu64=max(
+              (cpu32_vs_64[nm] for nm in posed), default=0.0),
+          float32_max_excess_card32_vs_cpu64=max(
+              (card32_vs_64[nm] for nm in posed), default=0.0),
+          float32_ill_posed_sites=ill, cpu_ng_s=cpu_s)
+
+
+def batches_equal(a, b):
+    """Two loaders' ChainBatches hold the same keys, arrays and graphs."""
+    graph = ("arc_src", "arc_dst", "arc_pdf", "arc_logw", "arc_mask", "start",
+             "final_logw")
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.keys != y.keys or (x.frames_per_seq, x.left_context) != (
+                y.frames_per_seq, y.left_context):
+            return False
+        for name in ("features", "ivectors", "weights", "deriv_weights"):
+            if not np.array_equal(getattr(x, name), getattr(y, name)):
+                return False
+        if not all(np.array_equal(getattr(x.num_graph, n),
+                                  getattr(y.num_graph, n)) for n in graph):
+            return False
+    return True
+
+
+def egs_phase():
+    """Synthetic cegs at flagship geometry written by the port's
+    make_synthetic_egs, the den.fst read back from its file, and the files
+    read through the DataLoader with the native parser and with the
+    Python one: equal batches."""
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    egs_dir = WORK / "egs"
+    t0 = time.perf_counter()
+    make_synthetic_egs.main([
+        str(egs_dir), "--files", str(EGS_FILES), "--per-file",
+        str(EGS_PER_FILE), "--pdfs", str(P), "--frames-in", str(EGS_T_IN),
+        "--frames-out", str(EGS_T_OUT), "--den-topology", "phone-lm",
+        "--den-states", "7052"])
+    write_s = time.perf_counter() - t0
+    den_fst = read_fst_file(str(egs_dir / "den.fst"))
+    graph = DenominatorGraph.from_fst(den_fst, P)
+    layout = analyze_chain_structure(graph)
+    if layout is None or graph.num_states != 7052 or layout.F != 3526:
+        raise AssertionError("den.fst read back did not decompose to 7052 "
+                             "states, F = 3526")
+    cfg = DataLoaderConfig(batch_size=B, label_dim=P, max_fst_states=256,
+                           max_fst_arcs=512)
+    loaded, ms = {}, {}
+    for name, use_native in (("native", True), ("python", False)):
+        dl = DataLoader(str(egs_dir / "cegs.*.ark"), cfg,
+                        use_native=use_native)
+        t0 = time.perf_counter()
+        loaded[name] = list(dl)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / max(len(loaded[name]), 1)
+        if dl.readers != name:
+            raise AssertionError(f"the {name} loader ran the {dl.readers!r} "
+                                 f"parser")
+    if not batches_equal(loaded["native"], loaded["python"]):
+        raise AssertionError("native and Python parsers gave other batches")
+    # spawned workers beside this process's CUDA context: one file each,
+    # merged round-robin, so the same batches in another order
+    t0 = time.perf_counter()
+    procs = ProcessLoader(str(egs_dir / "cegs.*.ark"), cfg, workers=EGS_FILES)
+    try:
+        spawned = list(procs)
+    finally:
+        procs.close()
+    ms["process"] = (time.perf_counter() - t0) * 1e3 / max(len(spawned), 1)
+    by_keys = sorted(spawned, key=lambda b: b.keys)
+    if not batches_equal(by_keys, sorted(loaded["native"],
+                                         key=lambda b: b.keys)):
+        raise AssertionError("ProcessLoader gave other batches")
+    first = loaded["native"][0]
+    n_batches = EGS_FILES * EGS_PER_FILE // B
+    span = first.left_context + (EGS_T_OUT - 1) * STRIDE + 1
+    if (len(loaded["native"]) != n_batches
+            or first.features.shape != (B, EGS_T_IN, 40)
+            or first.ivectors.shape != (B, 100)
+            or first.frames_per_seq != EGS_T_OUT or span > EGS_T_IN):
+        raise AssertionError(f"egs geometry: {len(loaded['native'])} batches "
+                             f"of {first.features.shape}, fps "
+                             f"{first.frames_per_seq}, span {span}")
+    phase("egs", files=EGS_FILES, examples=EGS_FILES * EGS_PER_FILE,
+          T_in=EGS_T_IN, T_out=EGS_T_OUT, pdfs=P, ivector_dim=100,
+          left_context=first.left_context, den_states=graph.num_states,
+          den_arcs=graph.num_transitions, chains=layout.F,
+          batches=len(loaded["native"]), write_s=write_s,
+          readers=["native", "python"], batches_equal=True,
+          ms_per_batch_native=ms["native"], ms_per_batch_python=ms["python"],
+          process_loader_workers=EGS_FILES,
+          process_loader_ms_per_batch_incl_start=ms["process"])
+    return egs_dir, graph
+
+
+def flagship_recipe_flags(egs_dir):
+    """configs/train_flagship.sh's flags to tools/train.py, as written
+    there, with the egs, den.fst and xconfig paths filled in."""
+    import shlex
+    text = (ROOT / "configs" / "train_flagship.sh").read_text()
+    body = text.split('tools/train.py" \\', 1)[1].split('"$@"', 1)[0]
+    flags = shlex.split(" ".join(line.strip().rstrip("\\")
+                                 for line in body.splitlines()))
+    fill = {"$EGS": str(egs_dir / "cegs.*.ark"),
+            "$DEN": str(egs_dir / "den.fst")}
+    return [fill.get(f, str(ROOT / "configs" / "cnn_tdnn.xconfig")
+                     if f.endswith("/cnn_tdnn.xconfig") else f)
+            for f in flags]
+
+
+def recipe_run(egs_dir, ckpt_dir, counters, natural_gradient=True,
+               resume=False, ckpt_every=CKPT_STEP, den_inputs=None):
+    """One tools.train main run of the recipe, 1 epoch of 8 batches at
+    B = 128, a checkpoint every `ckpt_every` steps.  Every kernel count is
+    set to 0 just before the run; returns (summary, per-step launch
+    counts).  den_inputs: a list that gets a CPU copy of the den's input
+    in the first step (a warm-up step, not timed)."""
+    flags = flagship_recipe_flags(egs_dir)
+    override = {"--epochs": "1", "--ckpt-dir": str(ckpt_dir),
+                "--ckpt-every": str(ckpt_every)}
+    for i, f in enumerate(flags[:-1]):
+        if f in override:
+            flags[i + 1] = override[f]
+    if not natural_gradient:
+        flags.remove("--natural-gradient")
+    if resume:
+        flags.append("--resume")
+    per_step = []
+    run_step = Trainer.train_batch
+
+    def counted(self, *args, **kwargs):
+        before = {k: c.launches for k, c in counters.items()}
+        out = run_step(self, *args, **kwargs)
+        per_step.append({k: c.launches - before[k]
+                         for k, c in counters.items()})
+        return out
+
+    run_den = DenominatorComputation.forward_backward
+
+    def keep_input(self, x, *args, **kwargs):
+        if den_inputs is not None and not den_inputs:
+            den_inputs.append(x.detach().cpu())
+        return run_den(self, x, *args, **kwargs)
+
+    Trainer.train_batch = counted
+    DenominatorComputation.forward_backward = keep_input
+    try:
+        for counter in counters.values():
+            counter.launches = 0
+        res = train_tool.main(flags + ["--log-every", "100"])
+        torch.cuda.synchronize()
+    finally:
+        Trainer.train_batch = run_step
+        DenominatorComputation.forward_backward = run_den
+    totals = {k: c.launches for k, c in counters.items()}
+    if {k: sum(s[k] for s in per_step) for k in counters} != totals:
+        raise AssertionError("kernel launches outside the train steps")
+    return res, per_step
+
+
+def tensor_leaves(tree):
+    """The tensors of nested dicts, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def check_steps(res, per_step, first, last, tag):
+    expect = {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0}
+    steps = res["steps"]
+    if [s["step"] for s in steps] != list(range(first, last + 1)):
+        raise AssertionError(f"{tag}: ran steps {[s['step'] for s in steps]}")
+    for s, launches in zip(steps, per_step):
+        if not (np.isfinite(s["loss"]) and s["ok"] and not s["skipped"]):
+            raise AssertionError(f"{tag} step {s['step']}: {s}")
+        if launches != expect:
+            raise AssertionError(f"{tag} step {s['step']} launched "
+                                 f"{launches}, expected {expect}")
+
+
+def trainer_den_check(den_t, graph, x_cpu, dev):
+    """The Trainer's den on the input of its first step ([B, 50, P], the
+    network's output on the first egs batch): against the loop den at the
+    den phases' bars, and its fused scans, on the same emissions, against
+    their plain versions at the HIST bars."""
+    x = x_cpu.to(dev)
+    lp, post = den_t.forward_backward(x)
+    if den_t._structured.scan_used != "fused":
+        raise AssertionError(f"the Trainer's den ran the "
+                             f"{den_t._structured.scan_used} scans")
+    den_l = DenominatorComputation(graph, leaky=den_t.leaky, scan_impl="loop",
+                                   device=dev)
+    lp_l, post_l = den_l.forward_backward(x)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lp).all() and torch.isfinite(post).all()):
+        raise AssertionError("the Trainer's den output is not finite")
+    torch.testing.assert_close(lp, lp_l, rtol=LOGP_RTOL, atol=0)
+    torch.testing.assert_close(post, post_l, rtol=POST_RTOL, atol=POST_ATOL)
+    x_tpn = torch.exp(torch.clamp(x.float(), -30.0, 30.0)) \
+        .permute(1, 2, 0).contiguous()
+    err, rel, _ = check_scans(den_t._structured, x_tpn, "trainer")
+    return {"input_shape": list(x.shape),
+            "logp_max_rel_vs_loop": float(((lp - lp_l).abs()
+                                           / lp_l.abs()).max()),
+            "post_max_abs_vs_loop": float((post - post_l).abs().max()),
+            "scan_max_abs_err": err, "scan_max_err_rel_to_max": rel}
+
+
+def trainer_phase(egs_dir, graph, dev):
+    """tools.train's main with configs/train_flagship.sh's flags: 8 steps
+    with a checkpoint at step 4 (the den of its first step held against
+    the loop den and the plain scans), the run resumed from that
+    checkpoint (equal to the uninterrupted one bit for bit), and the same
+    8 steps without NG-SGD."""
+    counters = {"den_scan_fwd": den_scan.fused_forward,
+                "den_scan_bwd": den_scan.fused_backward,
+                "den_matmul": DenMatmul}
+    torch.cuda.reset_peak_memory_stats()
+    den_inputs = []
+    full, full_steps = recipe_run(egs_dir, WORK / "ckpt_full", counters,
+                                  den_inputs=den_inputs)
+    peak = torch.cuda.max_memory_allocated()
+    check_steps(full, full_steps, 1, TRAIN_STEPS, "full run")
+    den_check = trainer_den_check(full["trainer"].den, graph, den_inputs[0],
+                                  dev)
+    del den_inputs
+    launches = {k: sum(s[k] for s in full_steps) for k in counters}
+    sd_full = {k: v.detach().cpu().clone()
+               for k, v in full["trainer"].net.state_dict().items()}
+    losses = [s["loss"] for s in full["steps"]]
+    timer = full["timer"]
+    readers = full["readers"]
+    del full
+    torch.cuda.empty_cache()
+
+    killed = WORK / "ckpt_killed"
+    killed.mkdir()
+    shutil.copy(WORK / "ckpt_full" / f"ckpt_{CKPT_STEP}.pt", killed)
+    resumed, resumed_steps = recipe_run(egs_dir, killed, counters,
+                                        resume=True)
+    check_steps(resumed, resumed_steps, CKPT_STEP + 1, TRAIN_STEPS,
+                "resumed run")
+    sd_res = resumed["trainer"].net.state_dict()
+    if not all(torch.equal(sd_full[k], sd_res[k].cpu()) for k in sd_full):
+        raise AssertionError("the resumed run's parameters differ from the "
+                             "uninterrupted run's")
+    if [s["loss"] for s in resumed["steps"]] != losses[CKPT_STEP:]:
+        raise AssertionError("the resumed run's losses differ")
+    saved = [CheckpointManager(str(d)).load(TRAIN_STEPS)
+             for d in (WORK / "ckpt_full", killed)]
+    opt_a, opt_b = (tensor_leaves({"opt": c["opt_state"],
+                                   "scale": c["scale_state"]})
+                    for c in saved)
+    if len(opt_a) != len(opt_b) or not all(torch.equal(x, y)
+                                           for x, y in zip(opt_a, opt_b)):
+        raise AssertionError("the resumed run's optimizer state differs")
+    del resumed, sd_res, saved, opt_a, opt_b
+    torch.cuda.empty_cache()
+
+    # no checkpoint inside this run's loop: its loop time is the steps'
+    plain, plain_steps = recipe_run(egs_dir, WORK / "ckpt_no_ng", counters,
+                                    natural_gradient=False,
+                                    ckpt_every=10 * TRAIN_STEPS)
+    check_steps(plain, plain_steps, 1, TRAIN_STEPS, "run without NG")
+    plain_timer = plain["timer"]
+    del plain
+    torch.cuda.empty_cache()
+
+    device_ms = timer["device_mean_ms"]
+    loop_ms = timer["device_loop_mean_ms"]
+    # timed steps 3..8: the NG update (counter % 4 == 0) falls on step 5
+    each = timer["device_each_ms"]
+    update_ms = each[NG_UPDATE_STEP - 3]
+    other_ms = float(np.mean([m for i, m in enumerate(each)
+                              if i != NG_UPDATE_STEP - 3]))
+    plain_ms = plain_timer["device_mean_ms"]
+    phase("trainer", B=B, T_in=EGS_T_IN, T_out=EGS_T_OUT, pdfs=P,
+          steps=TRAIN_STEPS, timed_steps=timer["steps"],
+          resumed_from=CKPT_STEP, resume_bit_identical=True,
+          readers=readers, losses=losses,
+          launches=launches, launches_per_step=full_steps[0],
+          resumed_launches={k: sum(s[k] for s in resumed_steps)
+                            for k in counters},
+          den_check=den_check,
+          step_device_ms=device_ms, step_host_ms=timer["mean_ms"],
+          step_device_ms_each=each,
+          loop_ms_per_step=loop_ms, loop_host_ms_per_step=timer["loop_mean_ms"],
+          device_gaps_ms=timer["device_gaps_ms"],
+          idle_share=timer["idle_share"],
+          ng_update_step_device_ms=update_ms,
+          ng_other_steps_device_ms=other_ms,
+          no_ng_step_device_ms=plain_ms,
+          no_ng_step_device_ms_each=plain_timer["device_each_ms"],
+          no_ng_loop_ms_per_step=plain_timer["device_loop_mean_ms"],
+          no_ng_device_gaps_ms=plain_timer["device_gaps_ms"],
+          no_ng_idle_share=plain_timer["idle_share"],
+          ng_cost_ms_per_step=device_ms - plain_ms,
+          ng_cost_update_step_ms=update_ms - plain_ms,
+          ng_cost_other_steps_ms=other_ms - plain_ms,
+          train_audio_sec_per_s_per_chip=B * EGS_T_IN / 100.0
+          / (loop_ms / 1e3),
+          train_audio_sec_per_s_per_chip_device=B * EGS_T_IN / 100.0
+          / (device_ms / 1e3),
+          max_memory_allocated_bytes=peak)
+    return launches, den_check
+
+
 def main():
     dev = device_phase()
     build_phase()
@@ -833,6 +1265,10 @@ def main():
     # same seeds, weights, batch and SpecAugment generator as "train"
     np.testing.assert_allclose(fused_losses[0], losses[0], rtol=SMALL_RTOL,
                                err_msg="first loss, fused vs loop den")
+    ng_vs_cpu_phase(dev, den_f)
+    del den_f
+    egs_dir, egs_graph = egs_phase()
+    _, den_check = trainer_phase(egs_dir, egs_graph, dev)
     src = "kaldi_fp16_tpu_torch/csrc/"
     F, n = k["F"], k["n"]
     mm_io = 4 * 2 * F * n                     # v read, out written
@@ -859,14 +1295,17 @@ def main():
               k["pre_library_us"] / 1e3),
         entry("den_scan_fwd", "den_scan.cu", SCAN_REPLACES["fwd"],
               fused_launches["den_scan_fwd"],
-              max(v for n, v in scan["kernel_max_abs_err"].items()
-                  if n != "beta_hist"),
+              max(v for errs in (scan["kernel_max_abs_err"],
+                                 den_check["scan_max_abs_err"])
+                  for n, v in errs.items() if n != "beta_hist"),
               scan["kernel_fwd_ms"], scan["kernel_fwd_plain_ms"],
               scan["fwd_bound"], None),
         entry("den_scan_bwd", "den_scan.cu", SCAN_REPLACES["bwd"],
               fused_launches["den_scan_bwd"],
-              scan["kernel_max_abs_err"]["beta_hist"], scan["kernel_bwd_ms"],
-              scan["kernel_bwd_plain_ms"], scan["bwd_bound"], None),
+              max(scan["kernel_max_abs_err"]["beta_hist"],
+                  den_check["scan_max_abs_err"]["beta_hist"]),
+              scan["kernel_bwd_ms"], scan["kernel_bwd_plain_ms"],
+              scan["bwd_bound"], None),
         entry("segment_reduce", "segment_reduce.cu", REDUCE_REPLACES,
               red_launches, red["max_abs_err"], red["sorted"]["ms"],
               red["sorted"]["plain_ms"], red["sorted"]["bound"],

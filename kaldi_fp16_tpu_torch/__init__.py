@@ -8,14 +8,19 @@ nothing of the JAX package: what it needs of a jax-free module there
 Entry points run on the current CUDA device unless given a device
 (`device.default_device`); CPU runs pass device="cpu".
 
-  io/        FST data classes and CSR conversion (numpy)
-  models/    xconfig -> layers -> nn.Module network (bf16 compute, fp32 masters)
+  io/        Kaldi binary I/O, FSTs, cegs egs (Python and native parser),
+             batches, data loaders (numpy)
+  models/    xconfig -> layers -> nn.Module network (bf16 compute, fp32
+             masters), natural-gradient sites
   chain/     LF-MMI objective: numerator, structured and blocked
              denominator, autograd
   ops/       hand-written CUDA kernels (csrc/) with their plain versions
-  training/  SGD with max-change, loss scaling, orthonormal constraint, step
-  tools/     command-line twins of tools/*.py (chainbench)
-  convert.py JAX parameter trees <-> the port's state_dict
+  training/  SGD with max-change, loss scaling, orthonormal constraint,
+             NG-SGD, train and eval steps, Trainer, checkpoints, schedules
+  utils/     JSONL metrics, step timing (CUDA events)
+  tools/     command-line twins of tools/*.py (train, make_synthetic_egs,
+             chainbench) and profilers
+  convert.py JAX parameter and training-state trees <-> the port's
 """
 
 __version__ = "0.1.0"

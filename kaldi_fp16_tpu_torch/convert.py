@@ -5,6 +5,10 @@ and state[layer] (BN statistics: {count, mean, var}, or {bn1: ..., bn2: ...}
 for a prefinal layer).  The port keeps them in a `Network` module.  The
 layouts agree except for conv weights: HWIO-flattened [kt*kh*nf_in,
 nf_out] in JAX, OIHW [nf_out, nf_in, kt, kh] in the port.
+`train_state_from_jax` / `train_state_to_numpy` and
+`data_position_from_jax` carry a whole training state (velocities, step
+count, NG states, loss scale, data position) across, so a JAX checkpoint
+continues in the port.
 """
 
 from __future__ import annotations
@@ -66,3 +70,86 @@ def params_to_numpy(net: Network) -> Tuple[dict, dict]:
                 for k, v in tree.items()}
 
     return params, to_np(net.bn_state())
+
+
+def _tree(x):
+    """A NamedTuple (NGState, LossScaleState) or dict as a dict."""
+    return x._asdict() if hasattr(x, "_asdict") else dict(x)
+
+
+def train_state_from_jax(model: Model, params: dict, net_state: dict,
+                         opt_state: dict, scale_state, device=None):
+    """A JAX training state (the trees of the JAX `init_train_state` or of a
+    restored JAX checkpoint, numpy or jax arrays) -> (the port's
+    state_dict for `Network.load_state_dict`, opt_state, scale_state) on
+    `device` (default: the current CUDA device).
+
+    opt_state carries the SGD velocities (conv weights re-laid out to OIHW,
+    as `params_from_jax` does), the step count and, when present, the NG
+    states per site ({"in": NGState, "out": NGState}); scale_state becomes
+    the port's LossScaleState."""
+    from kaldi_fp16_tpu_torch.device import resolve_device
+    from kaldi_fp16_tpu_torch.training.loss_scale import LossScaleState
+    from kaldi_fp16_tpu_torch.training.natural_gradient import NGState
+
+    device = resolve_device(device)
+    sd = params_from_jax(model, params, net_state)
+
+    def tensor(a, dtype=None):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    velocity = {}
+    for lname, p in opt_state["velocity"].items():
+        velocity[lname] = {}
+        for pname, v in p.items():
+            t = tensor(v, torch.float32)
+            if _is_conv_weight(model, lname, pname):
+                t = conv_weight_to_oihw(t, model.layer_map[lname].spec)
+            velocity[lname][pname] = t
+    out = {"velocity": velocity,
+           "step": tensor(opt_state["step"], torch.int64)}
+    if "ng" in opt_state:
+        out["ng"] = {
+            site: {side: NGState(**{k: tensor(v) for k, v in
+                                    _tree(st[side]).items()})
+                   for side in ("in", "out")}
+            for site, st in opt_state["ng"].items()}
+    scale = LossScaleState(**{k: tensor(v) for k, v in
+                              _tree(scale_state).items()})
+    return sd, out, scale
+
+
+def train_state_to_numpy(net: Network, opt_state: dict, scale_state):
+    """The port's training state as JAX-layout numpy trees: (params,
+    net_state, opt_state, scale_state dict), opt_state with "velocity"
+    (conv weights in the JAX layout), "step" (int32) and, when present,
+    "ng" ({site: {"in"/"out": {v, d, rho, t}}})."""
+    model = net.model
+    params, state = params_to_numpy(net)
+    velocity = {}
+    for lname, p in opt_state["velocity"].items():
+        velocity[lname] = {}
+        for pname, v in p.items():
+            v = v.detach()
+            if _is_conv_weight(model, lname, pname):
+                v = conv_weight_from_oihw(v, model.layer_map[lname].spec)
+            velocity[lname][pname] = v.cpu().numpy().copy()
+    out = {"velocity": velocity,
+           "step": np.asarray(int(opt_state["step"]), np.int32)}
+    if "ng" in opt_state:
+        out["ng"] = {site: {side: {k: v.cpu().numpy().copy() for k, v in
+                                   _tree(st[side]).items()}
+                            for side in ("in", "out")}
+                     for site, st in opt_state["ng"].items()}
+    scale = {k: v.cpu().numpy().copy() for k, v in _tree(scale_state).items()}
+    return params, state, out, scale
+
+
+def data_position_from_jax(pos):
+    """A JAX `DataPosition` (epoch, file_index, batches_consumed, rng_key)
+    -> the port's.  The JAX PRNG key has no torch generator state, so
+    `rng_state` is None: the resumed run draws its SpecAugment masks from
+    the Trainer's seeded generator."""
+    from kaldi_fp16_tpu_torch.training.checkpoint import DataPosition
+    return DataPosition(epoch=int(pos.epoch), file_index=int(pos.file_index),
+                        batches_consumed=int(pos.batches_consumed))

@@ -2,11 +2,10 @@
 
 Port of kaldi_fp16_tpu/models/network.py for the flagship layer set:
 idct, batchnorm, SpecAugment, the ivector linear (ReplaceIndex input),
-combine-feature-maps, conv-relu-batchnorm (direct and cut-conv
-lowerings), tdnnf, relu-batchnorm, prefinal and the output heads.  Not
-ported yet: the attention layer and the patch conv lowering (irregular
-offset grids), which raise NotImplementedError, and the natural-gradient
-taps.
+combine-feature-maps, conv-relu-batchnorm (direct, cut-conv and patch
+lowerings), tdnnf, relu-batchnorm, prefinal and the output heads, and the
+natural-gradient sites (`ng_sites`, `NGContext`).  Not ported yet: the
+attention layer, which raises NotImplementedError.
 
 Layouts follow the JAX package at every public boundary: activations are
 [B, T, D] with a feature map's column = height * num_filters + filter
@@ -21,6 +20,13 @@ statistics, target-rms scaling, no learnable scale or offset.  `forward`
 does not write the running statistics: it returns them, and the caller
 commits them with `set_bn_state` (the train step keeps the old ones on a
 skipped, non-finite batch).
+
+Natural gradient (NG-SGD): with an `NGContext`, the forward records each
+site's matmul input X and registers a hook on the site's fp32
+pre-activation output, whose gradient is the output derivative G that
+the JAX package takes as the gradient of a zero tap added at the same
+point (network.py:278-302 there).  As there, the convs then use the
+patch lowering (X is the materialised patch) and no conv is cut.
 """
 
 from __future__ import annotations
@@ -224,25 +230,93 @@ def _direct_conv_ok(spec: ConvReluBNSpec) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# Natural-gradient sites
+# ---------------------------------------------------------------------------
+
+class NGContext:
+    """Collects, per natural-gradient site ("<layer>/<param>"), the matmul
+    input X (`xs`) and, once the backward has run, the gradient G of the
+    site's fp32 pre-activation output (`gs`)."""
+
+    def __init__(self):
+        self.xs: Dict[str, torch.Tensor] = {}
+        self.gs: Dict[str, torch.Tensor] = {}
+
+    def site(self, name: str, x: torch.Tensor,
+             out: torch.Tensor) -> torch.Tensor:
+        self.xs[name] = x.detach()
+        if out.requires_grad:
+            out.register_hook(lambda g, name=name: self.gs.__setitem__(name, g))
+        return out
+
+
+def _site(ng: Optional[NGContext], name: str, x, out):
+    return out if ng is None else ng.site(name, x, out)
+
+
+def ng_sites(model: Model):
+    """Registry of natural-gradient sites for a model: one per matmul
+    application, with the param names and dims needed to precondition the
+    accumulated gradient (copied from network.py:838-884 of the JAX
+    package; `in_dim` counts rows of the JAX weight layout)."""
+    sites = []
+    for layer in model.layers:
+        t, sp, n = layer.type, layer.spec, layer.name
+        if t == LayerType.LINEAR:
+            sites.append(dict(name=f"{n}/w", layer=n, w="w", b=None,
+                              in_dim=sp.input_dim, out_dim=sp.output_dim))
+        elif t == LayerType.RELU_BATCHNORM:
+            sites.append(dict(name=f"{n}/w", layer=n, w="w", b="b",
+                              in_dim=sp.input_dim, out_dim=sp.output_dim))
+        elif t == LayerType.CONV_RELU_BATCHNORM:
+            k = len(sp.offsets) * sp.num_filters_in
+            sites.append(dict(name=f"{n}/w", layer=n, w="w", b="b",
+                              in_dim=k, out_dim=sp.num_filters_out))
+        elif t == LayerType.TDNNF:
+            m = 2 if sp.time_stride > 0 else 1
+            sites.append(dict(name=f"{n}/linear_w", layer=n, w="linear_w",
+                              b=None, in_dim=sp.input_dim * m,
+                              out_dim=sp.bottleneck_dim))
+            sites.append(dict(name=f"{n}/affine_w", layer=n, w="affine_w",
+                              b="affine_b", in_dim=sp.bottleneck_dim * m,
+                              out_dim=sp.output_dim))
+        elif t == LayerType.ATTENTION_RELU_BATCHNORM:
+            proj = sp.num_heads * sp.input_dim_per_head
+            sites.append(dict(name=f"{n}/w", layer=n, w="w", b="b",
+                              in_dim=sp.input_dim, out_dim=proj))
+        elif t == LayerType.PREFINAL:
+            sites.append(dict(name=f"{n}/big_w", layer=n, w="big_w",
+                              b="big_b", in_dim=sp.input_dim,
+                              out_dim=sp.big_dim))
+            sites.append(dict(name=f"{n}/small_w", layer=n, w="small_w",
+                              b=None, in_dim=sp.big_dim, out_dim=sp.small_dim))
+        elif t == LayerType.OUTPUT:
+            sites.append(dict(name=f"{n}/w", layer=n, w="w", b="b",
+                              in_dim=sp.input_dim, out_dim=sp.output_dim))
+    return sites
+
+
+# ---------------------------------------------------------------------------
 # Layer forwards
 # ---------------------------------------------------------------------------
 
 def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
-                      x: torch.Tensor, train: bool, dtype,
+                      x: torch.Tensor, train: bool, dtype, ng=None, lname="",
                       grid_cut=None) -> Tuple[torch.Tensor, dict]:
-    """Convolution over (time, height) as one F.conv2d: dilation encodes
-    evenly spaced offsets, stride the height subsample (network.py:354-406).
-    x: [B, T, H_in * nf_in], filter fastest.
+    """Convolution over (time, height).  x: [B, T, H_in * nf_in], filter
+    fastest.  Two lowerings, the same math (network.py:321-426):
 
-    grid_cut=(stride, offset, n_grid) is the cut conv: full-rate input,
-    output only at frames offset + j*stride, via a time-strided window;
-    equal to the full-rate conv at those frames (same zero padding).
-
-    F.conv2d pads symmetrically, so the asymmetric padding is applied
-    explicitly first."""
-    if not _direct_conv_ok(spec):
-        raise NotImplementedError(
-            "conv with irregular offsets (patch lowering) is not ported yet")
+      * direct: one F.conv2d, dilation encoding evenly spaced offsets,
+        stride the height subsample.  F.conv2d pads symmetrically, so the
+        asymmetric padding is applied explicitly first.
+        grid_cut=(stride, offset, n_grid) is the cut conv: full-rate input,
+        output only at frames offset + j*stride, via a time-strided window;
+        equal to the full-rate conv at those frames (same zero padding).
+      * patch: time shifts, height slices and one concat into the patch
+        [B, T, H_out, k * nf_in] (offsets time-major, height fastest, the
+        JAX weight layout's row order), then one matmul.  It serves
+        irregular offset grids and NG-SGD, whose input Fisher factor taps
+        the patch."""
     B, T, _ = x.shape
     H_in, H_out = spec.height_in, spec.height_out
     nf_in, nf_out = spec.num_filters_in, spec.num_filters_out
@@ -250,6 +324,23 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
     h_offs, t_offs = spec.height_offsets, spec.time_offsets
     pad_lo = max(0, -min(h_offs))
     pad_hi = max(0, (H_out - 1) * sub + max(h_offs) - (H_in - 1))
+    if ng is not None or not _direct_conv_ok(spec):
+        if grid_cut is not None:
+            raise ValueError("a cut conv needs the direct lowering")
+        patches = []
+        for t_off in t_offs:
+            xt = _shift_time(x, t_off, "zero").reshape(B, T, H_in, nf_in)
+            if pad_lo or pad_hi:
+                xt = F.pad(xt, (0, 0, pad_lo, pad_hi))
+            for h_off in h_offs:
+                start = pad_lo + h_off
+                patches.append(xt[:, :, start:start + (H_out - 1) * sub + 1:sub])
+        patch = torch.cat(patches, dim=-1)        # [B, T, H_out, k * nf_in]
+        out = (_matmul(patch, conv_weight_from_oihw(p["w"], spec), dtype)
+               + p["b"].float())
+        out = _site(ng, f"{lname}/w", patch, out)
+        out = torch.relu(out).reshape(B, T, H_out * nf_out).to(dtype)
+        return _batchnorm(out, bn, spec.target_rms, 1e-3, train)
     t_lo, t_hi = -min(t_offs), max(t_offs)
     dilation = (_even_spacing(t_offs), _even_spacing(h_offs))
 
@@ -271,14 +362,16 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
 
 
 def _fwd_tdnnf(spec: TDNNFSpec, p: dict, bn: dict, x: torch.Tensor,
-               train: bool, dtype) -> Tuple[torch.Tensor, dict]:
+               train: bool, dtype, ng=None, lname="") -> Tuple[torch.Tensor, dict]:
     """splice[-s,0] -> linear -> splice[0,+s] -> affine -> relu -> bn ->
     bypass (clamped edges)."""
     s = spec.time_stride
     lin_in = _splice(x, (-s, 0), "clamp") if s > 0 else x
-    bottleneck = _matmul(lin_in, p["linear_w"], dtype).to(dtype)
+    bottleneck = _matmul(lin_in, p["linear_w"], dtype)
+    bottleneck = _site(ng, f"{lname}/linear_w", lin_in, bottleneck).to(dtype)
     aff_in = _splice(bottleneck, (0, s), "clamp") if s > 0 else bottleneck
     out = _matmul(aff_in, p["affine_w"], dtype) + p["affine_b"].float()
+    out = _site(ng, f"{lname}/affine_w", aff_in, out)
     out = torch.relu(out).to(dtype)
     out, new_bn = _batchnorm(out, bn, spec.target_rms, 1e-3, train)
     if spec.bypass_scale > 0 and spec.input_dim == spec.output_dim:
@@ -534,7 +627,8 @@ class Network(nn.Module):
                 train: bool = False, compute_dtype=torch.bfloat16,
                 time_subsample: Optional[tuple] = None,
                 spec_masks: Optional[dict] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                ng: Optional[NGContext] = None):
         """Run the network: ({output_name: [B, T, dim] fp32}, new BN state).
 
         time_subsample=(stride, offset, n_grid) runs every grid-eligible
@@ -546,6 +640,10 @@ class Network(nn.Module):
         `spec_masks[layer_name]` ((freq_keep, time_keep), from
         `spec_augment_masks`) if given, else masks drawn from `generator`;
         with neither it is the identity, as in JAX with rng=None.
+
+        ng (an NGContext) collects the natural-gradient sites' inputs and
+        output gradients; the convs then take the patch lowering and none
+        is cut, as in the JAX package.
         """
         model = self.model
         params = self.params
@@ -561,8 +659,11 @@ class Network(nn.Module):
         g_stride = 1
         if time_subsample is not None:
             g_stride, g_offset, n_grid = time_subsample
-            cut = conv_cut_layers(model, g_stride)
-            grid = grid_layers(model, g_stride) | cut
+            grid = grid_layers(model, g_stride)
+            # cut convs need the direct lowering, which NG disables
+            if ng is None:
+                cut = conv_cut_layers(model, g_stride)
+                grid = grid | cut
 
         def to_grid(a):
             """Full-rate [B, T, ...] -> grid [B, n_grid, ...]."""
@@ -608,7 +709,7 @@ class Network(nn.Module):
             if t == LayerType.IDCT:
                 out = _matmul(x, p["idct"], dtype)
             elif t == LayerType.LINEAR:
-                out = _matmul(x, p["w"], dtype)
+                out = _site(ng, f"{layer.name}/w", x, _matmul(x, p["w"], dtype))
             elif t == LayerType.BATCHNORM:
                 out, new_state[layer.name] = _batchnorm(
                     x, st, s.target_rms, s.epsilon, train)
@@ -625,26 +726,31 @@ class Network(nn.Module):
             elif t == LayerType.CONV_RELU_BATCHNORM:
                 gc = (g_stride, g_offset, n_grid) if layer.name in cut else None
                 out, new_state[layer.name] = _fwd_conv_relu_bn(
-                    s, p, st, x, train, dtype, grid_cut=gc)
+                    s, p, st, x, train, dtype, ng=ng, lname=layer.name,
+                    grid_cut=gc)
             elif t == LayerType.TDNNF:
-                out, new_state[layer.name] = _fwd_tdnnf(s, p, st, x, train,
-                                                        dtype)
+                out, new_state[layer.name] = _fwd_tdnnf(
+                    s, p, st, x, train, dtype, ng=ng, lname=layer.name)
             elif t == LayerType.RELU_BATCHNORM:
                 out = _matmul(x, p["w"], dtype) + p["b"].float()
+                out = _site(ng, f"{layer.name}/w", x, out)
                 out = torch.relu(out).to(dtype)
                 out, new_state[layer.name] = _batchnorm(
                     out, st, s.target_rms, 1e-3, train)
             elif t == LayerType.PREFINAL:
                 big = _matmul(x, p["big_w"], dtype) + p["big_b"].float()
+                big = _site(ng, f"{layer.name}/big_w", x, big)
                 big = torch.relu(big).to(dtype)
                 big, ns1 = _batchnorm(big, st["bn1"], s.target_rms, 1e-3,
                                       train)
-                small = _matmul(big, p["small_w"], dtype).to(dtype)
+                small = _matmul(big, p["small_w"], dtype)
+                small = _site(ng, f"{layer.name}/small_w", big, small).to(dtype)
                 out, ns2 = _batchnorm(small, st["bn2"], s.target_rms, 1e-3,
                                       train)
                 new_state[layer.name] = {"bn1": ns1, "bn2": ns2}
             elif t == LayerType.OUTPUT:
                 out = _matmul(x, p["w"], dtype) + p["b"].float()
+                out = _site(ng, f"{layer.name}/w", x, out)
                 if s.include_log_softmax:
                     out = torch.log_softmax(out, dim=-1)
                 outputs[layer.name] = out   # outputs stay fp32

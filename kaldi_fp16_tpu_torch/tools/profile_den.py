@@ -25,7 +25,6 @@ import subprocess
 import sys
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from kaldi_fp16_tpu_torch.chain.den_layout import analyze_chain_structure
 from kaldi_fp16_tpu_torch.chain.den_structured import StructuredKernels
@@ -35,6 +34,7 @@ from kaldi_fp16_tpu_torch.chain.graph import (
 )
 from kaldi_fp16_tpu_torch.ops import den_scan
 from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul
+from kaldi_fp16_tpu_torch.utils.profiling import kernel_times
 
 
 def parse_args(argv=None):
@@ -46,20 +46,10 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def kernel_times(fn):
-    """[(kernel name, launches, device us total)] of one call of fn."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.count, e.device_time_total)
-            for e in prof.key_averages() if e.device_time_total > 0]
-    return sorted(rows, key=lambda r: -r[2])
-
-
 def report(name, fn):
-    rows = kernel_times(fn)
+    fn()                                  # built and warm
+    torch.cuda.synchronize()
+    _, rows = kernel_times(fn)
     print(json.dumps({"call": name,
                       "device_us": sum(r[2] for r in rows),
                       "kernels": [{"name": k[:80], "launches": n,

@@ -1,22 +1,33 @@
-"""The chain training step on PyTorch.
+"""The chain training and eval steps on PyTorch.
 
 Port of kaldi_fp16_tpu/training/train_step.py (`TrainConfig` :51,
-`make_train_step` :141-364, `init_train_state` :367), without NG-SGD
-(natural gradient) and rematerialisation, which are not ported yet.
-Per step, as Kaldi NnetChainTrainer::TrainInternal:
+`apply_natural_gradient` :97-138, `make_train_step` :141-364,
+`init_train_state` :367, `EvalStepOutput` / `make_eval_step` :385-490),
+without rematerialisation (`remat`), which is not ported yet.  Per step,
+as Kaldi NnetChainTrainer::TrainInternal:
 
   features/ivectors -> Network.forward (bf16 compute, frame grid)
   -> supervision frames (stride 3 from left_context)
   -> chain objective (autograd.Function: analytic forward-backward deriv)
   [+ xent head: xent_regularize * sum(num_post * log_softmax)]
   -> backward -> loss-scale bookkeeping
+  [-> NG-SGD: update the sites' Fisher factors, precondition the grads]
   -> SGD with momentum, per-component + global max-change
   -> every `orthonormal_interval` non-skipped steps, the semi-orthogonal
      constraint on the bottleneck linears.
 
 The step updates the Network's parameters and BN statistics in place.  A
-non-finite gradient (judged on the raw grads) skips the update and keeps
-the old BN statistics.
+non-finite gradient (judged on the raw grads) skips the update, keeps the
+old BN statistics and leaves the NG states as they were (their counters
+do not advance).  The numerator graph is either fixed when the step is
+made or passed with each call, with that batch's left_context (the
+Trainer's path: the JAX package's `graph_in_args`).
+
+The step reads the device once, after the backward: whether the batch is
+skipped, whether the orthonormal constraint is due and, with NG, the
+sites' update counters, in one transfer.  NG's eigensolves run only on
+the steps where a counter is due (every 4th), batched over the sites of
+one shape (training/natural_gradient.py).
 """
 
 from __future__ import annotations
@@ -28,17 +39,23 @@ import torch
 
 from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
 from kaldi_fp16_tpu_torch.chain.graph import NumeratorGraphBatch
-from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.chain.objective import (
     ChainTrainingOpts, make_chain_objf_with_post,
 )
+from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.models.model import Model
 from kaldi_fp16_tpu_torch.models.network import (
-    Network, grid_layers, trainable_mask,
+    NGContext, Network, conv_weight_from_oihw, conv_weight_to_oihw,
+    grid_layers, ng_sites, trainable_mask,
 )
+from kaldi_fp16_tpu_torch.models.xconfig import LayerType
 from kaldi_fp16_tpu_torch.training.loss_scale import (
     grads_finite, init_loss_scale, tree_leaves, tree_map, unscale_grads,
     update_loss_scale,
+)
+from kaldi_fp16_tpu_torch.training.natural_gradient import (
+    NGConfig, advance, fisher_update, init_ng_state, precondition_grad,
+    update_due,
 )
 from kaldi_fp16_tpu_torch.training.optimizer import (
     SGDConfig, init_sgd_state, layer_hyperparams, sgd_update,
@@ -59,6 +76,11 @@ class TrainConfig:
     xent_regularize: float = 0.0
     use_loss_scaling: bool = False
     compute_dtype: str = "bfloat16"
+    # Kaldi NG-SGD: precondition every affine gradient with online low-rank
+    # Fisher estimates of the matmul inputs / output derivatives
+    natural_gradient: bool = False
+    ng_rank_in: int = 20
+    ng_rank_out: int = 80
     # semi-orthogonal constraint every N non-skipped steps (0 disables)
     orthonormal_interval: int = 4
     # run grid-eligible layers only at the supervision frame rate
@@ -78,79 +100,187 @@ class TrainStepOutput(NamedTuple):
     ok: torch.Tensor
 
 
+def _compute_dtype(config: TrainConfig):
+    return (torch.bfloat16 if config.compute_dtype == "bfloat16"
+            else torch.float32)
+
+
+def _frame_geometry(model: Model, config: TrainConfig, T_in: int,
+                    n_out: int, left_context: int):
+    """(grid layer set, time_subsample for the forward, pick_frames) of
+    one batch geometry, as the JAX step's (train_step.py:201-228)."""
+    stride = config.frame_subsampling_factor
+    grid = (grid_layers(model, stride) if config.grid_subsample
+            else frozenset())
+    use_grid = model.chain_output().name in grid
+    n_grid = (T_in - stride) // stride + 1 if use_grid else 0
+    if use_grid and n_out > n_grid:
+        # chunk shorter than the supervision span: full-rate program
+        use_grid, grid, n_grid = False, frozenset(), 0
+    time_subsample = ((stride, left_context % stride, n_grid)
+                      if use_grid else None)
+
+    def pick_frames(full, on_grid):
+        if on_grid:
+            s = left_context // stride
+            return full[:, s:s + n_out]
+        return full[:, left_context:
+                    left_context + (n_out - 1) * stride + 1:stride]
+
+    return grid, time_subsample, pick_frames
+
+
+def _batch_inputs(batch, config: TrainConfig, num_frames_out):
+    feats = batch["features"]
+    B, T_in, _ = feats.shape
+    dev = feats.device
+    stride = config.frame_subsampling_factor
+    n_out = num_frames_out or (T_in - config.left_context + stride - 1) // stride
+    weights = batch.get("weights")
+    if weights is None:
+        weights = torch.ones(B, dtype=torch.float32, device=dev)
+    dws = batch.get("deriv_weights")
+    dws = (torch.ones((B, n_out), dtype=torch.float32, device=dev)
+           if dws is None else dws.float())
+    return feats, batch.get("ivectors"), weights, dws, n_out
+
+
+def _site_samples(site, x: torch.Tensor, dtype) -> torch.Tensor:
+    """A site's input sample matrix [N, D(+1)] in `dtype` (the NG states'
+    dtype: fp32 in training): the bias column of ones when the site has a
+    bias (train_step.py:112-118)."""
+    x2 = x.to(dtype).reshape(-1, x.shape[-1])
+    if site["b"] is not None:
+        x2 = torch.cat([x2, torch.ones((x2.shape[0], 1), dtype=dtype,
+                                       device=x2.device)], 1)
+    return x2
+
+
+def update_ng_states(sites, ng_states, xs, gs, counters, cfg_in: NGConfig,
+                     cfg_out: NGConfig):
+    """One NG update call of every site's two states from this batch's
+    inputs xs and output derivatives gs.  counters[(site, side)] is the
+    state's counter read on the host: due states fold in their samples,
+    batched per state shape; the others only advance their counter."""
+    new = {nm: dict(st) for nm, st in ng_states.items()}
+    groups: Dict[tuple, list] = {}
+    for site in sites:
+        nm = site["name"]
+        for side, cfg in (("in", cfg_in), ("out", cfg_out)):
+            st = ng_states[nm][side]
+            if update_due(counters[nm, side], cfg):
+                groups.setdefault((tuple(st.v.shape), cfg), []).append(
+                    (site, side))
+            else:
+                new[nm][side] = advance(st)
+    for (_, cfg), members in groups.items():
+        # one group's sample matrices at a time (a patch-lowered conv's
+        # are ~1-2 GB at flagship width)
+        states = [ng_states[site["name"]][side] for site, side in members]
+        dtype = states[0].v.dtype
+        samples = [_site_samples(site, xs[site["name"]], dtype)
+                   if side == "in"
+                   else gs[site["name"]].to(dtype).reshape(
+                       -1, gs[site["name"]].shape[-1])
+                   for site, side in members]
+        for (site, side), st in zip(members,
+                                    fisher_update(states, samples, cfg)):
+            new[site["name"]][side] = st
+        del samples
+    return new
+
+
+def apply_natural_gradient(model: Model, sites, ng_states, grads,
+                           cfg_in: NGConfig):
+    """Precondition each site's accumulated gradient on both sides,
+    dW_ext <- gamma * P_in^-1 [dW; db] P_out^-1 (train_step.py:126-137).
+    Conv weights are taken to the JAX layout [k * nf_in, nf_out] and back.
+    The preconditioned grads come out in the NG states' dtype (fp32 in
+    training).  Returns new grads (the input dicts are not modified)."""
+    grads = {k: dict(v) for k, v in grads.items()}
+    for site in sites:
+        layer = model.layer_map[site["layer"]]
+        conv = layer.type == LayerType.CONV_RELU_BATCHNORM
+        g = grads[site["layer"]]
+        st = ng_states[site["name"]]
+        dtype = st["in"].v.dtype
+        dw = g[site["w"]].to(dtype)
+        if conv:
+            dw = conv_weight_from_oihw(dw, layer.spec)
+        if site["b"] is not None:
+            dw = torch.cat([dw, g[site["b"]].to(dtype)[None, :]], dim=0)
+        dwe = precondition_grad(st["in"], st["out"], dw, cfg_in)
+        if site["b"] is not None:
+            g[site["b"]] = dwe[-1]
+            dwe = dwe[:-1]
+        g[site["w"]] = conv_weight_to_oihw(dwe, layer.spec) if conv else dwe
+    return grads
+
+
 def make_train_step(model: Model, net: Network,
                     den: DenominatorComputation,
-                    num_graph: NumeratorGraphBatch,
+                    num_graph: Optional[NumeratorGraphBatch] = None,
                     chain_opts: ChainTrainingOpts = ChainTrainingOpts(),
                     config: TrainConfig = TrainConfig(),
                     num_frames_out: Optional[int] = None):
     """Build step(opt_state, scale_state, batch, generator=None,
-    spec_masks=None, lr=None) -> (opt_state, scale_state, TrainStepOutput)
-    for one batch geometry.
+    spec_masks=None, lr=None, num_graph=None, left_context=None) ->
+    (opt_state, scale_state, TrainStepOutput) for one batch geometry.
 
     batch: {"features" [B, T_in, D], "ivectors" [B, ivec] (if the model
     has them), "weights" [B] (optional), "deriv_weights" [B, n_out]
     (optional: masks the chain derivative and the xent head per frame)}.
     generator draws the SpecAugment masks (or spec_masks gives them).
+    num_graph / left_context given to a call override the ones of the
+    step (the numerator graph of that batch, its supervision offset).
     """
-    objf_fn = make_chain_objf_with_post(num_graph, den, chain_opts)
     hyper = layer_hyperparams(model)
-    dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" \
-        else torch.float32
+    dtype = _compute_dtype(config)
     # two spellings of the Kaldi option exist; honour whichever is set
     xent_regularize = config.xent_regularize or chain_opts.xent_regularize
     sgd_cfg = SGDConfig(learning_rate=config.learning_rate,
                         momentum=config.momentum,
                         max_param_change=config.max_param_change)
-    stride = config.frame_subsampling_factor
-    left_context = config.left_context
     chain_head_name = model.chain_output().name
     xent_layer = model.xent_output()
     targets = (orthonormal_targets(model) if config.orthonormal_interval > 0
                else [])
+    sites = ng_sites(model) if config.natural_gradient else []
+    ng_cfg_in = NGConfig(rank=config.ng_rank_in)
+    ng_cfg_out = NGConfig(rank=config.ng_rank_out)
+    static_objf = (make_chain_objf_with_post(num_graph, den, chain_opts)
+                   if num_graph is not None else None)
 
     def step(opt_state, scale_state, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
-             spec_masks: Optional[dict] = None, lr: Optional[float] = None):
-        feats = batch["features"]
-        ivecs = batch.get("ivectors")
-        weights = batch.get("weights")
-        dws = batch.get("deriv_weights")
-        B, T_in, _ = feats.shape
+             spec_masks: Optional[dict] = None, lr: Optional[float] = None,
+             num_graph: Optional[NumeratorGraphBatch] = None,
+             left_context: Optional[int] = None):
+        if num_graph is not None:
+            objf_fn = make_chain_objf_with_post(num_graph, den, chain_opts)
+        elif static_objf is not None:
+            objf_fn = static_objf
+        else:
+            raise ValueError("no numerator graph: pass num_graph to "
+                             "make_train_step or to the step")
+        if left_context is None:
+            left_context = config.left_context
+        feats, ivecs, weights, dws_arg, n_out = _batch_inputs(
+            batch, config, num_frames_out)
         dev = feats.device
-        n_out = num_frames_out or (T_in - left_context + stride - 1) // stride
-        if weights is None:
-            weights = torch.ones(B, dtype=torch.float32, device=dev)
-        dws_arg = (torch.ones((B, n_out), dtype=torch.float32, device=dev)
-                   if dws is None else dws.float())
-
-        # frame-grid subsampling: the grid-eligible suffix of the network
-        # runs only at frames {left_context % stride + k*stride}; the output
-        # heads then come back on the grid and the pick is a unit-stride slice
-        grid = grid_layers(model, stride) if config.grid_subsample \
-            else frozenset()
-        use_grid = chain_head_name in grid
-        n_grid = (T_in - stride) // stride + 1 if use_grid else 0
-        if use_grid and n_out > n_grid:
-            # chunk shorter than the supervision span: full-rate program
-            use_grid, grid, n_grid = False, frozenset(), 0
-        time_subsample = ((stride, left_context % stride, n_grid)
-                          if use_grid else None)
-
-        def pick_frames(full, on_grid):
-            if on_grid:
-                s = left_context // stride
-                return full[:, s:s + n_out]
-            return full[:, left_context:
-                        left_context + (n_out - 1) * stride + 1:stride]
+        grid, time_subsample, pick_frames = _frame_geometry(
+            model, config, feats.shape[1], n_out, left_context)
 
         params = net.params
         old_state = net.bn_state()
         net.zero_grad(set_to_none=True)
+        ng = NGContext() if sites else None
         outs, new_state = net(feats, ivecs, train=True, compute_dtype=dtype,
                               time_subsample=time_subsample,
-                              spec_masks=spec_masks, generator=generator)
-        out = pick_frames(outs[chain_head_name].float(), use_grid)
+                              spec_masks=spec_masks, generator=generator,
+                              ng=ng)
+        out = pick_frames(outs[chain_head_name].float(),
+                          chain_head_name in grid)
         objf, result, num_post = objf_fn(out, weights, dws_arg)
         loss = -objf
         xent_objf = torch.zeros((), dtype=torch.float32, device=dev)
@@ -163,6 +293,7 @@ def make_train_step(model: Model, net: Network,
         if config.use_loss_scaling:
             loss = loss * scale_state.scale
         loss.backward()
+        del outs, out
         loss = loss.detach()
         # a parameter with no path to the loss (e.g. the xent head when
         # xent_regularize is 0) has a zero gradient, as under jax.grad
@@ -170,9 +301,11 @@ def make_train_step(model: Model, net: Network,
                          else torch.zeros_like(w)) for k, w in p.items()}
                  for l, p in params.items()}
 
+        gs = ng.gs if ng is not None else {}
         if config.use_loss_scaling:
             loss = loss / scale_state.scale
             grads = unscale_grads(grads, scale_state)
+            gs = unscale_grads(gs, scale_state)
 
         # finiteness is judged on the raw grads
         finite = grads_finite(grads)
@@ -180,6 +313,26 @@ def make_train_step(model: Model, net: Network,
             new_scale_state, skip = update_loss_scale(scale_state, finite)
         else:
             new_scale_state, skip = scale_state, ~finite
+
+        # the one read of the device per step: skip, whether the
+        # orthonormal constraint falls on this step, the NG counters
+        interval = max(config.orthonormal_interval, 1)
+        keys = [(s["name"], side) for s in sites for side in ("in", "out")]
+        flags = torch.stack(
+            [skip.to(torch.int64),
+             ((opt_state["step"] + 1) % interval == 0).to(torch.int64)]
+            + [opt_state["ng"][nm][side].t.to(torch.int64)
+               for nm, side in keys]).tolist()
+        skip_host, orth_due = bool(flags[0]), bool(flags[1])
+
+        new_ng = None
+        if sites:
+            new_ng = opt_state["ng"] if skip_host else update_ng_states(
+                sites, opt_state["ng"], ng.xs, gs,
+                dict(zip(keys, flags[2:])), ng_cfg_in, ng_cfg_out)
+            del ng, gs
+            grads = apply_natural_gradient(model, sites, new_ng, grads,
+                                           ng_cfg_in)
         grad_norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
                                    for g in tree_leaves(grads)))
 
@@ -188,16 +341,18 @@ def make_train_step(model: Model, net: Network,
                                   new_state, old_state))
 
         new_params, new_opt_state, stats = sgd_update(
-            params, grads, opt_state, sgd_cfg, lr=lr, hyper=hyper,
-            trainable=trainable_mask(model, params), skip=skip)
+            params, grads,
+            {k: v for k, v in opt_state.items() if k != "ng"}, sgd_cfg,
+            lr=lr, hyper=hyper, trainable=trainable_mask(model, params),
+            skip=skip)
+        if new_ng is not None:
+            new_opt_state["ng"] = new_ng
         with torch.no_grad():
             for l, p in params.items():
                 for k, w in p.items():
                     w.copy_(new_params[l][k])
             # Kaldi applies ConstrainOrthonormal after the parameter update
-            if targets and bool(
-                    (new_opt_state["step"] % config.orthonormal_interval == 0)
-                    & ~skip):
+            if targets and orth_due and not skip_host:
                 for lname, pname, c in targets:
                     w = params[lname][pname]
                     w.copy_(constrain_orthonormal(w, c))
@@ -218,13 +373,87 @@ def make_train_step(model: Model, net: Network,
     return step
 
 
+def init_ng_states(model: Model, config: TrainConfig, device) -> dict:
+    """{site: {"in": NGState, "out": NGState}} of a model's NG sites."""
+    states = {}
+    for site in ng_sites(model):
+        d_in = site["in_dim"] + (1 if site["b"] is not None else 0)
+        states[site["name"]] = {
+            "in": init_ng_state(d_in, NGConfig(rank=config.ng_rank_in),
+                                device),
+            "out": init_ng_state(site["out_dim"],
+                                 NGConfig(rank=config.ng_rank_out), device),
+        }
+    return states
+
+
 def init_train_state(model: Model, generator: torch.Generator,
                      config: TrainConfig = TrainConfig(), device=None):
     """(net, opt_state, loss_scale_state), on `device` (default: the
-    current CUDA device)."""
+    current CUDA device).  opt_state holds the SGD velocities and step
+    count and, with natural_gradient, the sites' NG states ("ng")."""
     device = resolve_device(device)
     net = Network(model, generator, device)
     opt_state = init_sgd_state(net.params)
+    if config.natural_gradient:
+        opt_state["ng"] = init_ng_states(model, config, device)
     scale_state = (init_loss_scale(device=device) if config.use_loss_scaling
                    else init_loss_scale(1.0, device=device))
     return net, opt_state, scale_state
+
+
+class EvalStepOutput(NamedTuple):
+    objf_per_frame: torch.Tensor
+    num_logprob: torch.Tensor
+    den_logprob: torch.Tensor
+    xent_objf: torch.Tensor
+    weight_frames: torch.Tensor
+    ok: torch.Tensor
+
+
+def make_eval_step(model: Model, net: Network, den: DenominatorComputation,
+                   chain_opts: ChainTrainingOpts = ChainTrainingOpts(),
+                   config: TrainConfig = TrainConfig(),
+                   num_frames_out: Optional[int] = None):
+    """Held-out diagnostic step, the `nnet3-chain-compute-prob` analog:
+    eval-mode forward (running BN statistics, no SpecAugment), the chain
+    objective, no derivative, no update.
+
+    eval_step(batch, num_graph, left_context=None) -> EvalStepOutput, with
+    num/den weighted by the per-sequence weights objf uses."""
+    dtype = _compute_dtype(config)
+    xent_regularize = config.xent_regularize or chain_opts.xent_regularize
+    chain_head_name = model.chain_output().name
+    xent_layer = model.xent_output()
+
+    @torch.no_grad()
+    def eval_step(batch, num_graph: NumeratorGraphBatch,
+                  left_context: Optional[int] = None) -> EvalStepOutput:
+        if left_context is None:
+            left_context = config.left_context
+        objf_fn = make_chain_objf_with_post(num_graph, den, chain_opts)
+        feats, ivecs, weights, dws_arg, n_out = _batch_inputs(
+            batch, config, num_frames_out)
+        grid, time_subsample, pick_frames = _frame_geometry(
+            model, config, feats.shape[1], n_out, left_context)
+        outs, _ = net(feats, ivecs, train=False, compute_dtype=dtype,
+                      time_subsample=time_subsample)
+        out = pick_frames(outs[chain_head_name].float(),
+                          chain_head_name in grid)
+        _, result, num_post = objf_fn(out, weights, dws_arg)
+        xent_objf = torch.zeros((), dtype=torch.float32, device=feats.device)
+        if xent_regularize > 0 and xent_layer is not None:
+            xent = pick_frames(outs[xent_layer.name].float(),
+                               xent_layer.name in grid)
+            xent = xent * dws_arg[:, :, None]
+            xent_objf = torch.sum(weights[:, None, None] * num_post * xent)
+        w_tot = torch.clamp(torch.sum(weights), min=1e-8)
+        return EvalStepOutput(
+            objf_per_frame=result.objf_per_frame,
+            num_logprob=torch.sum(weights * result.num_logprob) / w_tot,
+            den_logprob=torch.sum(weights * result.den_logprob) / w_tot,
+            xent_objf=xent_objf,
+            weight_frames=torch.sum(weights) * n_out,
+            ok=result.ok.all())
+
+    return eval_step

@@ -21,10 +21,13 @@ from kaldi_fp16_tpu_torch.models.model import build_model_from_string
 from kaldi_fp16_tpu_torch.models.network import Network, spec_augment_masks
 from kaldi_fp16_tpu_torch.models.layers import SpecAugmentSpec
 from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul
+from kaldi_fp16_tpu_torch.tools import train as train_tool
 from kaldi_fp16_tpu_torch.training.loss_scale import init_loss_scale
+from kaldi_fp16_tpu_torch.training.natural_gradient import init_ng_state
 from kaldi_fp16_tpu_torch.training.train_step import (
     TrainConfig, init_train_state,
 )
+from kaldi_fp16_tpu_torch.training.trainer import Trainer
 
 XCONFIG = ("input name=input dim=8\n"
            "relu-batchnorm-layer name=tdnn1 dim=16\n"
@@ -53,6 +56,14 @@ ENTRY_POINTS = {
     "init_train_state": lambda s, b, **kw: init_train_state(
         build_model_from_string(XCONFIG), torch.Generator(), TrainConfig(),
         **kw),
+    "init_train_state-ng": lambda s, b, **kw: init_train_state(
+        build_model_from_string(XCONFIG), torch.Generator(),
+        TrainConfig(natural_gradient=True), **kw),
+    "init_ng_state": lambda s, b, **kw: init_ng_state(8, **kw),
+    "Trainer": lambda s, b, **kw: Trainer(
+        build_model_from_string(XCONFIG),
+        DenominatorComputation(s, device="cpu"),
+        TrainConfig(natural_gradient=True), **kw),
     "init_loss_scale": lambda s, b, **kw: init_loss_scale(**kw),
     "spec_augment_masks": lambda s, b, **kw: spec_augment_masks(
         SpecAugmentSpec(dim=8, freq_max_proportion=0.5,
@@ -80,3 +91,13 @@ def test_resolve_device(no_card):
         default_device()
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cpu")) == torch.device("cpu")
+
+
+def test_train_tool_raises_without_a_device(no_card, tmp_path):
+    """tools.train resolves its device before it reads anything: with no
+    --device on a box without a card it raises."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_tool.main(["--egs", str(tmp_path / "none.*.ark"),
+                         "--den-fst", str(tmp_path / "den.fst"),
+                         "--xconfig", str(tmp_path / "x.xconfig"),
+                         "--pdfs", "12"])

@@ -12,8 +12,25 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
+# the production loop's modules (data path, NG-SGD, trainer, checkpoint,
+# tools): each must be among the modules the script imports
+REQUIRED = [
+    "kaldi_fp16_tpu_torch.io." + m for m in (
+        "kaldi_io", "fst", "matrix", "egs", "native", "batch", "dataloader")
+] + [
+    "kaldi_fp16_tpu_torch.training." + m for m in (
+        "natural_gradient", "schedulers", "trainer", "checkpoint")
+] + [
+    "kaldi_fp16_tpu_torch.utils.metrics", "kaldi_fp16_tpu_torch.utils.profiling",
+    "kaldi_fp16_tpu_torch.tools.train",
+    "kaldi_fp16_tpu_torch.tools.make_synthetic_egs",
+    "kaldi_fp16_tpu_torch.tools.profile_step",
+    "kaldi_fp16_tpu_torch.tools.ng_precision",
+]
+
 SCRIPT = """
 import importlib, pkgutil, sys
+REQUIRED = %r
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["jaxlib"] = None
 sys.modules["kaldi_fp16_tpu"] = None   # and so does the JAX package
@@ -22,6 +39,8 @@ names = [m.name for m in pkgutil.walk_packages(
     kaldi_fp16_tpu_torch.__path__, "kaldi_fp16_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+missing = [m for m in REQUIRED if m not in names]
+assert not missing, missing
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
                or k == "kaldi_fp16_tpu" or k.startswith("kaldi_fp16_tpu.")
@@ -31,9 +50,10 @@ print(len(names))
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+    proc = subprocess.run([sys.executable, "-c", SCRIPT % (REQUIRED,)],
+                          cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # models x4, chain x7, ops x4, training x4, tools x1, io x2, convert,
-    # device, the subpackages
-    assert int(proc.stdout.strip()) >= 30
+    # models x4, chain x7, ops x4, training x8, tools x7, io x9, utils x2,
+    # convert, device, the subpackages
+    assert int(proc.stdout.strip()) >= 48
