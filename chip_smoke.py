@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, train.
+"""Smoke run of the port on one NVIDIA GPU: build, check, train, decode.
 
     python3 chip_smoke.py
 
@@ -58,7 +58,24 @@ Phases, one line of numbers each:
                      per step; device and loop ms per step, idle share over
                      one window, the same 8 steps without NG (the NG cost),
                      peak memory
- 15. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 15. decode_hclg     WFST decoding at HCLG scale: tools.decodebench's
+                     synth_hclg_graph(100000, 3080) (390K arcs), random
+                     loglikes made on the card, B = 16, T = 500: the Viterbi
+                     decoder's checkpointed path, its plain path and a
+                     repeat equal bit for bit; two utterances re-decoded on
+                     the CPU equal; the lattice decoder (beam 4) with the
+                     dense and the compact mask transfer equal, its
+                     checkpointed and plain masks equal; the dense decoder
+                     equal to the arc decoder at decodebench's defaults (S =
+                     2048, P = 512, B = 32, T = 500); decode_audio_sec_per_s,
+                     decode ms, launches per decode and peak memory
+ 16. decode_tool     tools.decode's main --on-device, plainly and with
+                     --nbest 3, on one of the egs phase's cegs files (512
+                     utterances) through the flagship model and a 20000-state
+                     HCLG-shaped graph written as an OpenFst file: every
+                     utterance final, the lattices' 1-best equal to the
+                     Viterbi words; the utterance count and wall seconds
+ 17. summary         the kernels' JSON line, then {"ok": true, "device": ...}
 
 small_step_vs_cpu also holds a narrow NG step (patch-lowered convs) on
 the card against the CPU.
@@ -73,6 +90,7 @@ Any failure raises and exits non-zero: there is no CPU path and no
 fallback.  Needs one card, nvcc, no network and no JAX.
 """
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -96,10 +114,16 @@ from kaldi_fp16_tpu_torch.chain.reference import (
     denominator_forward_backward_ref,
 )
 from kaldi_fp16_tpu_torch.convert import params_to_numpy
+from kaldi_fp16_tpu_torch.decode.device_viterbi import (
+    DenseViterbiDecoder, DeviceLatticeDecoder, SparseViterbiDecoder,
+)
+from kaldi_fp16_tpu_torch.decode.graph import DecodingGraph
 from kaldi_fp16_tpu_torch.io.dataloader import (
     DataLoader, DataLoaderConfig, ProcessLoader,
 )
-from kaldi_fp16_tpu_torch.io.fst import read_fst_file
+from kaldi_fp16_tpu_torch.io.fst import (
+    Fst, FstArc, FstState, read_fst_file, write_fst_file,
+)
 from kaldi_fp16_tpu_torch.models.model import (
     build_model, build_model_from_string,
 )
@@ -110,7 +134,9 @@ from kaldi_fp16_tpu_torch.ops.den_matmul import (
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
     segment_order, segment_order_plain, segment_reduce, segment_reduce_plain,
 )
-from kaldi_fp16_tpu_torch.tools import make_synthetic_egs, ng_precision
+from kaldi_fp16_tpu_torch.tools import (
+    decode as decode_tool, decodebench, make_synthetic_egs, ng_precision,
+)
 from kaldi_fp16_tpu_torch.tools.profile_step import (
     supervision as bench_num_graph,
 )
@@ -120,6 +146,7 @@ from kaldi_fp16_tpu_torch.training.train_step import (
     TrainConfig, init_train_state, make_train_step,
 )
 from kaldi_fp16_tpu_torch.training.trainer import Trainer
+from kaldi_fp16_tpu_torch.utils.profiling import kernel_times
 
 ROOT = Path(__file__).resolve().parent
 B, T_IN, P, AN = 128, 150, 3080, 256
@@ -154,6 +181,13 @@ EGS_T_IN, EGS_T_OUT, EGS_FILES, EGS_PER_FILE = 164, 50, 2, 512
 TRAIN_STEPS, CKPT_STEP = 8, 4
 NG_UPDATE_STEP = 5             # NG counters 0 and 4: steps 1 and 5
 WORK = ROOT / "build" / "chip_smoke"
+# decoding: tools/decodebench.py's HCLG scale (S = 100K states, 390K arcs)
+# at B = 16, T = 500, its lattice beam, and its dense-decoder defaults
+DEC_S, DEC_B, DEC_T, DEC_BEAM = 100_000, 16, 500, 4.0
+DENSE_S, DENSE_P, DENSE_B, DENSE_T, DENSE_E = 2048, 512, 32, 500, 8
+DEC_COST_RTOL = 1e-5             # fp32 path costs, card vs CPU
+DEC_ITERS = 2                    # timed decodes per decoder
+TOOL_S = 20_000                  # the decode tool's HCLG-shaped graph
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, ibid.
 FLUSH_BYTES = 128 << 20          # > the 50 MB L2
@@ -1235,6 +1269,201 @@ def trainer_phase(egs_dir, graph, dev):
     return launches, den_check
 
 
+def lattices_equal(a, b):
+    """Two Lattices with the same nodes, finals and arc arrays."""
+    fields = ("src", "dst", "ilabel", "olabel", "graph_cost", "acoustic_cost")
+    return (a.num_nodes == b.num_nodes
+            and np.array_equal(a.node_frame, b.node_frame)
+            and np.array_equal(a.final_cost, b.final_cost)
+            and all(np.array_equal(getattr(a.arcs, f), getattr(b.arcs, f))
+                    for f in fields))
+
+
+def decode_profile(fn, dev):
+    """Device launches (kernels and copies), their summed device ms and
+    the three costliest kernels of one call of fn, under torch.profiler."""
+    wall, rows = kernel_times(fn, dev)
+    return {"launches": sum(r[1] for r in rows),
+            "device_busy_ms": sum(r[2] for r in rows) / 1e3,
+            "profiled_wall_ms": wall,
+            "top": [[name[:60], n, us / 1e3] for name, n, us in rows[:3]]}
+
+
+def decode_hclg_phase(dev):
+    """The device decoders at HCLG scale (see the module docstring)."""
+    graph = decodebench.synth_hclg_graph(DEC_S, P)
+    S, A = graph.num_states, len(graph.em_dst)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ll = torch.randn((DEC_B, DEC_T, P), generator=gen, device=dev)
+    audio_s = DEC_B * DEC_T / 100.0
+
+    # Viterbi: the default (checkpointed) path, the plain path, a repeat
+    vit = SparseViterbiDecoder(graph, device=dev)
+    if not DEC_T * S * DEC_B * 4 > vit.bp_hist_limit:
+        raise AssertionError("the HCLG decode did not take the "
+                             "checkpointed path")
+    best_c, _, arcs_c = vit.arc_path(ll)
+    plain = SparseViterbiDecoder(graph, device=dev)
+    plain.bp_hist_limit = 1 << 40
+    best_p, _, arcs_p = plain.arc_path(ll)
+    best_r, _, arcs_r = vit.arc_path(ll)
+    torch.cuda.synchronize()
+    if not (torch.equal(arcs_c, arcs_p) and torch.equal(best_c, best_p)):
+        raise AssertionError("Viterbi: checkpointed and plain paths differ")
+    if not (torch.equal(arcs_c, arcs_r) and torch.equal(best_c, best_r)):
+        raise AssertionError("Viterbi: repeats differ")
+    del plain, arcs_p, arcs_r
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    vit_ms, card = decodebench.time_decode(vit, ll, DEC_ITERS)
+    vit_peak = torch.cuda.max_memory_allocated()
+    vit_extra = vit_peak - held
+    if not all(r["final_reached"] for r in card):
+        raise AssertionError("Viterbi: an utterance reached no final state")
+    vit_prof = decode_profile(lambda: vit.decode_batch(ll), dev)
+
+    # two utterances re-decoded by the port on the CPU
+    t0 = time.perf_counter()
+    host = SparseViterbiDecoder(graph, device="cpu").decode_batch(
+        ll[:2].cpu())
+    cpu_s = time.perf_counter() - t0
+    worst_cost = 0.0
+    for b, (r, h) in enumerate(zip(card, host)):
+        if (r["words"], r["alignment"], r["final_reached"]) != (
+                h["words"], h["alignment"], h["final_reached"]):
+            raise AssertionError(f"Viterbi utterance {b}: card and CPU differ")
+        np.testing.assert_allclose(r["total_cost"], h["total_cost"],
+                                   rtol=DEC_COST_RTOL)
+        worst_cost = max(worst_cost, abs(r["total_cost"] - h["total_cost"])
+                         / abs(h["total_cost"]))
+
+    # lattices: dense against compact transfer, checkpointed against plain
+    lat = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, device=dev)
+    masks_c, lbest_c = lat.masks(ll)
+    lat_plain = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, device=dev)
+    lat_plain.alpha_hist_limit = 1 << 40
+    masks_p, lbest_p = lat_plain.masks(ll)
+    torch.cuda.synchronize()
+    if not (torch.equal(masks_c, masks_p) and torch.equal(lbest_c, lbest_p)):
+        raise AssertionError("lattice: checkpointed and plain masks differ")
+    del lat_plain, masks_p
+    torch.cuda.empty_cache()
+    dense = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM,
+                                 transfer="dense", device=dev)
+    lats_dense = dense.decode_batch(ll)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lat_ms, lats = decodebench.time_decode(lat, ll, DEC_ITERS)
+    lat_peak = torch.cuda.max_memory_allocated()
+    lat_extra = lat_peak - held
+    if lat.last_transfer != "compact":
+        raise AssertionError(f"the lattice decoder's auto transfer ran "
+                             f"{lat.last_transfer!r}, expected 'compact'")
+    if not all(lattices_equal(x, y) for x, y in zip(lats, lats_dense)):
+        raise AssertionError("lattice: dense and compact transfer differ")
+    best_words = [lt.best_path()[0] for lt in lats]
+    lat_prof = decode_profile(lambda: lat.decode_batch(ll), dev)
+    del lat, dense, lats_dense, masks_c
+    torch.cuda.empty_cache()
+
+    # the dense decoder against the arc decoder at decodebench's defaults
+    g_d = DecodingGraph.from_fst(decodebench.synth_graph(DENSE_S, DENSE_P,
+                                                         DENSE_E))
+    ll_d = torch.randn((DENSE_B, DENSE_T, DENSE_P), generator=gen,
+                       device=dev)
+    dense_dec = DenseViterbiDecoder(g_d, device=dev)
+    sparse_dec = SparseViterbiDecoder(g_d, device=dev)
+    dense_ms, d_res = decodebench.time_decode(dense_dec, ll_d, 1)
+    sparse_ms, s_res = decodebench.time_decode(sparse_dec, ll_d, 1)
+    worst_dense = 0.0
+    for b, (x, y) in enumerate(zip(d_res, s_res)):
+        if (x["words"], x["alignment"], x["final_reached"]) != (
+                y["words"], y["alignment"], y["final_reached"]):
+            raise AssertionError(f"dense vs arc decoder, utterance {b}")
+        np.testing.assert_allclose(x["total_cost"], y["total_cost"],
+                                   rtol=DEC_COST_RTOL)
+        worst_dense = max(worst_dense, abs(x["total_cost"] - y["total_cost"]))
+    del dense_dec, sparse_dec, ll_d
+    torch.cuda.empty_cache()
+    dense_audio = DENSE_B * DENSE_T / 100.0
+    phase("decode_hclg", states=S, arcs=A, pdfs=P, B=DEC_B, T=DEC_T,
+          checkpointed_equals_plain=True, repeat_bit_identical=True,
+          cpu_utterances=len(host), cpu_equal_words_alignment=True,
+          cpu_cost_max_rel=worst_cost, cpu_decode_s=cpu_s,
+          viterbi_decode_ms=vit_ms,
+          viterbi_decode_audio_sec_per_s=audio_s / (vit_ms / 1e3),
+          viterbi_profile=vit_prof, viterbi_peak_bytes=vit_peak,
+          viterbi_peak_bytes_over_held=vit_extra,
+          viterbi_mean_words=float(np.mean([len(r["words"]) for r in card])),
+          lattice_beam=DEC_BEAM, lattice_dense_equals_compact=True,
+          lattice_checkpointed_equals_plain=True,
+          lattice_decode_ms=lat_ms,
+          lattice_decode_audio_sec_per_s=audio_s / (lat_ms / 1e3),
+          lattice_profile=lat_prof, lattice_peak_bytes=lat_peak,
+          lattice_peak_bytes_over_held=lat_extra,
+          mean_lattice_arcs=float(np.mean([len(x.arcs) for x in lats])),
+          lattice_1best_equals_viterbi=sum(
+              w == r["words"] for w, r in zip(best_words, card)),
+          dense_states=DENSE_S, dense_pdfs=DENSE_P, dense_B=DENSE_B,
+          dense_T=DENSE_T, dense_equals_sparse=True,
+          dense_cost_max_abs_diff=worst_dense, dense_decode_ms=dense_ms,
+          dense_decode_audio_sec_per_s=dense_audio / (dense_ms / 1e3),
+          sparse_at_dense_shape_decode_ms=sparse_ms,
+          sparse_at_dense_shape_decode_audio_sec_per_s=dense_audio
+          / (sparse_ms / 1e3))
+
+
+def graph_fst(g):
+    """An epsilon-free DecodingGraph as an Fst, for write_fst_file."""
+    states = [FstState(final=float(f)) for f in g.final_cost]
+    src = np.repeat(np.arange(g.num_states), np.diff(g.em_row_ptr))
+    for s, d, il, ol, w in zip(src.tolist(), g.em_dst.tolist(),
+                               g.em_ilabel.tolist(), g.em_olabel.tolist(),
+                               g.em_weight.tolist()):
+        states[s].arcs.append(FstArc(il, w, d, olabel=ol))
+    return Fst(start=g.start, states=states)
+
+
+def decode_tool_phase(egs_dir):
+    """tools.decode's main --on-device on one cegs file of the egs phase,
+    through the flagship model: Viterbi, then lattices with --nbest 3;
+    per-utterance lines go to build/chip_smoke/decode_*.txt."""
+    fst_path = WORK / "HCLG.fst"
+    graph = decodebench.synth_hclg_graph(TOOL_S, P)
+    write_fst_file(str(fst_path), graph_fst(graph))
+    flags = ["--egs", str(egs_dir / "cegs.1.ark"), "--graph", str(fst_path),
+             "--xconfig", str(ROOT / "configs" / "cnn_tdnn.xconfig"),
+             "--pdfs", str(P), "--batch", str(B), "--on-device"]
+    runs, wall_s = {}, {}
+    for tag, extra in (("viterbi", []), ("lattice", ["--nbest", "3"])):
+        t0 = time.perf_counter()
+        with open(WORK / f"decode_{tag}.txt", "w") as log, \
+                contextlib.redirect_stdout(log):
+            runs[tag] = decode_tool.main(flags + extra)
+        torch.cuda.synchronize()
+        wall_s[tag] = time.perf_counter() - t0
+    vit, lat = runs["viterbi"], runs["lattice"]
+    for tag, run in runs.items():
+        if len(run["hyps"]) != EGS_PER_FILE:
+            raise AssertionError(f"decode tool ({tag}) decoded "
+                                 f"{len(run['hyps'])} utterances, expected "
+                                 f"{EGS_PER_FILE}")
+        if not all(run["final_reached"].values()):
+            raise AssertionError(f"decode tool ({tag}): an utterance reached "
+                                 f"no final state")
+    differ = [k for k in vit["hyps"] if lat["hyps"][k] != vit["hyps"][k]]
+    if differ:
+        raise AssertionError(f"decode tool: the lattices' 1-best differs from "
+                             f"the Viterbi words in {len(differ)} "
+                             f"utterances, e.g. {differ[:3]}")
+    phase("decode_tool", utterances=len(vit["hyps"]), T_out=EGS_T_OUT,
+          pdfs=P, graph_states=graph.num_states,
+          graph_arcs=len(graph.em_dst), nbest=3, wall_s=wall_s,
+          mean_words=float(np.mean([len(w) for w in vit["hyps"].values()])),
+          lattice_1best_equals_viterbi=True, all_final=True)
+
+
 def main():
     dev = device_phase()
     build_phase()
@@ -1269,6 +1498,8 @@ def main():
     del den_f
     egs_dir, egs_graph = egs_phase()
     _, den_check = trainer_phase(egs_dir, egs_graph, dev)
+    decode_hclg_phase(dev)
+    decode_tool_phase(egs_dir)
     src = "kaldi_fp16_tpu_torch/csrc/"
     F, n = k["F"], k["n"]
     mm_io = 4 * 2 * F * n                     # v read, out written

@@ -761,3 +761,10 @@ class Network(nn.Module):
             prev_name = layer.name
 
         return outputs, new_state
+
+
+def subsample_output(x: torch.Tensor, stride: int, offset: int,
+                     num_frames: int) -> torch.Tensor:
+    """Pick chain-supervision frames: rows offset, offset+stride, ...
+    of [B, T, ...] (kaldi_fp16_tpu/models/network.py:904)."""
+    return x[:, offset:offset + (num_frames - 1) * stride + 1:stride]

@@ -88,7 +88,21 @@ def test_fused_den_matches_jax_fused_and_fp64(jax_fused, key, T):
     assert den._structured.scan_used == "fused"
     jlp, jpost = jax_fused(g, leaky=1e-4, scan_impl="fused") \
         .forward_backward(jnp.asarray(x))
-    np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), rtol=LOGP_RTOL)
+    # both sides against the float64 oracle on every row first, so that a
+    # torch-vs-JAX failure says which side lies off the oracle
+    ref_lp = np.array([denominator_forward_backward_ref(g, x[n],
+                                                        leaky=1e-4)[0]
+                       for n in range(x.shape[0])])
+    off = {side: np.abs(np.asarray(v, np.float64) - ref_lp)
+           for side, v in (("torch", lp.numpy()), ("jax", np.asarray(jlp)))}
+    report = "; ".join(
+        f"{side}: {int((e >= ORACLE_LOGP_ATOL).sum())} of {len(e)} rows "
+        f"off the float64 log-prob by >= {ORACLE_LOGP_ATOL}, worst "
+        f"{e.max():.3g} at row {int(e.argmax())}" for side, e in off.items())
+    assert off["torch"].max() < ORACLE_LOGP_ATOL, report
+    assert off["jax"].max() < ORACLE_LOGP_ATOL, report
+    np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), rtol=LOGP_RTOL,
+                               err_msg=report)
     np.testing.assert_allclose(post.numpy(), np.asarray(jpost),
                                rtol=POST_RTOL, atol=POST_ATOL)
     for n in (0, 77):
