@@ -14,6 +14,9 @@ production loop: synthetic cegs files at flagship geometry, the
 DataLoader, and `python -m kaldi_fp16_tpu_torch.tools.train`'s main with
 configs/train_flagship.sh's flags (NG-SGD, the xent head, loss scaling,
 the orthonormal constraint, checkpoints) at B = 128, killed and resumed.
+Then decoding: offline at HCLG scale and through `tools.decode`; online
+through the streaming decoders and the streaming encoder; and the closed
+accuracy loop of `tools.synthwer` (train, then decode to words).
 Phases, one line of numbers each:
 
   1. device          the card (nvidia-smi name and power limit); TF32 off
@@ -75,7 +78,26 @@ Phases, one line of numbers each:
                      HCLG-shaped graph written as an OpenFst file: every
                      utterance final, the lattices' 1-best equal to the
                      Viterbi words; the utterance count and wall seconds
- 17. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 17. stream_decode   streaming decoding at decode_hclg's HCLG scale and
+                     loglikes: the incremental decoder fed 16 frames at a
+                     time and in a ragged 5, 7, 12 schedule, and the
+                     windowed decoder at window >= T, equal to the offline
+                     decode bit for bit; the windowed decoder at window 96
+                     with chunks of 6, 16 and 32 (its window bounded after
+                     every feed, utterances equal to offline counted, peak
+                     memory over what the phase holds at T = 500 and 1000);
+                     tools.streambench's decode-only rows
+ 18. stream_encode   the streaming encoder on the flagship network (random
+                     weights, seed 0, 100-dim ivectors, B = 8) at chunk_out
+                     6, 16 and 32: fp32 against its offline_reference and
+                     across chunk sizes, bf16 against its own oracle;
+                     tools.streambench's encoder and pipeline rows
+ 19. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
+                     and rescoring run of the JAX evidence: ok, the WER
+                     trajectory, den_matmul launches (its den has L = 1,
+                     F = 81: loop scans), the first batch's den against
+                     the same den through plain matmuls
+ 20. summary         the kernels' JSON line, then {"ok": true, "device": ...}
 
 small_step_vs_cpu also holds a narrow NG step (patch-lowered convs) on
 the card against the CPU.
@@ -91,6 +113,7 @@ fallback.  Needs one card, nvcc, no network and no JAX.
 """
 
 import contextlib
+import io
 import json
 import shutil
 import subprocess
@@ -118,6 +141,9 @@ from kaldi_fp16_tpu_torch.decode.device_viterbi import (
     DenseViterbiDecoder, DeviceLatticeDecoder, SparseViterbiDecoder,
 )
 from kaldi_fp16_tpu_torch.decode.graph import DecodingGraph
+from kaldi_fp16_tpu_torch.decode.streaming import (
+    StreamingDecoder, StreamingEncoder, WindowedStreamingDecoder,
+)
 from kaldi_fp16_tpu_torch.io.dataloader import (
     DataLoader, DataLoaderConfig, ProcessLoader,
 )
@@ -127,6 +153,7 @@ from kaldi_fp16_tpu_torch.io.fst import (
 from kaldi_fp16_tpu_torch.models.model import (
     build_model, build_model_from_string,
 )
+from kaldi_fp16_tpu_torch.models.network import Network
 from kaldi_fp16_tpu_torch.ops import _build, den_scan
 from kaldi_fp16_tpu_torch.ops.den_matmul import (
     DenMatmul, den_matmul_split_plain,
@@ -136,6 +163,7 @@ from kaldi_fp16_tpu_torch.ops.segment_reduce import (
 )
 from kaldi_fp16_tpu_torch.tools import (
     decode as decode_tool, decodebench, make_synthetic_egs, ng_precision,
+    streambench, synthwer,
 )
 from kaldi_fp16_tpu_torch.tools.profile_step import (
     supervision as bench_num_graph,
@@ -188,6 +216,19 @@ DENSE_S, DENSE_P, DENSE_B, DENSE_T, DENSE_E = 2048, 512, 32, 500, 8
 DEC_COST_RTOL = 1e-5             # fp32 path costs, card vs CPU
 DEC_ITERS = 2                    # timed decodes per decoder
 TOOL_S = 20_000                  # the decode tool's HCLG-shaped graph
+# streaming: tools/streambench.py's chunk sizes, window and batch; a ragged
+# feed schedule; encoder outputs for 96 frames (a multiple of every chunk)
+STREAM_CHUNKS, STREAM_WINDOW, STREAM_RAGGED = (6, 16, 32), 96, (5, 7, 12)
+STREAM_B, STREAM_T_OUT, STREAM_ITERS = 8, 96, 20
+# streamed vs offline encoder outputs (tests/test_streaming.py:92, :102)
+ENC_FP32_TOL, ENC_BF16_TOL = 2e-5, 0.1
+# the JAX evidence's streaming closed loop
+# (docs/evidence/synthwer_r5_tpu.json, "streaming_closed_loop") plus
+# --lm-rescore
+SYNTHWER_FLAGS = ["--words", "40", "--phones", "80", "--feat-dim", "32",
+                  "--words-per-utt", "5", "--dur", "2", "--max-dur", "4",
+                  "--train-utts", "768", "--test-utts", "48", "--steps",
+                  "200", "--streaming", "--lm-rescore"]
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, ibid.
 FLUSH_BYTES = 128 << 20          # > the 50 MB L2
@@ -1412,6 +1453,7 @@ def decode_hclg_phase(dev):
           sparse_at_dense_shape_decode_ms=sparse_ms,
           sparse_at_dense_shape_decode_audio_sec_per_s=dense_audio
           / (sparse_ms / 1e3))
+    return graph, ll, card
 
 
 def graph_fst(g):
@@ -1464,6 +1506,281 @@ def decode_tool_phase(egs_dir):
           lattice_1best_equals_viterbi=True, all_final=True)
 
 
+def results_equal(a, b):
+    """Hypothesis dicts equal in words, alignment, final_reached and cost."""
+    key = ("words", "alignment", "final_reached", "total_cost")
+    return len(a) == len(b) and all(
+        [x[k] for k in key] == [y[k] for k in key] for x, y in zip(a, b))
+
+
+def stream(dec, ll, chunks, check=None):
+    """Feed ll [B, T, P] to a streaming decoder in chunks of the given
+    sizes, cycled (the last cut to fit), calling check(state) after every
+    feed; returns the last state."""
+    st = dec.init(ll.shape[0])
+    t0, i = 0, 0
+    while t0 < ll.shape[1]:
+        c = min(chunks[i % len(chunks)], ll.shape[1] - t0)
+        st = dec.feed(st, ll[:, t0:t0 + c])
+        if check is not None:
+            check(st)
+        t0, i = t0 + c, i + 1
+    return st
+
+
+def peak_over_held(fn):
+    """(fn's result, wall s, peak device bytes above what was allocated
+    when fn started)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - held)
+
+
+def stream_decode_phase(dev, graph, ll, offline):
+    """The streaming decoders on decode_hclg's graph and loglikes (see the
+    module docstring); `offline` is SparseViterbiDecoder's decode_batch of
+    ll."""
+    inc = StreamingDecoder(graph, device=dev)
+    result = {"states": graph.num_states, "arcs": len(inc.arcs.src),
+              "B": ll.shape[0], "T": ll.shape[1]}
+    for tag, chunks in (("incremental_16", (16,)),
+                        ("incremental_ragged", STREAM_RAGGED)):
+        got, wall, extra = peak_over_held(
+            lambda: inc.finalize(stream(inc, ll, chunks)))
+        if not results_equal(got, offline):
+            raise AssertionError(f"{tag}: the streamed decode differs from "
+                                 f"the offline one")
+        result[f"{tag}_s"] = wall
+        result[f"{tag}_peak_bytes_over_held"] = extra
+    full = WindowedStreamingDecoder(graph, window=ll.shape[1], device=dev)
+    st = stream(full, ll, (16,))
+    if st.committed or not results_equal(full.finalize(st), offline):
+        raise AssertionError("windowed decoder at window >= T: committed "
+                             "early or differs from the offline decode")
+    del inc, full, st
+    torch.cuda.empty_cache()
+
+    def windowed(lls, C):
+        dec = WindowedStreamingDecoder(graph, window=STREAM_WINDOW,
+                                       device=dev)
+
+        def bounded(st):
+            if not (st.window_frames <= STREAM_WINDOW + C
+                    and st.committed_frames == st.frames - st.window_frames):
+                raise AssertionError(
+                    f"window {STREAM_WINDOW}, chunk {C}: {st.window_frames} "
+                    f"window frames, {st.committed_frames} committed of "
+                    f"{st.frames}")
+        return dec.finalize(stream(dec, lls, (C,), bounded))
+
+    for C in STREAM_CHUNKS:
+        got, wall, extra = peak_over_held(lambda: windowed(ll, C))
+        result[f"window{STREAM_WINDOW}_chunk{C}"] = {
+            "equal_to_offline": sum(results_equal([a], [b])
+                                    for a, b in zip(got, offline)),
+            "words_equal": sum(a["words"] == b["words"]
+                               for a, b in zip(got, offline)),
+            "all_final": all(r["final_reached"] for r in got),
+            "s": wall, "peak_bytes_over_held": extra}
+    # the same window over a stream twice as long: the memory bound holds
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ll2 = torch.randn((ll.shape[0], 2 * ll.shape[1], ll.shape[2]),
+                      generator=gen, device=dev)
+    C = STREAM_CHUNKS[-1]
+    _, wall, extra2 = peak_over_held(lambda: windowed(ll2, C))
+    extra1 = result[f"window{STREAM_WINDOW}_chunk{C}"]["peak_bytes_over_held"]
+    if not extra2 <= 1.05 * extra1:
+        raise AssertionError(f"windowed decoder's peak grew with T: "
+                             f"{extra1} bytes at T = {ll.shape[1]}, {extra2} "
+                             f"at {ll2.shape[1]}")
+    result[f"T{ll2.shape[1]}_chunk{C}"] = {"s": wall,
+                                           "peak_bytes_over_held": extra2}
+    # one steady-state feed of 16 frames (window full, a commit every
+    # feed) under torch.profiler
+    dec = WindowedStreamingDecoder(graph, window=STREAM_WINDOW, device=dev)
+    box = [stream(dec, ll2[:, :STREAM_WINDOW + 32], (16,))]
+    nxt = ll2[:, STREAM_WINDOW + 32:STREAM_WINDOW + 48]
+
+    def feed():
+        box[0] = dec.feed(box[0], nxt)
+
+    result["feed_profile_chunk16"] = decode_profile(feed, dev)
+    del ll2, dec, box, nxt
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        result["streambench_rows"] = streambench.main(
+            ["--decode-only", "--hclg", "--graph-states", str(DEC_S),
+             "--pdfs", str(P), "--batch", str(ll.shape[0]), "--decoder",
+             "windowed", "--window", str(STREAM_WINDOW), "--chunks",
+             ",".join(map(str, STREAM_CHUNKS)), "--iters", str(STREAM_ITERS),
+             "--device", str(dev)])
+    phase("stream_decode", window=STREAM_WINDOW, ragged=STREAM_RAGGED,
+          incremental_equals_offline=True, window_ge_T_equals_offline=True,
+          **result)
+
+
+def encode_stream(enc, x, ivectors):
+    """x [B, T_in, D] through the streaming encoder chunk by chunk, then
+    flushed: [B, T_in / subsample, P]."""
+    st = enc.init(ivectors)
+    outs = []
+    for i in range(x.shape[1] // enc.cin):
+        st, p = enc.feed(st, x[:, i * enc.cin:(i + 1) * enc.cin])
+        outs.append(p)
+    st, p = enc.flush(st)
+    return torch.cat([o for o in outs + [p] if o.shape[1]], dim=1)
+
+
+def stream_encode_phase(dev):
+    """The streaming encoder at flagship width (see the module
+    docstring)."""
+    xconfig = str(ROOT / "configs" / "cnn_tdnn.xconfig")
+    model = build_model(xconfig)
+    net = Network(model, torch.Generator(device=dev).manual_seed(0), dev)
+    net.eval()
+    dims = {inp.name: inp.spec.dim for inp in model.inputs()}
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(
+        STREAM_B, 3 * STREAM_T_OUT, dims["input"])).astype(np.float32)).to(dev)
+    iv = torch.from_numpy(rng.normal(size=(STREAM_B, dims["ivector"]))
+                          .astype(np.float32)).to(dev)
+    result, failed = {"B": STREAM_B, "T_out": STREAM_T_OUT,
+                      "context": list(model.time_context())}, []
+    for name, dtype, tol in (("fp32", torch.float32, ENC_FP32_TOL),
+                             ("bf16", torch.bfloat16, ENC_BF16_TOL)):
+        outs = {}
+        for co in STREAM_CHUNKS:
+            enc = StreamingEncoder(net, chunk_out=co, compute_dtype=dtype,
+                                   device=dev)
+            got, ref = encode_stream(enc, x, iv), enc.offline_reference(x, iv)
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} chunk {co}: streamed output "
+                                     f"{tuple(got.shape)} vs {tuple(ref.shape)}")
+            # |got - ref| <= tol + tol * |ref| (assert_allclose's test)
+            excess = float(((got - ref).abs() - tol * ref.abs()).max())
+            result[f"{name}_chunk{co}"] = {
+                "max_abs_err": float((got - ref).abs().max()),
+                "max_abs_ref": float(ref.abs().max()),
+                "max_excess_over_rtol": excess, "lag": enc.lag}
+            if not excess <= tol:
+                failed.append(f"{name} chunk {co} vs offline_reference")
+            outs[co] = got
+        base = outs[STREAM_CHUNKS[0]]
+        for co in STREAM_CHUNKS[1:]:
+            excess = float(((outs[co] - base).abs() - tol * base.abs()).max())
+            result[f"{name}_chunk{co}_vs_chunk{STREAM_CHUNKS[0]}"] = {
+                "max_abs_diff": float((outs[co] - base).abs().max()),
+                "max_excess_over_rtol": excess}
+            if not excess <= tol:
+                failed.append(f"{name} chunk {co} vs chunk {STREAM_CHUNKS[0]}")
+    if failed:
+        phase("stream_encode", failed=failed, **result)
+        raise AssertionError(f"streaming encoder off its bars: {failed}")
+    # one warm bf16 feed at chunk_out 16 under torch.profiler
+    enc = StreamingEncoder(net, chunk_out=16, device=dev)
+    box = [enc.init(iv)]
+    for i in range(enc.lag + 1):
+        box[0], _ = enc.feed(box[0], x[:, i * enc.cin:(i + 1) * enc.cin])
+
+    def feed():
+        box[0], _ = enc.feed(box[0], x[:, :enc.cin])
+
+    result["feed_profile_bf16_chunk16"] = decode_profile(feed, dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        result["streambench_rows"] = streambench.main(
+            ["--batch", str(STREAM_B), "--chunks",
+             ",".join(map(str, STREAM_CHUNKS)), "--xconfig", xconfig,
+             "--pdfs", str(P),
+             "--iters", str(STREAM_ITERS), "--device", str(dev)])
+    phase("stream_encode", fp32_tol=ENC_FP32_TOL, bf16_tol=ENC_BF16_TOL,
+          **result)
+
+
+def synthwer_phase(dev):
+    """tools.synthwer's main on the card (see the module docstring).
+    Returns (den_matmul launches in the run, the kernel's max abs err
+    against its plain version at the run's shape)."""
+    den_inputs = []
+    run_den = DenominatorComputation.forward_backward
+
+    def keep_input(self, x, *args, **kwargs):
+        if not den_inputs:
+            den_inputs.append(x.detach().clone())
+        return run_den(self, x, *args, **kwargs)
+
+    DenominatorComputation.forward_backward = keep_input
+    DenMatmul.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with open(WORK / "synthwer.txt", "w") as log, \
+                contextlib.redirect_stdout(log):
+            res = synthwer.main(SYNTHWER_FLAGS + ["--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        DenominatorComputation.forward_backward = run_den
+    wall = time.perf_counter() - t0
+    launches = DenMatmul.launches
+    if not res["ok"]:
+        raise AssertionError(f"synthwer: not ok: {res['history'][-1]}, "
+                             f"{res['streaming']}, {res['lm_rescore']}")
+    if launches <= 0:
+        raise AssertionError("synthwer: den_matmul was never launched")
+    den = res["trainer"].den
+    sk = den._structured
+    if sk is None or sk._kernel is None:
+        raise AssertionError(f"synthwer's den is {den.layout_used}, without "
+                             f"the den_matmul kernel")
+
+    # the first batch through the Trainer's den and through plain matmuls
+    x = den_inputs[0]
+    phones = synthwer.parse_args(SYNTHWER_FLAGS).phones
+    graph = DenominatorGraph.from_fst(synthwer.bigram_den_fst(phones), phones)
+    lp, post = den.forward_backward(x)
+    den_p = DenominatorComputation(graph, leaky=den.leaky, matmul_impl="plain",
+                                   scan_impl="loop", device=dev)
+    lp_p, post_p = den_p.forward_backward(x)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lp).all() and torch.isfinite(post).all()):
+        raise AssertionError("synthwer: the den output is not finite")
+    torch.testing.assert_close(lp, lp_p, rtol=LOGP_RTOL, atol=0)
+    torch.testing.assert_close(post, post_p, rtol=POST_RTOL, atol=POST_ATOL)
+
+    # den_matmul at this shape against its plain version, and timed
+    dm, n = sk._kernel, x.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    v = torch.rand((dm.F, n), generator=gen, device=dev)
+    err, us = 0.0, {}
+    for transpose in (False, True):
+        out = dm.apply(v, transpose)
+        ref = den_matmul_split_plain(dm.M, v, transpose)
+        torch.cuda.synchronize()
+        err = max(err, float((out - ref).abs().max()))
+    T = x.shape[1]
+    us["kernel"] = 1e3 * warm_ms(lambda: dm.apply(v, False), 2 * T)
+    us["plain"] = 1e3 * warm_ms(
+        lambda: den_matmul_split_plain(dm.M, v, False), 8)
+    hist = res["history"]
+    phase("synthwer", flags=SYNTHWER_FLAGS, ok=True, steps=res["steps"],
+          wall_s=wall, wer_trajectory=[[h["step"], h["wer"]] for h in hist],
+          objf_final=hist[-1].get("objf"), wer_first=res["wer_first"],
+          wer_final=res["wer_final"], wer_streaming=res["wer_streaming"],
+          wer_rescored=res["wer_rescored"], streaming=res["streaming"],
+          lm_rescore=res["lm_rescore"], layout_used=den.layout_used,
+          scan_used=sk.scan_used, den_L=sk.lay.L, den_F=dm.F, den_Fp=dm.Fp,
+          n=n, first_batch_shape=list(x.shape), den_matmul_launches=launches,
+          logp_max_rel_vs_plain=float(((lp - lp_p).abs()
+                                       / lp_p.abs()).max()),
+          post_max_abs_vs_plain=float((post - post_p).abs().max()),
+          den_matmul_max_abs_err_vs_plain=err,
+          den_matmul_us=us["kernel"], den_matmul_plain_us=us["plain"])
+    return launches, err
+
+
 def main():
     dev = device_phase()
     build_phase()
@@ -1498,8 +1815,13 @@ def main():
     del den_f
     egs_dir, egs_graph = egs_phase()
     _, den_check = trainer_phase(egs_dir, egs_graph, dev)
-    decode_hclg_phase(dev)
+    hclg_graph, hclg_ll, hclg_offline = decode_hclg_phase(dev)
     decode_tool_phase(egs_dir)
+    stream_decode_phase(dev, hclg_graph, hclg_ll, hclg_offline)
+    del hclg_graph, hclg_ll, hclg_offline
+    torch.cuda.empty_cache()
+    stream_encode_phase(dev)
+    sw_launches, sw_err = synthwer_phase(dev)
     src = "kaldi_fp16_tpu_torch/csrc/"
     F, n = k["F"], k["n"]
     mm_io = 4 * 2 * F * n                     # v read, out written
@@ -1517,7 +1839,8 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("den_matmul", "den_matmul.cu", KERNEL_REPLACES,
-              launches["den_matmul"], k["kernel_max_abs_err_vs_plain"],
+              launches["den_matmul"] + sw_launches,
+              max(k["kernel_max_abs_err_vs_plain"], sw_err),
               k["kernel_kernel_us"] / 1e3, k["kernel_plain_us"] / 1e3,
               mm_bound["kernel"], k["kernel_library_us"] / 1e3),
         entry("den_matmul_pre", "den_matmul.cu", PRE_REPLACES, pre_launches,

@@ -29,7 +29,8 @@ max and min do not depend on the order of their operands, so a decode
 repeats bit for bit.  Ties go to the smallest arc id, as in the JAX
 package.  Not ported: the ELL and tree-ELL layouts (they exist to avoid
 the TPU's slow scatter and give the segment layout's results), the
-`mesh` argument, and the streaming chunk kernel.
+`mesh` argument.  The streaming decoders (decode/streaming.py) run
+`_viterbi_frames` and `_traceback` chunk by chunk.
 """
 
 from __future__ import annotations
@@ -185,6 +186,13 @@ class _Arcs:
         self.start = a.start
         self._rows_B = None
 
+    def start_scores(self, B: int) -> torch.Tensor:
+        """[S, B] Viterbi scores before the first frame: 0 at the start
+        state, NEG_INF elsewhere."""
+        score = torch.full((self.S, B), NEG_INF, device=self.src.device)
+        score[self.start] = 0.0
+        return score
+
     def rows(self, B: int):
         """Flat [A, B] indices of the src, dst and pdf rows of a row-major
         [rows, B] tensor, for torch.take: on an H100 it gathers 390K rows of
@@ -257,15 +265,23 @@ def _traceback(g: _Arcs, bps, state, arcs_out):
     return state
 
 
+def _viterbi_frames(g: _Arcs, score, ll_tpb):
+    """The frame recursion from `score` [S, B] over ll_tpb [T, P, B] ->
+    (score after the last frame, backpointers [T, S, B] int32).  The
+    offline decode and the streaming decoders' chunks both run it, so a
+    stream fed chunk by chunk reproduces the offline decode bit for bit."""
+    bps = torch.empty((ll_tpb.shape[0], g.S, score.shape[1]),
+                      dtype=torch.int32, device=score.device)
+    for t in range(ll_tpb.shape[0]):
+        score = g.viterbi_step(score, ll_tpb[t], bps[t])
+    return score, bps
+
+
 def _arc_viterbi(g: _Arcs, ll_tpb, B: int):
     """ll_tpb [T, P, B] -> (best [B], last [B], arcs_taken [T, B] int32),
     with the whole backpointer table [T, S, B] on the device."""
     T = ll_tpb.shape[0]
-    score = torch.full((g.S, B), NEG_INF, device=ll_tpb.device)
-    score[g.start] = 0.0
-    bps = torch.empty((T, g.S, B), dtype=torch.int32, device=ll_tpb.device)
-    for t in range(T):
-        score = g.viterbi_step(score, ll_tpb[t], bps[t])
+    score, bps = _viterbi_frames(g, g.start_scores(B), ll_tpb)
     total = score + g.final[:, None]
     best, last = total.amax(0), total.argmax(0)
     arcs = torch.empty((T, B), dtype=torch.int32, device=ll_tpb.device)
@@ -281,8 +297,7 @@ def _arc_viterbi_ckpt(g: _Arcs, ll_tpb, B: int, chunk: int):
     T = ll_tpb.shape[0]
     nc = T // chunk
     dev = ll_tpb.device
-    score = torch.full((g.S, B), NEG_INF, device=dev)
-    score[g.start] = 0.0
+    score = g.start_scores(B)
     ckpts = torch.empty((nc, g.S, B), device=dev)
     for c in range(nc):
         ckpts[c] = score

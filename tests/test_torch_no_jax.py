@@ -12,9 +12,9 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# the production loop's and the decoding path's modules (data path,
-# NG-SGD, trainer, checkpoint, decoders, tools): each must be among the
-# modules the script imports
+# the production loop's, the decoding path's and the serving path's modules
+# (data path, NG-SGD, trainer, checkpoint, decoders, streaming, tools): each
+# must be among the modules the script imports
 REQUIRED = [
     "kaldi_fp16_tpu_torch.io." + m for m in (
         "kaldi_io", "fst", "matrix", "egs", "native", "batch", "dataloader")
@@ -23,12 +23,15 @@ REQUIRED = [
         "natural_gradient", "schedulers", "trainer", "checkpoint")
 ] + [
     "kaldi_fp16_tpu_torch.decode." + m for m in (
-        "graph", "viterbi", "lattice", "lm", "wer", "device_viterbi")
+        "graph", "viterbi", "lattice", "lm", "wer", "device_viterbi",
+        "streaming")
 ] + [
     "kaldi_fp16_tpu_torch.utils.metrics", "kaldi_fp16_tpu_torch.utils.profiling",
     "kaldi_fp16_tpu_torch.tools.train",
     "kaldi_fp16_tpu_torch.tools.decode",
     "kaldi_fp16_tpu_torch.tools.decodebench",
+    "kaldi_fp16_tpu_torch.tools.streambench",
+    "kaldi_fp16_tpu_torch.tools.synthwer",
     "kaldi_fp16_tpu_torch.tools.make_synthetic_egs",
     "kaldi_fp16_tpu_torch.tools.profile_step",
     "kaldi_fp16_tpu_torch.tools.ng_precision",
@@ -60,6 +63,6 @@ def test_port_and_chip_smoke_import_without_jax():
                           cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # models x4, chain x7, ops x4, training x8, tools x9, io x9, utils x2,
-    # decode x6, convert, device, the subpackages
-    assert int(proc.stdout.strip()) >= 57
+    # models x4, chain x7, ops x4, training x8, tools x11, io x9, utils x2,
+    # decode x7, convert, device, the subpackages
+    assert int(proc.stdout.strip()) >= 60
