@@ -13,7 +13,9 @@ same graph (the segment_reduce kernel).  Then the flagship recipe's
 production loop: synthetic cegs files at flagship geometry, the
 DataLoader, and `python -m kaldi_fp16_tpu_torch.tools.train`'s main with
 configs/train_flagship.sh's flags (NG-SGD, the xent head, loss scaling,
-the orthonormal constraint, checkpoints) at B = 128, killed and resumed.
+the orthonormal constraint, checkpoints) at B = 128, killed and resumed;
+the same with --data-parallel 1, bench.py's step on two data-parallel
+ranks sharing the card, and the multi-process tools on the card.
 Then decoding: offline at HCLG scale and through `tools.decode`; online
 through the streaming decoders and the streaming encoder; and the closed
 accuracy loop of `tools.synthwer` (train, then decode to words).
@@ -61,7 +63,31 @@ Phases, one line of numbers each:
                      per step; device and loop ms per step, idle share over
                      one window, the same 8 steps without NG (the NG cost),
                      peak memory
- 15. decode_hclg     WFST decoding at HCLG scale: tools.decodebench's
+ 15. data_parallel   tools.train's main with --data-parallel 1 (one rank,
+                     NCCL) and the recipe's flags: its 8 steps and final
+                     state equal to the trainer phase's bit for bit, the
+                     data group's collectives and MB per step, device ms
+                     per step beside the trainer phase's; then bench.py's
+                     step at B = 256 in one process (bf16 with NG-SGD and
+                     loss scaling and without, fp32 without), again with
+                     its rows permuted (the yardstick), and on two ranks
+                     of one gloo group on the card (128 rows, the fused
+                     den, each): a gloo all-reduce of a CUDA tensor first,
+                     the losses, the update and the BN statistics after
+                     step 1 against one process's and the yardstick's
+                     (after the last step reported), per-leaf update
+                     distances, the ranks' states bit-identical to each
+                     other and (bf16) to a repeat, 1 + 1 den_scan launches
+                     per rank per step, ms per step, the collectives'
+                     share, peak memory per rank; ranks with per-rank BN
+                     statistics (bf16) and with averaged gradients (fp32)
+                     must fail; the CPU tests' narrow fp32 cases on the
+                     two ranks at those tests' bars (averaged gradients
+                     must fail them); tools.mpworker as 2 processes on
+                     the card against one process, 4 restoring their
+                     checkpoint, a killed one failing its peer; and
+                     tools.dryrun_multichip as 2 ranks on the card
+ 16. decode_hclg     WFST decoding at HCLG scale: tools.decodebench's
                      synth_hclg_graph(100000, 3080) (390K arcs), random
                      loglikes made on the card, B = 16, T = 500: the Viterbi
                      decoder's checkpointed path, its plain path and a
@@ -72,13 +98,13 @@ Phases, one line of numbers each:
                      equal to the arc decoder at decodebench's defaults (S =
                      2048, P = 512, B = 32, T = 500); decode_audio_sec_per_s,
                      decode ms, launches per decode and peak memory
- 16. decode_tool     tools.decode's main --on-device, plainly and with
+ 17. decode_tool     tools.decode's main --on-device, plainly and with
                      --nbest 3, on one of the egs phase's cegs files (512
                      utterances) through the flagship model and a 20000-state
                      HCLG-shaped graph written as an OpenFst file: every
                      utterance final, the lattices' 1-best equal to the
                      Viterbi words; the utterance count and wall seconds
- 17. stream_decode   streaming decoding at decode_hclg's HCLG scale and
+ 18. stream_decode   streaming decoding at decode_hclg's HCLG scale and
                      loglikes: the incremental decoder fed 16 frames at a
                      time and in a ragged 5, 7, 12 schedule, and the
                      windowed decoder at window >= T, equal to the offline
@@ -87,17 +113,17 @@ Phases, one line of numbers each:
                      every feed, utterances equal to offline counted, peak
                      memory over what the phase holds at T = 500 and 1000);
                      tools.streambench's decode-only rows
- 18. stream_encode   the streaming encoder on the flagship network (random
+ 19. stream_encode   the streaming encoder on the flagship network (random
                      weights, seed 0, 100-dim ivectors, B = 8) at chunk_out
                      6, 16 and 32: fp32 against its offline_reference and
                      across chunk sizes, bf16 against its own oracle;
                      tools.streambench's encoder and pipeline rows
- 19. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
+ 20. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
                      and rescoring run of the JAX evidence: ok, the WER
                      trajectory, den_matmul launches (its den has L = 1,
                      F = 81: loop scans), the first batch's den against
                      the same den through plain matmuls
- 20. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 21. summary         the kernels' JSON line, then {"ok": true, "device": ...}
 
 small_step_vs_cpu also holds a narrow NG step (patch-lowered convs) on
 the card against the CPU.
@@ -113,8 +139,10 @@ fallback.  Needs one card, nvcc, no network and no JAX.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -145,7 +173,7 @@ from kaldi_fp16_tpu_torch.decode.streaming import (
     StreamingDecoder, StreamingEncoder, WindowedStreamingDecoder,
 )
 from kaldi_fp16_tpu_torch.io.dataloader import (
-    DataLoader, DataLoaderConfig, ProcessLoader,
+    DataLoader, DataLoaderConfig, ProcessLoader, shard_files,
 )
 from kaldi_fp16_tpu_torch.io.fst import (
     Fst, FstArc, FstState, read_fst_file, write_fst_file,
@@ -153,22 +181,29 @@ from kaldi_fp16_tpu_torch.io.fst import (
 from kaldi_fp16_tpu_torch.models.model import (
     build_model, build_model_from_string,
 )
+from kaldi_fp16_tpu_torch.models import network as network_module
 from kaldi_fp16_tpu_torch.models.network import Network
 from kaldi_fp16_tpu_torch.ops import _build, den_scan
 from kaldi_fp16_tpu_torch.ops.den_matmul import (
     DenMatmul, den_matmul_split_plain,
 )
+from kaldi_fp16_tpu_torch.parallel.data_parallel import (
+    broadcast_train_state, shard_batch, shard_graph,
+)
+from kaldi_fp16_tpu_torch.parallel.mesh import free_address, spawn_ranks
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
     segment_order, segment_order_plain, segment_reduce, segment_reduce_plain,
 )
 from kaldi_fp16_tpu_torch.tools import (
-    decode as decode_tool, decodebench, make_synthetic_egs, ng_precision,
-    streambench, synthwer,
+    decode as decode_tool, decodebench, dryrun_multichip, make_synthetic_egs,
+    mpworker, ng_precision, streambench, synthwer,
 )
+from kaldi_fp16_tpu_torch.tools.dryrun_multichip import run_setup
 from kaldi_fp16_tpu_torch.tools.profile_step import (
     supervision as bench_num_graph,
 )
 from kaldi_fp16_tpu_torch.tools import train as train_tool
+from kaldi_fp16_tpu_torch.training import train_step as train_step_module
 from kaldi_fp16_tpu_torch.training.checkpoint import CheckpointManager
 from kaldi_fp16_tpu_torch.training.train_step import (
     TrainConfig, init_train_state, make_train_step,
@@ -229,6 +264,44 @@ SYNTHWER_FLAGS = ["--words", "40", "--phones", "80", "--feat-dim", "32",
                   "--words-per-utt", "5", "--dur", "2", "--max-dur", "4",
                   "--train-utts", "768", "--test-utts", "48", "--steps",
                   "200", "--streaming", "--lm-rescore"]
+# data parallel (PERF.md): world 1 over NCCL equals the trainer phase bit
+# for bit.  Two gloo ranks on the card against one process at bench.py's
+# step, B = 256: the flagship's step at this init is ill-conditioned (a
+# last-bit change in prefinal-chain's BatchNorm grows ~100x through its
+# backward; one process, or the JAX step, with its rows permuted moves
+# its first update ~1 % in fp32 and ~40 % in bf16).  So the update and
+# the BN statistics after step 1 are held at DP_BARS' multiples of the
+# distance from one process of the yardstick, one process with its rows
+# permuted (the same mathematics summed in another order), or at their
+# floors; a bar must stay below 1, the distance of no update at all.
+# Later distances (bf16's yardstick reaches 0.77 by step 3) are reported,
+# not held.  fp32's losses are held at 1e-5 (tests/test_parallel.py's
+# bar), bf16's first loss at 2e-4 and the rest at 1e-2.  Two controls
+# must fail: per-rank BatchNorm statistics (bf16) and gradients averaged
+# over the ranks (fp32).  The narrow fp32 cases of the CPU tests hold the
+# collectives on CUDA tensors at those tests' bars, and averaged
+# gradients must fail them.
+DP_B, DP_STEPS, DP32_STEPS = 256, 3, 2
+DP_RUNS = (("ng", True, "bfloat16", DP_STEPS),
+           ("no_ng", False, "bfloat16", DP_STEPS),
+           ("fp32", False, "float32", DP32_STEPS))
+DP_LOSS_RTOL = {"ng": (2e-4, 1e-2), "no_ng": (2e-4, 1e-2),
+                "fp32": (1e-5, 1e-5)}      # (first loss, later losses)
+# after step 1, tag: ((update, BN) x the yardstick, (update, BN) floors)
+DP_BARS = {"ng": ((2.0, 3.0), (5e-2, 1e-3)),
+           "no_ng": ((2.0, 3.0), (5e-2, 1e-3)),
+           "fp32": ((3.0, 3.0), (1e-3, 1e-5))}
+DP_HEAD_LEAVES = ("layers.output.w", "layers.prefinal-chain.small_w",
+                  "layers.prefinal-chain.big_w")
+DP_TOP_LEAVES = 3
+NARROW_LOSS = dict(rtol=1e-5)
+NARROW_PARAMS = dict(rtol=2e-5, atol=1e-6)
+NARROW_BN_MEAN = dict(rtol=1e-5, atol=1e-7)
+NARROW_BN = dict(rtol=1e-5, atol=5e-7)
+NARROW_NG_V = dict(rtol=1e-4, atol=1e-5)
+MP_FILES, MP_LOCAL_B, MP_STEPS = 4, 4, 2
+MP_HEARTBEAT_S, MP_TIMEOUT_S = 20, 300
+DP_JOIN_S = 600
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, ibid.
 FLUSH_BYTES = 128 << 20          # > the 50 MB L2
@@ -1114,12 +1187,13 @@ def flagship_recipe_flags(egs_dir):
 
 
 def recipe_run(egs_dir, ckpt_dir, counters, natural_gradient=True,
-               resume=False, ckpt_every=CKPT_STEP, den_inputs=None):
+               resume=False, ckpt_every=CKPT_STEP, den_inputs=None,
+               extra=()):
     """One tools.train main run of the recipe, 1 epoch of 8 batches at
     B = 128, a checkpoint every `ckpt_every` steps.  Every kernel count is
     set to 0 just before the run; returns (summary, per-step launch
     counts).  den_inputs: a list that gets a CPU copy of the den's input
-    in the first step (a warm-up step, not timed)."""
+    in the first step (a warm-up step, not timed); extra: more flags."""
     flags = flagship_recipe_flags(egs_dir)
     override = {"--epochs": "1", "--ckpt-dir": str(ckpt_dir),
                 "--ckpt-every": str(ckpt_every)}
@@ -1130,6 +1204,7 @@ def recipe_run(egs_dir, ckpt_dir, counters, natural_gradient=True,
         flags.remove("--natural-gradient")
     if resume:
         flags.append("--resume")
+    flags += list(extra)
     per_step = []
     run_step = Trainer.train_batch
 
@@ -1307,7 +1382,659 @@ def trainer_phase(egs_dir, graph, dev):
           train_audio_sec_per_s_per_chip_device=B * EGS_T_IN / 100.0
           / (device_ms / 1e3),
           max_memory_allocated_bytes=peak)
-    return launches, den_check
+    return launches, den_check, {"losses": losses, "device_each_ms": each,
+                                 "digest": train_tool.state_digest(sd_full)}
+
+
+def bn_slots(model):
+    """The number of BatchNorms in a model's forward."""
+    probe = Network(model, torch.Generator().manual_seed(0), "cpu")
+    return sum(1 if "count" in st else len(st)
+               for st in probe.bn_state().values())
+
+
+def world1_run(egs_dir, trainer_ref):
+    """tools.train --data-parallel 1 (one rank over NCCL, every collective
+    run) with the recipe's flags: its 8 steps' losses and its final state
+    equal to the trainer phase's bit for bit (at world 1 the data group's
+    BatchNorm merge and reported means are torch.mean's and torch.var's
+    bits), the data group's collectives per step, and its device ms per
+    step beside the trainer phase's."""
+    counters = {"den_scan_fwd": den_scan.fused_forward,
+                "den_scan_bwd": den_scan.fused_backward,
+                "den_matmul": DenMatmul}
+    res, per_step = recipe_run(egs_dir, WORK / "ckpt_dp1", counters,
+                               ckpt_every=10 * TRAIN_STEPS,
+                               extra=["--data-parallel", "1"])
+    check_steps(res, per_step, 1, TRAIN_STEPS, "world 1")
+    losses = [s["loss"] for s in res["steps"]]
+    if losses != trainer_ref["losses"] or \
+            res["param_digest"] != trainer_ref["digest"]:
+        raise AssertionError(f"world 1 differs from the trainer phase: "
+                             f"losses {losses} vs {trainer_ref['losses']}")
+    calls = [s["collectives"] for s in res["steps"]]
+    mb = [s["collective_bytes"] / 1e6 for s in res["steps"]]
+    n_bn = bn_slots(build_model(str(ROOT / "configs" / "cnn_tdnn.xconfig")))
+    # 2 all-reduces per BatchNorm forward, 2 backward, 1 gradient bucket;
+    # the NG update steps (1 and 5) add 2 per state shape
+    plain_calls = 4 * n_bn + 1
+    if [c for i, c in enumerate(calls) if i + 1 not in (1, NG_UPDATE_STEP)] \
+            != [plain_calls] * (TRAIN_STEPS - 2) or \
+            min(calls[0], calls[NG_UPDATE_STEP - 1]) <= plain_calls:
+        raise AssertionError(f"collectives per step {calls}, expected "
+                             f"{plain_calls} ({n_bn} BatchNorms) and more "
+                             f"on the NG update steps")
+    each, ref_each = res["timer"]["device_each_ms"], \
+        trainer_ref["device_each_ms"]
+    launches = {k: sum(s[k] for s in per_step) for k in counters}
+    del res
+    torch.cuda.empty_cache()
+    return launches, {
+        "losses_bit_identical": True, "state_bit_identical": True,
+        "losses": losses, "collectives_per_step": calls,
+        "collective_mb_per_step": mb, "batchnorms": n_bn,
+        "step_device_ms_each": each, "trainer_step_device_ms_each": ref_each,
+        # timed steps 3-8; the NG update (step 5) apart
+        "step_device_ms": float(np.mean(each)),
+        "trainer_step_device_ms": float(np.mean(ref_each)),
+        "launches": launches}
+
+
+@contextlib.contextmanager
+def masks_permuted(perm):
+    """SpecAugment masks drawn for the global batch as before, their rows
+    permuted by `perm` (each sequence keeps its masks when the batch's
+    rows are permuted)."""
+    draw = network_module.spec_augment_masks
+    index = torch.from_numpy(perm)
+
+    def permuted(*args, **kwargs):
+        return tuple(None if m is None else m[index.to(m.device)]
+                     for m in draw(*args, **kwargs))
+
+    network_module.spec_augment_masks = permuted
+    try:
+        yield
+    finally:
+        network_module.spec_augment_masks = draw
+
+
+@contextlib.contextmanager
+def per_rank_bn():
+    """The fault the two-rank comparison must catch: each rank's BatchNorm
+    takes the statistics of its own rows (the per-shard statistics that
+    "would silently switch" the result, kaldi_fp16_tpu/parallel/
+    data_parallel.py:10-13)."""
+    merged = network_module.batch_moments
+
+    def local(x, group):
+        return (x.mean(dim=(0, 1)),
+                torch.clamp(x.var(dim=(0, 1), unbiased=False), min=0.0),
+                float(x.shape[0] * x.shape[1]))
+
+    network_module.batch_moments = local
+    try:
+        yield
+    finally:
+        network_module.batch_moments = merged
+
+
+@contextlib.contextmanager
+def averaged_grads():
+    """The other fault: the ranks' gradients averaged instead of summed
+    (the habit of data-parallel wrappers; the chain objective is a sum
+    over sequences, so the full batch's gradient is the ranks' sum)."""
+    summed = train_step_module.all_reduce_grads
+
+    def averaged(grads, stats, group):
+        grads, tot, nonfinite = summed(grads, stats, group)
+        return ({l: {k: g / group.world for k, g in p.items()}
+                 for l, p in grads.items()}, tot, nonfinite)
+
+    train_step_module.all_reduce_grads = averaged
+    try:
+        yield
+    finally:
+        train_step_module.all_reduce_grads = summed
+
+
+def is_param(k):
+    return not k.endswith((".count", ".mean", ".var"))
+
+
+def state_distance(states, ref):
+    """(update, BN statistics) relative distances of a run's states from a
+    reference run's, after step 1 and after the last step: ||u - u_ref|| /
+    ||u_ref|| over the parameters' updates from the shared start, and the
+    larger of the running means' and variances' ||s - s_ref|| / ||s_ref||."""
+    update, bn = [], []
+    for state, ref_state in zip(states, ref["states"]):
+        params = [k for k in ref_state if is_param(k)]
+        update.append(rel_norm(
+            {k: state[k] - ref["init"][k] for k in params},
+            {k: ref_state[k] - ref["init"][k] for k in params}, params))
+        bn.append(max(rel_norm(state, ref_state, [
+            k for k in ref_state if k.endswith("." + suf)])
+            for suf in ("mean", "var")))
+    return update, bn
+
+
+def leaf_distances(state, ref):
+    """Per-parameter update distances after step 1, ||u - u_ref|| /
+    ||u_ref||: the chain head's leaves back to prefinal-chain's BatchNorm,
+    and the DP_TOP_LEAVES leaves that carry most of the whole distance
+    (with their share of its square)."""
+    init, ref_state = ref["init"], ref["states"][0]
+    sq = {k: float(((state[k].astype(np.float64) - ref_state[k]) ** 2).sum())
+          for k in ref_state if is_param(k)}
+    total = sum(sq.values())
+    top = sorted(sq, key=sq.get, reverse=True)[:DP_TOP_LEAVES]
+    return {"chain_head": {k: rel_norm({k: state[k] - init[k]},
+                                       {k: ref_state[k] - init[k]}, [k])
+                           for k in DP_HEAD_LEAVES},
+            "top": [[k, sq[k] / total,
+                     rel_norm({k: state[k] - init[k]},
+                              {k: ref_state[k] - init[k]}, [k])]
+                    for k in top]}
+
+
+def permute_rows(g, perm):
+    """A NumeratorGraphBatch with its sequences in the order `perm`."""
+    return dataclasses.replace(g, **{
+        f.name: getattr(g, f.name)[perm] for f in dataclasses.fields(g)
+        if isinstance(getattr(g, f.name), np.ndarray)})
+
+
+def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
+                   dtype="bfloat16", steps=DP_STEPS, perm=None):
+    """bench.py's step (train_phase's batch, seeds and SpecAugment
+    generator) at global B = DP_B for `steps` steps in `dtype`, NG-SGD
+    and loss scaling on or off: in this process (group None) or as this
+    rank of `group` on its rows.  perm: this process's batch in another
+    row order, each sequence with its numerator graph and SpecAugment
+    masks (the same mathematics, summed in another order).  instrument:
+    one more step with every collective synchronised before and after,
+    for the collectives' share."""
+    rng = np.random.default_rng(0)
+    model = build_model(str(ROOT / "configs" / "cnn_tdnn.xconfig"))
+    dims = {layer.name: layer.output_dim for layer in model.inputs()}
+    num_graph = bench_num_graph(DP_B, T_OUT, AN, P, rng)
+    batch = {"features": rng.normal(size=(DP_B, T_IN, dims["input"]))
+             .astype(np.float32),
+             "ivectors": rng.normal(size=(DP_B, dims["ivector"]))
+             .astype(np.float32),
+             "weights": np.ones(DP_B, np.float32)}
+    if group is not None:
+        batch, num_graph = shard_batch(batch, group), shard_graph(num_graph,
+                                                                  group)
+    order = contextlib.nullcontext()
+    if perm is not None:
+        batch = {k: v[perm] for k, v in batch.items()}
+        num_graph, order = permute_rows(num_graph, perm), masks_permuted(perm)
+    extra = (dict(natural_gradient=True, use_loss_scaling=True)
+             if natural_gradient else {})
+    config = TrainConfig(learning_rate=1e-3, momentum=0.9,
+                         frame_subsampling_factor=STRIDE, left_context=LEFT,
+                         compute_dtype=dtype, **extra)
+    torch.cuda.reset_peak_memory_stats(dev)
+    net, opt, scale = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), config, device=dev)
+    if group is not None:
+        broadcast_train_state(net, opt, scale, group)
+    init = {k: v.detach().cpu().numpy().copy()
+            for k, v in net.state_dict().items()}
+    den = DenominatorComputation(graph, leaky=1e-5, device=dev)
+    step = make_train_step(model, net, den, num_graph, ChainTrainingOpts(),
+                           config, num_frames_out=T_OUT, group=group)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    spec_gen = torch.Generator(device=dev).manual_seed(1)
+    counters = {"den_scan_fwd": den_scan.fused_forward,
+                "den_scan_bwd": den_scan.fused_backward,
+                "den_matmul": DenMatmul}
+    for c in counters.values():
+        c.launches = 0
+    losses, step_ms, launches, calls, mb = [], [], [], [], []
+    with train_tool.deterministic_cudnn(), order:
+        for i in range(steps):
+            before = {k: c.launches for k, c in counters.items()}
+            c0 = (group.calls, group.bytes) if group is not None else (0, 0)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            opt, scale, out = step(opt, scale, batch, generator=spec_gen)
+            loss = float(out.loss)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if not (np.isfinite(loss) and bool(out.ok)
+                    and not bool(out.skipped)):
+                raise AssertionError(f"data-parallel step {i}: loss={loss} "
+                                     f"ok={bool(out.ok)} "
+                                     f"skipped={bool(out.skipped)}")
+            losses.append(loss)
+            launches.append({k: c.launches - before[k]
+                             for k, c in counters.items()})
+            if group is not None:
+                calls.append(group.calls - c0[0])
+                mb.append((group.bytes - c0[1]) / 1e6)
+            if i == 0:
+                first = {k: v.detach().cpu().numpy().copy()
+                         for k, v in net.state_dict().items()}
+        res = {"losses": losses, "step_ms": step_ms,
+               "launches_per_step": launches, "collectives_per_step": calls,
+               "collective_mb_per_step": mb,
+               "scan_used": den._structured.scan_used,
+               "digest": train_tool.state_digest(net.state_dict()),
+               "states": [first, {k: v.detach().cpu().numpy().copy()
+                                  for k, v in net.state_dict().items()}],
+               "init": init}
+        if instrument and group is not None:
+            res.update(timed_collectives(group, step, opt, scale, batch,
+                                         spec_gen, dev))
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return res
+
+
+def timed_collectives(group, step, opt, scale, batch, spec_gen, dev):
+    """One more step with the device synchronised around each of the
+    group's collectives: the step's ms and the ms inside collectives."""
+    run = group.all_reduce
+    spent = []
+
+    def timed(t, *args, **kwargs):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = run(t, *args, **kwargs)
+        torch.cuda.synchronize(dev)
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    group.all_reduce = timed
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        step(opt, scale, batch, generator=spec_gen)
+        torch.cuda.synchronize(dev)
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        group.all_reduce = run
+    return {"instrumented_step_ms": total, "collective_ms": float(sum(spent)),
+            "collective_calls": len(spent), "collective_share":
+            float(sum(spent)) / total}
+
+
+def narrow_setups():
+    """tests/test_parallel.py's cases on the card: its model (the
+    worker's MP_XCONFIG), B = 8, T_in = 12, fp32, linear supervision; 2
+    steps plainly and with NG-SGD (ranks 4), 1 with SpecAugment."""
+    base = dataclasses.replace(
+        dryrun_multichip.dryrun_setup(4), xconfig=mpworker.MP_XCONFIG,
+        config=dict(mpworker.TRAIN), steps=2)
+    spec = mpworker.MP_XCONFIG.replace(
+        "linear-component name=linear1 dim=32",
+        "spec-augment-layer name=spec freq-max-proportion=0.5 "
+        "time-zeroed-proportion=0.2 time-mask-max-frames=4\n"
+        "linear-component name=linear1 dim=32")
+    return {"plain": base,
+            "ng": dataclasses.replace(base, config=dict(
+                base.config, natural_gradient=True, ng_rank_in=4,
+                ng_rank_out=4)),
+            "spec": dataclasses.replace(base, xconfig=spec, steps=1,
+                                        spec_seed=7)}
+
+
+def narrow_check(got, ref, tag):
+    """tests/test_torch_parallel.py's bars: the losses, the parameters,
+    the BN statistics and the NG states of a rank against one process."""
+    for i, (o, r) in enumerate(zip(got["outputs"], ref["outputs"])):
+        np.testing.assert_allclose(o["loss"], r["loss"], **NARROW_LOSS,
+                                   err_msg=f"{tag} loss {i}")
+    for k, v in ref["params"].items():
+        bars = (NARROW_BN_MEAN if k == "layers.bn1.bn.mean" else
+                NARROW_BN if not is_param(k) else NARROW_PARAMS)
+        np.testing.assert_allclose(got["params"][k], v, **bars,
+                                   err_msg=f"{tag} {k}")
+    for site, st in (ref["ng"] or {}).items():
+        for side in ("in", "out"):
+            np.testing.assert_allclose(got["ng"][site][side]["v"],
+                                       st[side]["v"], **NARROW_NG_V,
+                                       err_msg=f"{tag} NG {site}/{side}")
+
+
+def _dp_rank(group, graph, narrow):
+    """A spawned rank of the two-rank phase: a gloo all-reduce of a CUDA
+    tensor (the probe); bench.py's step in bf16 with NG and without, each
+    run twice (the repeat), then with per-rank BN statistics (a fault);
+    in fp32, plainly and with averaged gradients (a fault); the narrow
+    fp32 cases, plainly and the first with averaged gradients.  Rank 0
+    returns its states, the other rank its digests."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    probe = group.all_reduce(torch.full((4,), float(group.rank + 1),
+                                        device=group.device))
+    out = {"probe": probe.tolist(), "device": str(group.device)}
+
+    def kept(res):
+        del res["init"]
+        if group.rank != 0:
+            del res["states"]
+        return res
+
+    for ng in (True, False):
+        first = dp_bench_steps(group, group.device, graph, ng,
+                               instrument=True)
+        repeat = dp_bench_steps(group, group.device, graph, ng)
+        first["repeat_digest"] = repeat["digest"]
+        first["repeat_losses"] = repeat["losses"]
+        out["ng" if ng else "no_ng"] = kept(first)
+        del repeat
+        torch.cuda.empty_cache()
+    with per_rank_bn():
+        out["per_rank_bn"] = kept(dp_bench_steps(group, group.device, graph,
+                                                 False))
+    out["fp32"] = kept(dp_bench_steps(group, group.device, graph, False,
+                                      dtype="float32", steps=DP32_STEPS))
+    torch.cuda.empty_cache()
+    with averaged_grads():
+        out["fp32_averaged"] = kept(dp_bench_steps(
+            group, group.device, graph, False, dtype="float32",
+            steps=DP32_STEPS))
+    torch.cuda.empty_cache()
+    out["narrow"] = {k: run_setup(s, group) for k, s in narrow.items()}
+    with averaged_grads():
+        out["narrow_averaged"] = run_setup(narrow["plain"], group)
+    return out
+
+
+def rel_norm(a, b, keys):
+    """||a - b|| / ||b|| over the tensors `keys` of two state dicts."""
+    num = sum(float(((a[k].astype(np.float64) - b[k]) ** 2).sum())
+              for k in keys)
+    den = sum(float((b[k].astype(np.float64) ** 2).sum()) for k in keys)
+    return (num / den) ** 0.5
+
+
+def loss_rel(losses, ref):
+    return [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+
+
+def two_rank_run(dev, graph):
+    """bench.py's step at B = 256 in this process (bf16 with NG-SGD and
+    loss scaling and without, fp32 without; each again with its rows
+    permuted, the yardstick) and the narrow fp32 cases, freed after; then
+    all of them on two ranks of one gloo group on this card, 128 rows
+    each (4 in the narrow cases), held against one process."""
+    perm = np.r_[DP_B // 2:DP_B, 0:DP_B // 2]
+    single, yard = {}, {}
+    for tag, ng, dtype, steps in DP_RUNS:
+        single[tag] = dp_bench_steps(None, dev, graph, ng, dtype=dtype,
+                                     steps=steps)
+        other = dp_bench_steps(None, dev, graph, ng, dtype=dtype,
+                               steps=steps, perm=perm)
+        yard[tag] = {"losses": other["losses"],
+                     "distance": state_distance(other["states"], single[tag]),
+                     "leaves": leaf_distances(other["states"][0],
+                                              single[tag])}
+        del other
+        torch.cuda.empty_cache()
+    narrow = narrow_setups()
+    narrow_ref = {k: run_setup(s, device=dev) for k, s in narrow.items()}
+    ranks = spawn_ranks(_dp_rank, [dev, dev], args=(graph, narrow),
+                        backend="gloo", join_seconds=DP_JOIN_S)
+    if any(r["probe"] != [3.0] * 4 for r in ranks):
+        raise AssertionError(f"gloo all-reduce of a CUDA tensor: "
+                             f"{[r['probe'] for r in ranks]}")
+    report, launches = {}, {"den_scan_fwd": 0, "den_scan_bwd": 0,
+                            "den_matmul": 0}
+
+    def passes(tag, update, bn):
+        """The update and the BN statistics after step 1 within their
+        bars, each of which must stay below a frozen model's 1."""
+        (y_update, _), (y_bn, _) = yard[tag]["distance"]
+        (x_update, x_bn), (f_update, f_bn) = DP_BARS[tag]
+        bars = max(x_update * y_update, f_update), max(x_bn * y_bn, f_bn)
+        if max(bars) >= 1.0:
+            raise AssertionError(f"{tag}: bars {bars} pass no update at all")
+        return update[0] <= bars[0] and bn[0] <= bars[1]
+
+    for tag, *_ in DP_RUNS:
+        ref, got = single[tag], [r[tag] for r in ranks]
+        for r in got:
+            if r["digest"] != got[0]["digest"]:
+                raise AssertionError(f"{tag}: the ranks' states differ")
+            if "repeat_digest" in r and (
+                    r["repeat_digest"] != r["digest"] or
+                    r["repeat_losses"] != r["losses"]):
+                raise AssertionError(f"{tag}: the repeat is not "
+                                     f"bit-identical")
+            if r["scan_used"] != "fused" or any(
+                    x != {"den_scan_fwd": 1, "den_scan_bwd": 1,
+                          "den_matmul": 0} for x in r["launches_per_step"]):
+                raise AssertionError(f"{tag}: den route {r['scan_used']}, "
+                                     f"launches {r['launches_per_step']}")
+            for x in r["launches_per_step"]:
+                for k in launches:
+                    launches[k] += x[k]
+        losses = got[0]["losses"]
+        bars = DP_LOSS_RTOL[tag]
+        for i, (a, b) in enumerate(zip(losses, ref["losses"])):
+            np.testing.assert_allclose(a, b, rtol=bars[min(i, 1)],
+                                       err_msg=f"{tag} loss {i + 1}")
+        # after step 1, against the yardstick
+        update, bn = state_distance(got[0]["states"], ref)
+        y_update, y_bn = yard[tag]["distance"]
+        if not passes(tag, update, bn):
+            raise AssertionError(
+                f"{tag}: after step 1 the update differs from one "
+                f"process's by {update[0]}, the BN statistics by {bn[0]}; "
+                f"one process with its rows permuted by {y_update[0]} and "
+                f"{y_bn[0]}")
+        report[tag] = {
+            "losses_two_ranks": losses, "losses_one_process": ref["losses"],
+            "loss_rel_diff": loss_rel(losses, ref["losses"]),
+            "update_rel_diff_steps_1_last": update,
+            "bn_rel_diff_steps_1_last": bn,
+            "leaves_step_1": leaf_distances(got[0]["states"][0], ref),
+            "yardstick_loss_rel_diff": loss_rel(yard[tag]["losses"],
+                                                ref["losses"]),
+            "yardstick_update_rel_diff_steps_1_last": y_update,
+            "yardstick_bn_rel_diff_steps_1_last": y_bn,
+            "yardstick_leaves_step_1": yard[tag]["leaves"],
+            "step_ms_two_ranks": [r["step_ms"] for r in got],
+            "step_ms_one_process": ref["step_ms"],
+            "collectives_per_step": got[0]["collectives_per_step"],
+            "collective_mb_per_step": got[0]["collective_mb_per_step"],
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in got],
+            "peak_bytes_one_process": ref["peak_bytes"],
+            "ranks_bit_identical": True}
+        if "collective_ms" in got[0]:
+            report[tag].update(
+                instrumented_step_ms=[r["instrumented_step_ms"] for r in got],
+                collective_ms=[r["collective_ms"] for r in got],
+                collective_share=[r["collective_share"] for r in got],
+                repeat_bit_identical=True)
+    # the negative controls: each must fail the checks its run passed
+    for fault, tag in (("per_rank_bn", "no_ng"), ("fp32_averaged", "fp32")):
+        f = [r[fault] for r in ranks]
+        f_update, f_bn = state_distance(f[0]["states"], single[tag])
+        lr = loss_rel(f[0]["losses"], single[tag]["losses"])
+        bars = DP_LOSS_RTOL[tag]
+        if all(x <= bars[min(i, 1)] for i, x in enumerate(lr)) and \
+                passes(tag, f_update, f_bn):
+            raise AssertionError(f"{fault} passes the two-rank checks: "
+                                 f"losses {lr}, update {f_update}, BN "
+                                 f"statistics {f_bn}")
+        report[fault] = {"loss_rel_diff": lr,
+                         "update_rel_diff_steps_1_last": f_update,
+                         "bn_rel_diff_steps_1_last": f_bn,
+                         "ranks_bit_identical":
+                             f[0]["digest"] == f[1]["digest"]}
+    # the narrow fp32 cases at the CPU tests' bars; averaged gradients fail
+    for k, ref in narrow_ref.items():
+        for r in ranks:
+            narrow_check(r["narrow"][k], ref, f"narrow {k} rank")
+    try:
+        narrow_check(ranks[0]["narrow_averaged"], narrow_ref["plain"],
+                     "averaged")
+    except AssertionError as e:
+        caught = str(e).splitlines()[1] if "\n" in str(e) else str(e)
+    else:
+        raise AssertionError("averaged gradients pass the narrow checks")
+    report["narrow"] = {
+        k: {"loss_rel_diff": loss_rel(
+                [o["loss"] for o in ranks[0]["narrow"][k]["outputs"]],
+                [o["loss"] for o in ref["outputs"]]),
+            "params_max_abs_diff": max(float(np.abs(
+                ranks[0]["narrow"][k]["params"][p] - v).max())
+                for p, v in ref["params"].items()),
+            "collectives_per_step": ranks[0]["narrow"][k]["calls_per_step"]}
+        for k, ref in narrow_ref.items()}
+    report["narrow_averaged_caught"] = caught
+    return launches, report
+
+
+def launch_workers(d, nproc, steps, extra=(), per_pid=None):
+    """nproc mpworker processes on this card over gloo (their default
+    device: card pid mod 1); [(returncode, stderr tail, result or None)].
+    Every process is waited for, or killed at MP_TIMEOUT_S."""
+    address = free_address()[len("tcp://"):]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs, outs = [], []
+    for pid in range(nproc):
+        outs.append(d / f"out_{nproc}p_{pid}.json")
+        if outs[-1].exists():
+            outs[-1].unlink()
+        cmd = [sys.executable, "-m", "kaldi_fp16_tpu_torch.tools.mpworker",
+               "--coordinator", address, "--nproc", str(nproc),
+               "--pid", str(pid), "--egs", str(d / "cegs.*.ark"),
+               "--out", str(outs[-1]), "--ckpt", str(d / "ckpt"),
+               "--steps", str(steps), "--local-batch", str(MP_LOCAL_B),
+               "--backend", "gloo", *extra, *(per_pid or {}).get(pid, [])]
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                      stdout=subprocess.DEVNULL,
+                                      stderr=subprocess.PIPE))
+    results = []
+    try:
+        for p, out in zip(procs, outs):
+            _, err = p.communicate(timeout=MP_TIMEOUT_S)
+            res = json.loads(out.read_text()) if out.exists() else None
+            results.append((p.returncode, err.decode()[-2000:], res))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def worker_data(results, tag):
+    for rc, err, res in results:
+        if rc != 0 or res is None:
+            raise AssertionError(f"{tag}: a worker failed (rc {rc}):\n{err}")
+    return [res for _, _, res in results]
+
+
+def one_process_mp(arks, nproc, steps, dev):
+    """The worker's step without a data group, on this card, on the
+    shards' rows concatenated in rank order: its losses."""
+    parts = [mpworker.local_batch(shard_files(arks, r, nproc), MP_LOCAL_B)
+             for r in range(nproc)]
+    batch = {k: torch.cat([p[0][k] for p in parts]).to(dev)
+             for k in parts[0][0]}
+    g0 = parts[0][1]
+    graph = dataclasses.replace(g0, **{
+        f.name: np.concatenate([getattr(p[1], f.name) for p in parts])
+        for f in dataclasses.fields(g0)
+        if isinstance(getattr(g0, f.name), np.ndarray)})
+    model = build_model_from_string(mpworker.MP_XCONFIG)
+    config = TrainConfig(**mpworker.TRAIN)
+    net, opt, scale = init_train_state(
+        model, torch.Generator().manual_seed(0), config, dev)
+    den = DenominatorComputation(DenominatorGraph.from_fst(
+        make_simple_den_fst(num_pdfs=mpworker.NUM_PDFS, num_states=5,
+                            seed=9), mpworker.NUM_PDFS), leaky=1e-4,
+        device=dev)
+    step = make_train_step(model, net, den, graph, ChainTrainingOpts(),
+                           config, num_frames_out=mpworker.T_OUT)
+    losses = []
+    for _ in range(steps):
+        opt, scale, out = step(opt, scale, batch)
+        losses.append(float(out.loss))
+    return losses
+
+
+def multiprocess_run(dev):
+    """The multi-process entry points on the card: tools.mpworker as 2
+    processes over gloo on this card (file shards, sharded steps, a
+    checkpoint saved and restored) against one process on the shards'
+    rows, then 4 processes restoring that checkpoint (2 -> 4) and a
+    SIGKILLed worker whose peer must fail, not hang; then
+    tools.dryrun_multichip (the grid cut conv) as 2 ranks on the card."""
+    d = WORK / "mp"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    arks = mpworker.write_arks(d, MP_FILES, MP_LOCAL_B)
+    t0 = time.perf_counter()
+    two = worker_data(launch_workers(d, 2, MP_STEPS), "2 workers")
+    t1 = time.perf_counter()
+    ref = one_process_mp(arks, 2, MP_STEPS, dev)
+    for w in two:
+        if (w["device"], w["backend"], w["process_count"]) != \
+                (str(dev), "gloo", 2) or not w["ckpt_ok"] or \
+                w["losses"] != two[0]["losses"] or \
+                w["param_digest"] != two[0]["param_digest"]:
+            raise AssertionError(f"2 workers: {w}")
+    np.testing.assert_allclose(two[0]["losses"], ref, rtol=NARROW_LOSS["rtol"],
+                               err_msg="2 workers vs one process")
+    t2 = time.perf_counter()
+    four = worker_data(launch_workers(d, 4, 1, ["--restore-step",
+                                                str(MP_STEPS)]), "4 workers")
+    t3 = time.perf_counter()
+    for w in four:
+        if w["restored_digest"] != two[0]["param_digest"] or \
+                w["restored_param_sums"] != two[0]["param_sums"] or \
+                not w["ckpt_ok"] or not np.isfinite(w["losses"]).all():
+            raise AssertionError(f"2 -> 4 resume: {w}")
+    (rc0, err0, res0), (rc1, _, res1) = launch_workers(
+        d, 2, 50, ["--heartbeat", str(MP_HEARTBEAT_S)],
+        {1: ["--die-at-step", "1"]})
+    t4 = time.perf_counter()
+    if rc1 != -9 or rc0 == 0 or res0 is not None or res1 is not None:
+        raise AssertionError(f"death: victim rc {rc1}, survivor rc {rc0}:"
+                             f"\n{err0}")
+    dry = dryrun_multichip.main(["--ranks", "2", "--backend", "gloo"])
+    t5 = time.perf_counter()
+    return {"two_workers_losses": two[0]["losses"],
+            "one_process_losses": ref,
+            "loss_rel_diff": loss_rel(two[0]["losses"], ref),
+            "local_files": [w["local_files"] for w in two],
+            "device": two[0]["device"], "backend": two[0]["backend"],
+            "resume_2_to_4_bit_identical": True,
+            "survivor_rc": rc0,
+            "survivor_error": (err0.strip().splitlines() or [""])[-1],
+            "dryrun": dry,
+            "s": {"two": t1 - t0, "four": t3 - t2, "death": t4 - t3,
+                  "dryrun": t5 - t4}}
+
+
+def data_parallel_phase(egs_dir, graph, trainer_ref, dev):
+    """Data parallelism on the one card: tools.train --data-parallel 1
+    over NCCL against the trainer phase, then two gloo ranks on the card
+    against one process at bench.py's step, B = 256, and the
+    multi-process tools (mpworker, dryrun_multichip) on the card."""
+    t0 = time.perf_counter()
+    w1_launches, world1 = world1_run(egs_dir, trainer_ref)
+    t1 = time.perf_counter()
+    two_launches, two = two_rank_run(dev, graph)
+    t2 = time.perf_counter()
+    mp = multiprocess_run(dev)
+    phase("data_parallel", world1=world1, world1_s=t1 - t0,
+          two_ranks=two, two_ranks_s=t2 - t1, multiprocess=mp,
+          multiprocess_s=time.perf_counter() - t2,
+          two_ranks_B=DP_B, T_in=T_IN, steps=DP_STEPS,
+          bars={"world1": "bit-identical", "loss_rtol": DP_LOSS_RTOL,
+                "step_1_update_bn_x_yardstick_and_floors": DP_BARS,
+                "narrow": {"loss": NARROW_LOSS, "params": NARROW_PARAMS,
+                           "bn": NARROW_BN, "ng_v": NARROW_NG_V}},
+          launches_two_ranks=two_launches)
+    return {k: w1_launches[k] + two_launches[k] for k in two_launches}
 
 
 def lattices_equal(a, b):
@@ -1814,7 +2541,8 @@ def main():
     ng_vs_cpu_phase(dev, den_f)
     del den_f
     egs_dir, egs_graph = egs_phase()
-    _, den_check = trainer_phase(egs_dir, egs_graph, dev)
+    _, den_check, trainer_ref = trainer_phase(egs_dir, egs_graph, dev)
+    dp_launches = data_parallel_phase(egs_dir, graph, trainer_ref, dev)
     hclg_graph, hclg_ll, hclg_offline = decode_hclg_phase(dev)
     decode_tool_phase(egs_dir)
     stream_decode_phase(dev, hclg_graph, hclg_ll, hclg_offline)
@@ -1848,14 +2576,14 @@ def main():
               k["pre_plain_us"] / 1e3, mm_bound["pre"],
               k["pre_library_us"] / 1e3),
         entry("den_scan_fwd", "den_scan.cu", SCAN_REPLACES["fwd"],
-              fused_launches["den_scan_fwd"],
+              fused_launches["den_scan_fwd"] + dp_launches["den_scan_fwd"],
               max(v for errs in (scan["kernel_max_abs_err"],
                                  den_check["scan_max_abs_err"])
                   for n, v in errs.items() if n != "beta_hist"),
               scan["kernel_fwd_ms"], scan["kernel_fwd_plain_ms"],
               scan["fwd_bound"], None),
         entry("den_scan_bwd", "den_scan.cu", SCAN_REPLACES["bwd"],
-              fused_launches["den_scan_bwd"],
+              fused_launches["den_scan_bwd"] + dp_launches["den_scan_bwd"],
               max(scan["kernel_max_abs_err"]["beta_hist"],
                   den_check["scan_max_abs_err"]["beta_hist"]),
               scan["kernel_bwd_ms"], scan["kernel_bwd_plain_ms"],

@@ -17,9 +17,12 @@ Entry points run on the current CUDA device unless given a device
   ops/       hand-written CUDA kernels (csrc/) with their plain versions
   training/  SGD with max-change, loss scaling, orthonormal constraint,
              NG-SGD, train and eval steps, Trainer, checkpoints, schedules
+  parallel/  data parallelism on torch.distributed (NCCL on cards, gloo
+             on the CPU): process groups, global BatchNorm, gradient and
+             NG statistics
   utils/     JSONL metrics, step timing (CUDA events)
   tools/     command-line twins of tools/*.py (train, make_synthetic_egs,
-             chainbench) and profilers
+             chainbench, mpworker, ...) and profilers
   convert.py JAX parameter and training-state trees <-> the port's
 """
 

@@ -8,10 +8,10 @@ Multi-host: `shard_files` splits the ark file list across processes so
 each feeds its own batch shard.
 
 Copy of kaldi_fp16_tpu/io/dataloader.py (numpy only: it never imports
-torch, so ProcessLoader's spawned workers never touch CUDA), without
-MultiPrefetchLoader.  Example order, shuffling and bucketing use the same
-`random.Random` seeds, so for one seed the port's batches equal the JAX
-loader's (tests/test_torch_dataloader.py).  `DataLoader.readers` says
+torch, so ProcessLoader's spawned workers never touch CUDA).  Example
+order, shuffling and bucketing use the same `random.Random` seeds, so
+for one seed the port's batches equal the JAX loader's
+(tests/test_torch_dataloader.py).  `DataLoader.readers` says
 which parser ran ("native" or "python", io/native.py).
 """
 
@@ -292,6 +292,50 @@ class PrefetchLoader:
 
     def summary(self) -> str:
         return getattr(self.loader, "summary", lambda: "")()
+
+
+class MultiPrefetchLoader:
+    """Multi-worker host ingestion: W PrefetchLoaders over round-robin
+    file shards (`shard_files`), merged round-robin, so the batches are
+    deterministic for a fixed file list.  For parse/step overlap and
+    worker-style file sharding; the JAX package's own measurement (its
+    dataloader.py:283-293) found extra threads add no parse rate, because
+    batch assembly holds the GIL: ProcessLoader scales that.  (The JAX
+    loader's first-ready merge, `deterministic=False`, has no caller and
+    is not ported.)"""
+
+    def __init__(self, pattern_or_files, config: DataLoaderConfig,
+                 workers: int = 4, depth: int = 2):
+        if isinstance(pattern_or_files, str):
+            files = sorted(globlib.glob(pattern_or_files))
+        else:
+            files = list(pattern_or_files)
+        if not files:
+            raise FileNotFoundError(f"no ark files match {pattern_or_files!r}")
+        self.workers = max(1, min(workers, len(files)))
+        self.loaders = [DataLoader(shard_files(files, w, self.workers), config)
+                        for w in range(self.workers)]
+        self._prefetchers = [PrefetchLoader(ld, depth=depth)
+                             for ld in self.loaders]
+
+    def __iter__(self):
+        iters = [iter(p) for p in self._prefetchers]
+        live = list(range(self.workers))
+        w = 0
+        while live:
+            i = live[w % len(live)]
+            try:
+                yield next(iters[i])
+                w += 1
+            except StopIteration:
+                live.remove(i)
+
+    def close(self, timeout: float = 5.0) -> None:
+        for p in self._prefetchers:
+            p.close(timeout=max(0.05, timeout / max(1, self.workers)))
+
+    def summary(self) -> str:
+        return " | ".join(ld.summary() for ld in self.loaders)
 
 
 def _process_worker_main(files, config, use_native, q):

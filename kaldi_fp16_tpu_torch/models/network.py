@@ -19,7 +19,10 @@ BatchNorm follows Kaldi BatchNormComponent: batch statistics over
 statistics, target-rms scaling, no learnable scale or offset.  `forward`
 does not write the running statistics: it returns them, and the caller
 commits them with `set_bn_state` (the train step keeps the old ones on a
-skipped, non-finite batch).
+skipped, non-finite batch).  Under a data group (`forward(group=...)`,
+parallel/mesh.py) each rank holds its rows of the batch, and BatchNorm
+takes its statistics over every rank's rows (parallel/data_parallel.py
+`batch_moments`), as the JAX package's sharded step does.
 
 Natural gradient (NG-SGD): with an `NGContext`, the forward records each
 site's matmul input X and registers a hook on the site's fp32
@@ -46,6 +49,9 @@ from kaldi_fp16_tpu_torch.models.layers import (
 )
 from kaldi_fp16_tpu_torch.models.model import Model
 from kaldi_fp16_tpu_torch.models.xconfig import InputType, LayerType
+from kaldi_fp16_tpu_torch.parallel.data_parallel import (
+    batch_moments, spec_rows,
+)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 State = Dict[str, dict]
@@ -162,15 +168,20 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _batchnorm(x: torch.Tensor, st: dict, target_rms: float, epsilon: float,
-               train: bool) -> Tuple[torch.Tensor, dict]:
+               train: bool, group=None) -> Tuple[torch.Tensor, dict]:
     """Kaldi BatchNormComponent: stats over (batch, time), target-rms scale.
-    Returns (normalised x in x.dtype, new running statistics)."""
+    Returns (normalised x in x.dtype, new running statistics).  Under a
+    data group (parallel/mesh.py) the statistics, and the running ones,
+    are those of every rank's rows."""
     xf = x.float()
     if train:
-        mean = xf.mean(dim=(0, 1))
-        var = torch.clamp(xf.var(dim=(0, 1), unbiased=False), min=0.0)
-        with torch.no_grad():
+        if group is None:
+            mean = xf.mean(dim=(0, 1))
+            var = torch.clamp(xf.var(dim=(0, 1), unbiased=False), min=0.0)
             n = float(x.shape[0] * x.shape[1])
+        else:
+            mean, var, n = batch_moments(xf, group)
+        with torch.no_grad():
             old_n = st["count"]
             count = old_n + n
             delta = mean.detach() - st["mean"]
@@ -302,7 +313,7 @@ def ng_sites(model: Model):
 
 def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
                       x: torch.Tensor, train: bool, dtype, ng=None, lname="",
-                      grid_cut=None) -> Tuple[torch.Tensor, dict]:
+                      grid_cut=None, group=None) -> Tuple[torch.Tensor, dict]:
     """Convolution over (time, height).  x: [B, T, H_in * nf_in], filter
     fastest.  Two lowerings, the same math (network.py:321-426):
 
@@ -340,7 +351,7 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
                + p["b"].float())
         out = _site(ng, f"{lname}/w", patch, out)
         out = torch.relu(out).reshape(B, T, H_out * nf_out).to(dtype)
-        return _batchnorm(out, bn, spec.target_rms, 1e-3, train)
+        return _batchnorm(out, bn, spec.target_rms, 1e-3, train, group)
     t_lo, t_hi = -min(t_offs), max(t_offs)
     dilation = (_even_spacing(t_offs), _even_spacing(h_offs))
 
@@ -358,11 +369,12 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
     out = out[:, :, :T, :H_out].float() + p["b"].float()[None, :, None, None]
     out = torch.relu(out).permute(0, 2, 3, 1)          # [B, T, H_out, nf_out]
     out = out.reshape(B, T, H_out * nf_out).to(dtype)  # filter fastest
-    return _batchnorm(out, bn, spec.target_rms, 1e-3, train)
+    return _batchnorm(out, bn, spec.target_rms, 1e-3, train, group)
 
 
 def _fwd_tdnnf(spec: TDNNFSpec, p: dict, bn: dict, x: torch.Tensor,
-               train: bool, dtype, ng=None, lname="") -> Tuple[torch.Tensor, dict]:
+               train: bool, dtype, ng=None, lname="",
+               group=None) -> Tuple[torch.Tensor, dict]:
     """splice[-s,0] -> linear -> splice[0,+s] -> affine -> relu -> bn ->
     bypass (clamped edges)."""
     s = spec.time_stride
@@ -373,7 +385,7 @@ def _fwd_tdnnf(spec: TDNNFSpec, p: dict, bn: dict, x: torch.Tensor,
     out = _matmul(aff_in, p["affine_w"], dtype) + p["affine_b"].float()
     out = _site(ng, f"{lname}/affine_w", aff_in, out)
     out = torch.relu(out).to(dtype)
-    out, new_bn = _batchnorm(out, bn, spec.target_rms, 1e-3, train)
+    out, new_bn = _batchnorm(out, bn, spec.target_rms, 1e-3, train, group)
     if spec.bypass_scale > 0 and spec.input_dim == spec.output_dim:
         # the scale is rounded to the compute dtype first, as in JAX
         out = out + x.new_tensor(spec.bypass_scale, dtype=out.dtype) * x
@@ -628,7 +640,7 @@ class Network(nn.Module):
                 time_subsample: Optional[tuple] = None,
                 spec_masks: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None,
-                ng: Optional[NGContext] = None):
+                ng: Optional[NGContext] = None, group=None):
         """Run the network: ({output_name: [B, T, dim] fp32}, new BN state).
 
         time_subsample=(stride, offset, n_grid) runs every grid-eligible
@@ -644,6 +656,11 @@ class Network(nn.Module):
         ng (an NGContext) collects the natural-gradient sites' inputs and
         output gradients; the convs then take the patch lowering and none
         is cut, as in the JAX package.
+
+        group (a DataGroup, parallel/mesh.py): the batch is this rank's
+        rows of the global batch; BatchNorm takes its statistics over
+        every rank's rows, and masks drawn from `generator` are drawn for
+        the global batch, of which this rank keeps its rows.
         """
         model = self.model
         params = self.params
@@ -712,14 +729,17 @@ class Network(nn.Module):
                 out = _site(ng, f"{layer.name}/w", x, _matmul(x, p["w"], dtype))
             elif t == LayerType.BATCHNORM:
                 out, new_state[layer.name] = _batchnorm(
-                    x, st, s.target_rms, s.epsilon, train)
+                    x, st, s.target_rms, s.epsilon, train, group)
             elif t == LayerType.SPEC_AUGMENT:
                 masks = None
                 if train and spec_masks is not None and layer.name in spec_masks:
                     masks = spec_masks[layer.name]
                 elif train and generator is not None:
-                    masks = spec_augment_masks(s, B, x.shape[1], generator,
-                                               x.device)
+                    world = group.world if group is not None else 1
+                    masks = spec_augment_masks(s, B * world, x.shape[1],
+                                               generator, x.device)
+                    if group is not None:
+                        masks = spec_rows(masks, group)
                 out = x if masks is None else _fwd_spec_augment(x, masks)
             elif t == LayerType.COMBINE_FEATURE_MAPS:
                 out = _fwd_combine_feature_maps(s, x)
@@ -727,26 +747,27 @@ class Network(nn.Module):
                 gc = (g_stride, g_offset, n_grid) if layer.name in cut else None
                 out, new_state[layer.name] = _fwd_conv_relu_bn(
                     s, p, st, x, train, dtype, ng=ng, lname=layer.name,
-                    grid_cut=gc)
+                    grid_cut=gc, group=group)
             elif t == LayerType.TDNNF:
                 out, new_state[layer.name] = _fwd_tdnnf(
-                    s, p, st, x, train, dtype, ng=ng, lname=layer.name)
+                    s, p, st, x, train, dtype, ng=ng, lname=layer.name,
+                    group=group)
             elif t == LayerType.RELU_BATCHNORM:
                 out = _matmul(x, p["w"], dtype) + p["b"].float()
                 out = _site(ng, f"{layer.name}/w", x, out)
                 out = torch.relu(out).to(dtype)
                 out, new_state[layer.name] = _batchnorm(
-                    out, st, s.target_rms, 1e-3, train)
+                    out, st, s.target_rms, 1e-3, train, group)
             elif t == LayerType.PREFINAL:
                 big = _matmul(x, p["big_w"], dtype) + p["big_b"].float()
                 big = _site(ng, f"{layer.name}/big_w", x, big)
                 big = torch.relu(big).to(dtype)
                 big, ns1 = _batchnorm(big, st["bn1"], s.target_rms, 1e-3,
-                                      train)
+                                      train, group)
                 small = _matmul(big, p["small_w"], dtype)
                 small = _site(ng, f"{layer.name}/small_w", big, small).to(dtype)
                 out, ns2 = _batchnorm(small, st["bn2"], s.target_rms, 1e-3,
-                                      train)
+                                      train, group)
                 new_state[layer.name] = {"bn1": ns1, "bn2": ns2}
             elif t == LayerType.OUTPUT:
                 out = _matmul(x, p["w"], dtype) + p["b"].float()

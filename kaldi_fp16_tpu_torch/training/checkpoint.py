@@ -14,6 +14,11 @@ run killed mid-save leaves the previous checkpoints intact.  Restores use
 The JAX `rng_key` becomes `DataPosition.rng_state`, the state of the
 trainer's SpecAugment `torch.Generator` at save time: with it and the
 batches consumed, a resumed run replays the killed one.
+
+Under a data group (parallel/mesh.py) every rank holds the same state:
+rank 0 writes the file and prunes, and every rank waits at a barrier
+until it is in place; every rank restores the whole state onto its own
+device, so a checkpoint written under N ranks restores under M.
 """
 
 from __future__ import annotations
@@ -72,10 +77,11 @@ class CheckpointManager:
     """Numbered checkpoints in one directory, the newest `max_to_keep`
     retained (0: all)."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, group=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.group = group
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.pt")
@@ -83,6 +89,9 @@ class CheckpointManager:
     def save(self, step: int, net, opt_state, scale_state,
              data_pos: DataPosition = DataPosition()) -> None:
         """net: the Network (its parameters and BN statistics)."""
+        if self.group is not None and self.group.rank != 0:
+            self.group.barrier()
+            return
         blob = {
             "format": FORMAT,
             "step": int(step),
@@ -111,6 +120,8 @@ class CheckpointManager:
         if self.max_to_keep:
             for old in self.all_steps()[:-self.max_to_keep]:
                 os.unlink(self.path(old))
+        if self.group is not None:
+            self.group.barrier()
 
     def all_steps(self) -> list:
         """Retained checkpoint steps, ascending."""

@@ -47,6 +47,7 @@ from typing import List, NamedTuple, Sequence
 import torch
 
 from kaldi_fp16_tpu_torch.device import resolve_device
+from kaldi_fp16_tpu_torch.parallel.data_parallel import all_reduce_sum
 
 
 class NGConfig(NamedTuple):
@@ -101,25 +102,46 @@ def _orthonormalize(z: torch.Tensor) -> torch.Tensor:
     return (u * inv_sqrt[..., None, :]) @ u.mT @ z
 
 
+def _means(sums: Sequence[Sequence[torch.Tensor]], xs, group=None):
+    """Per state i, each sums[k][i] / N_i.  Under a data group the sums
+    are every rank's (one all-reduce) and N_i the global count, `world`
+    times this rank's (every rank holds rows of one shape); the division
+    is the single process's, so world 1 gives its bits."""
+    world = 1
+    if group is not None:
+        sums = all_reduce_sum([torch.stack(list(s)) for s in sums], group)
+        world = group.world
+    return [torch.stack([s_i / (x.shape[0] * world) for s_i, x in zip(s, xs)])
+            for s in sums]
+
+
 def fisher_update(states: Sequence[NGState], xs: Sequence[torch.Tensor],
-                  cfg: NGConfig) -> List[NGState]:
+                  cfg: NGConfig, group=None) -> List[NGState]:
     """One online update of each state from its sample matrix xs[i]
     [N_i, D] (states of one shape [R, D]; N may differ).  The x-dependent
-    products run per state, everything else batched over the states."""
+    products run per state, everything else batched over the states.
+
+    Under a data group (parallel/mesh.py) xs[i] are this rank's samples,
+    and the update is that of every rank's: N is the global count, and
+    the sample means (V C and tr C, then B C Bᵀ, which depends on V C)
+    are of every rank's sums, in two all-reduces; the samples never
+    leave their rank."""
     v = torch.stack([s.v for s in states])                    # [S, R, D]
     d = torch.stack([s.d for s in states])                    # [S, R]
     rho = torch.stack([s.rho for s in states])                # [S]
     t = torch.stack([s.t for s in states])
     _, r, dim = v.shape
     dev = v.device
-    n = torch.tensor([float(x.shape[0]) for x in xs], dtype=torch.float32,
-                     device=dev)
+
+    world = 1 if group is None else group.world
+    n = torch.tensor([float(x.shape[0] * world) for x in xs],
+                     dtype=torch.float32, device=dev)
+    # enrichment directions: V C [S, R, D] orthogonalized against V,
+    # row-normalized; tr C beside it
+    y1, tr_c = _means([[(x @ vi.mT).mT @ x for x, vi in zip(xs, v)],
+                       [torch.sum(x * x) for x in xs]], xs, group)
     eta = torch.clamp(n / float(cfg.num_samples_history), 1e-3, 0.9)
     eta3 = eta[:, None, None]
-
-    # enrichment directions: V C orthogonalized against V, row-normalized
-    y1 = torch.stack([((x @ vi.mT).mT @ x) / x.shape[0]
-                      for x, vi in zip(xs, v)])               # V C [S, R, D]
     p = y1 - (y1 @ v.mT) @ v
     pn = torch.sqrt(torch.sum(p * p, dim=-1, keepdim=True))
     p = torch.where(pn > 1e-20, p / torch.clamp(pn, min=1e-30), 0.0)
@@ -127,8 +149,9 @@ def fisher_update(states: Sequence[NGState], xs: Sequence[torch.Tensor],
     q = q - (q @ v.mT) @ v                     # re-orthogonalize vs v
     b = torch.cat([v, q], dim=1)               # [S, 2R, D]
 
-    bcb = torch.stack([(xb.mT @ xb) / x.shape[0]
-                       for x, xb in ((x, x @ bi.mT) for x, bi in zip(xs, b))])
+    (bcb,) = _means([[xb.mT @ xb for xb in (x @ bi.mT
+                                            for x, bi in zip(xs, b))]],
+                    xs, group)
     bvt = b @ v.mT                             # [S, 2R, R]
     bbt = b @ b.mT
     # F' = (1-eta) (Vᵀ d V + rho I) + eta C, projected onto B; d is the
@@ -144,7 +167,6 @@ def fisher_update(states: Sequence[NGState], xs: Sequence[torch.Tensor],
     v_new = _orthonormalize(uu[:, :, :r].mT @ b)
 
     # trace-preserving isotropic residual; tr F = sum(d) + rho*dim
-    tr_c = torch.stack([torch.sum(x * x) / x.shape[0] for x in xs])
     tr_f = (1.0 - eta) * (torch.sum(d, dim=-1) + rho * dim) + eta * tr_c
     rho_new = (tr_f - torch.sum(c_top, dim=-1)) / max(1, dim - r)
     # rho floor: epsilon absolute, delta relative to the top eigenvalue

@@ -28,6 +28,17 @@ skipped, whether the orthonormal constraint is due and, with NG, the
 sites' update counters, in one transfer.  NG's eigensolves run only on
 the steps where a counter is due (every 4th), batched over the sites of
 one shape (training/natural_gradient.py).
+
+Data parallel (`group`, a DataGroup of parallel/mesh.py): the batch is
+this rank's rows of the global batch, and each global reduction of the
+JAX package's sharded step is a collective here (parallel/
+data_parallel.py): BatchNorm's statistics, the SpecAugment masks drawn
+for the global batch, the gradients (one all-reduce with the reported
+sums and the non-finite count, before the finiteness check and NG), and
+NG's sample statistics.  The objective is a plain sum over sequences, so
+the summed gradient is the full batch's; every rank then holds the same
+bits and takes the same update, skip and loss scale.  group=None is the
+single-process step.
 """
 
 from __future__ import annotations
@@ -49,6 +60,9 @@ from kaldi_fp16_tpu_torch.models.network import (
     grid_layers, ng_sites, trainable_mask,
 )
 from kaldi_fp16_tpu_torch.models.xconfig import LayerType
+from kaldi_fp16_tpu_torch.parallel.data_parallel import (
+    all_reduce_grads, all_reduce_sum,
+)
 from kaldi_fp16_tpu_torch.training.loss_scale import (
     grads_finite, init_loss_scale, tree_leaves, tree_map, unscale_grads,
     update_loss_scale,
@@ -98,6 +112,7 @@ class TrainStepOutput(NamedTuple):
     loss_scale: torch.Tensor
     skipped: torch.Tensor
     ok: torch.Tensor
+    weight_frames: torch.Tensor   # sum of weights * supervision frames
 
 
 def _compute_dtype(config: TrainConfig):
@@ -156,12 +171,26 @@ def _site_samples(site, x: torch.Tensor, dtype) -> torch.Tensor:
     return x2
 
 
+def _site_derivs(site, xs, gs, dtype) -> torch.Tensor:
+    """A site's output-derivative sample matrix [N, out_dim]: zeros where
+    the site has no path to the loss (the xent head at xent_regularize
+    0), as the gradient of the JAX package's zero tap is there."""
+    g = gs.get(site["name"])
+    if g is None:
+        x = xs[site["name"]]
+        return torch.zeros((x[..., 0].numel(), site["out_dim"]),
+                           dtype=dtype, device=x.device)
+    return g.to(dtype).reshape(-1, g.shape[-1])
+
+
 def update_ng_states(sites, ng_states, xs, gs, counters, cfg_in: NGConfig,
-                     cfg_out: NGConfig):
+                     cfg_out: NGConfig, group=None):
     """One NG update call of every site's two states from this batch's
     inputs xs and output derivatives gs.  counters[(site, side)] is the
     state's counter read on the host: due states fold in their samples,
-    batched per state shape; the others only advance their counter."""
+    batched per state shape; the others only advance their counter.
+    Under a data group the samples are this rank's, the statistics every
+    rank's (fisher_update)."""
     new = {nm: dict(st) for nm, st in ng_states.items()}
     groups: Dict[tuple, list] = {}
     for site in sites:
@@ -179,12 +208,11 @@ def update_ng_states(sites, ng_states, xs, gs, counters, cfg_in: NGConfig,
         states = [ng_states[site["name"]][side] for site, side in members]
         dtype = states[0].v.dtype
         samples = [_site_samples(site, xs[site["name"]], dtype)
-                   if side == "in"
-                   else gs[site["name"]].to(dtype).reshape(
-                       -1, gs[site["name"]].shape[-1])
+                   if side == "in" else _site_derivs(site, xs, gs, dtype)
                    for site, side in members]
         for (site, side), st in zip(members,
-                                    fisher_update(states, samples, cfg)):
+                                    fisher_update(states, samples, cfg,
+                                                  group)):
             new[site["name"]][side] = st
         del samples
     return new
@@ -222,7 +250,7 @@ def make_train_step(model: Model, net: Network,
                     num_graph: Optional[NumeratorGraphBatch] = None,
                     chain_opts: ChainTrainingOpts = ChainTrainingOpts(),
                     config: TrainConfig = TrainConfig(),
-                    num_frames_out: Optional[int] = None):
+                    num_frames_out: Optional[int] = None, group=None):
     """Build step(opt_state, scale_state, batch, generator=None,
     spec_masks=None, lr=None, num_graph=None, left_context=None) ->
     (opt_state, scale_state, TrainStepOutput) for one batch geometry.
@@ -233,6 +261,8 @@ def make_train_step(model: Model, net: Network,
     generator draws the SpecAugment masks (or spec_masks gives them).
     num_graph / left_context given to a call override the ones of the
     step (the numerator graph of that batch, its supervision offset).
+    group: a DataGroup; batch and num_graph are then this rank's rows,
+    and the outputs are the global batch's (see the module docstring).
     """
     hyper = layer_hyperparams(model)
     dtype = _compute_dtype(config)
@@ -278,7 +308,7 @@ def make_train_step(model: Model, net: Network,
         outs, new_state = net(feats, ivecs, train=True, compute_dtype=dtype,
                               time_subsample=time_subsample,
                               spec_masks=spec_masks, generator=generator,
-                              ng=ng)
+                              ng=ng, group=group)
         out = pick_frames(outs[chain_head_name].float(),
                           chain_head_name in grid)
         objf, result, num_post = objf_fn(out, weights, dws_arg)
@@ -307,8 +337,25 @@ def make_train_step(model: Model, net: Network,
             grads = unscale_grads(grads, scale_state)
             gs = unscale_grads(gs, scale_state)
 
+        total_objf, total_weight = result.total_objf, result.total_weight
+        num_lp, den_lp = result.num_logprob.mean(), result.den_logprob.mean()
+        ok = result.ok.all()
+        if group is not None:
+            # the global batch's gradients and sums, in one all-reduce; the
+            # ranks hold equal rows, so the means are the ranks' means'
+            # mean (at world 1, the single process's bits)
+            w = 1.0 / group.world
+            grads, tot, nonfinite = all_reduce_grads(grads, [
+                loss, total_objf, total_weight, num_lp * w, den_lp * w,
+                xent_objf.detach(), (~result.ok).sum()], group)
+            loss, total_objf, total_weight, num_lp, den_lp, xent_objf = \
+                tot[:6]
+            ok = tot[6] == 0
+
         # finiteness is judged on the raw grads
         finite = grads_finite(grads)
+        if group is not None:
+            finite = finite & (nonfinite == 0)
         if config.use_loss_scaling:
             new_scale_state, skip = update_loss_scale(scale_state, finite)
         else:
@@ -329,7 +376,7 @@ def make_train_step(model: Model, net: Network,
         if sites:
             new_ng = opt_state["ng"] if skip_host else update_ng_states(
                 sites, opt_state["ng"], ng.xs, gs,
-                dict(zip(keys, flags[2:])), ng_cfg_in, ng_cfg_out)
+                dict(zip(keys, flags[2:])), ng_cfg_in, ng_cfg_out, group)
             del ng, gs
             grads = apply_natural_gradient(model, sites, new_ng, grads,
                                            ng_cfg_in)
@@ -359,15 +406,16 @@ def make_train_step(model: Model, net: Network,
 
         return new_opt_state, new_scale_state, TrainStepOutput(
             loss=loss,
-            objf_per_frame=result.objf_per_frame,
-            num_logprob=result.num_logprob.mean(),
-            den_logprob=result.den_logprob.mean(),
+            objf_per_frame=total_objf / total_weight,
+            num_logprob=num_lp,
+            den_logprob=den_lp,
             xent_objf=xent_objf.detach(),
             param_change_norm=stats["param_change_norm"],
             grad_norm=grad_norm,
             loss_scale=new_scale_state.scale,
             skipped=skip,
-            ok=result.ok.all(),
+            ok=ok,
+            weight_frames=total_weight,
         )
 
     return step
@@ -414,13 +462,15 @@ class EvalStepOutput(NamedTuple):
 def make_eval_step(model: Model, net: Network, den: DenominatorComputation,
                    chain_opts: ChainTrainingOpts = ChainTrainingOpts(),
                    config: TrainConfig = TrainConfig(),
-                   num_frames_out: Optional[int] = None):
+                   num_frames_out: Optional[int] = None, group=None):
     """Held-out diagnostic step, the `nnet3-chain-compute-prob` analog:
     eval-mode forward (running BN statistics, no SpecAugment), the chain
     objective, no derivative, no update.
 
     eval_step(batch, num_graph, left_context=None) -> EvalStepOutput, with
-    num/den weighted by the per-sequence weights objf uses."""
+    num/den weighted by the per-sequence weights objf uses.  group: a
+    DataGroup; the batch is this rank's rows, the outputs the global
+    batch's (one all-reduce)."""
     dtype = _compute_dtype(config)
     xent_regularize = config.xent_regularize or chain_opts.xent_regularize
     chain_head_name = model.chain_output().name
@@ -447,13 +497,17 @@ def make_eval_step(model: Model, net: Network, den: DenominatorComputation,
                                xent_layer.name in grid)
             xent = xent * dws_arg[:, :, None]
             xent_objf = torch.sum(weights[:, None, None] * num_post * xent)
-        w_tot = torch.clamp(torch.sum(weights), min=1e-8)
+        tot = torch.stack([
+            result.total_objf, result.total_weight, torch.sum(weights),
+            torch.sum(weights * result.num_logprob),
+            torch.sum(weights * result.den_logprob), xent_objf,
+            (~result.ok).sum().float()]).float()
+        if group is not None:
+            (tot,) = all_reduce_sum([tot], group)
+        w_tot = torch.clamp(tot[2], min=1e-8)
         return EvalStepOutput(
-            objf_per_frame=result.objf_per_frame,
-            num_logprob=torch.sum(weights * result.num_logprob) / w_tot,
-            den_logprob=torch.sum(weights * result.den_logprob) / w_tot,
-            xent_objf=xent_objf,
-            weight_frames=torch.sum(weights) * n_out,
-            ok=result.ok.all())
+            objf_per_frame=tot[0] / tot[1], num_logprob=tot[3] / w_tot,
+            den_logprob=tot[4] / w_tot, xent_objf=tot[5],
+            weight_frames=tot[2] * n_out, ok=tot[6] == 0)
 
     return eval_step

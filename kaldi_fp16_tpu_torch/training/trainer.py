@@ -3,7 +3,8 @@
 Port of kaldi_fp16_tpu/training/trainer.py (`exponential_lr` :31,
 `TrainerMetrics` :43, `Trainer` :58-323): exponential LR decay, metric
 aggregation, eval passes and checkpoint restore over ChainBatches from
-io/dataloader.py, on one device (default: the current CUDA device).
+io/dataloader.py, on one device per rank (default: the current CUDA
+device).
 
 On a card the loop overlaps uploads with compute: `place_batch` copies a
 batch from pinned host buffers with non_blocking copies on a side
@@ -22,6 +23,13 @@ the device seeded with `seed`; its state is what a checkpoint records
 also needs cudnn.deterministic (the direct conv's weight gradient may
 otherwise take a nondeterministic algorithm), which the caller sets:
 tools/train.py does so around its run.
+
+Data parallel (`group`, a DataGroup of parallel/mesh.py; the JAX
+Trainer's `mesh`, trainer.py:67-140 there): the state starts as rank 0's
+(broadcast), each batch is the global batch and `place_batch` uploads
+only this rank's rows (shard_batches=False: each rank's batches are its
+own, e.g. read from its file shard), and the steps' outputs, the metrics
+and the eval pass are the global batch's.
 """
 
 from __future__ import annotations
@@ -39,6 +47,9 @@ from kaldi_fp16_tpu_torch.chain.objective import ChainTrainingOpts
 from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.io.batch import ChainBatch
 from kaldi_fp16_tpu_torch.models.model import Model
+from kaldi_fp16_tpu_torch.parallel.data_parallel import (
+    broadcast_train_state, shard_chain_batch,
+)
 from kaldi_fp16_tpu_torch.training.train_step import (
     EvalStepOutput, TrainConfig, TrainStepOutput, init_train_state,
     make_eval_step, make_train_step,
@@ -76,14 +87,18 @@ class TrainerMetrics:
 
 
 class Trainer:
-    """Drives train and eval steps over ChainBatches on one device."""
+    """Drives train and eval steps over ChainBatches on one device (per
+    rank of `group`)."""
 
     def __init__(self, model: Model, den: DenominatorComputation,
                  config: TrainConfig = TrainConfig(),
                  chain_opts: ChainTrainingOpts = ChainTrainingOpts(),
                  lr_schedule: Optional[Callable[[int], float]] = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, group=None,
+                 shard_batches: bool = True):
         self.device = resolve_device(device)
+        self.group = group
+        self.shard_batches = shard_batches
         self._cuda = self.device.type == "cuda"
         self.model = model
         self.den = den
@@ -97,6 +112,9 @@ class Trainer:
         # one on the CPU start from the same parameters
         self.net, self.opt_state, self.scale_state = init_train_state(
             model, torch.Generator().manual_seed(seed), config, self.device)
+        if group is not None:
+            broadcast_train_state(self.net, self.opt_state, self.scale_state,
+                                  group)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.global_step = 0
         self._copy_stream = (torch.cuda.Stream(device=self.device)
@@ -130,12 +148,20 @@ class Trainer:
                 f"bad bucket geometry: left_context={batch.left_context} + "
                 f"(n_out={batch.frames_per_seq}-1)*stride={stride}+1 needs "
                 f"{need} input frames but features have T_in={T_in}")
+        if (self.group is not None and self.shard_batches
+                and batch.batch_size % self.group.world):
+            raise ValueError(
+                f"batch {batch.batch_size} not divisible by the data "
+                f"group's {self.group.world} ranks (drop the remainder)")
 
     def place_batch(self, batch: ChainBatch):
         """Upload a batch's arrays and numerator graph to the device
         without running a step, so a loop can upload batch i+1 while step
-        i runs.  Returns (arrays, num_graph) of device tensors."""
+        i runs.  Returns (arrays, num_graph) of device tensors; under a
+        data group, of this rank's rows."""
         self._validate_geometry(batch)
+        if self.group is not None and self.shard_batches:
+            batch = shard_chain_batch(batch, self.group)
         host = dict(batch.arrays())
         if batch.deriv_weights is not None:
             host["deriv_weights"] = batch.deriv_weights
@@ -174,7 +200,8 @@ class Trainer:
         if key not in self._steps:
             self._steps[key] = make_train_step(
                 self.model, self.net, self.den, None, self.chain_opts,
-                self.config, num_frames_out=batch.frames_per_seq)
+                self.config, num_frames_out=batch.frames_per_seq,
+                group=self.group)
         return self._steps[key]
 
     def train_batch(self, batch: ChainBatch, placed=None) -> TrainStepOutput:
@@ -199,12 +226,14 @@ class Trainer:
         self.global_step += 1
         m = self._metrics
         m.steps += 1
-        m.examples += batch.batch_size
-        # chain objective only (out.loss also folds in the xent term)
-        w_frames = float(np.sum(np.asarray(batch.weights))) \
-            * batch.frames_per_seq
+        m.examples += batch.batch_size * (
+            self.group.world if self.group is not None
+            and not self.shard_batches else 1)
+        # chain objective only (out.loss also folds in the xent term);
+        # the global batch's weighted frames
         self._pending.append(
-            (out.objf_per_frame, out.xent_objf, out.skipped, w_frames))
+            (out.objf_per_frame, out.xent_objf, out.skipped,
+             out.weight_frames))
         m.step_seconds += dt
         return out
 
@@ -214,13 +243,12 @@ class Trainer:
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        vals = torch.stack([torch.stack([p[0].float(), p[1].float(),
-                                         p[2].float()])
+        vals = torch.stack([torch.stack([x.float() for x in p])
                             for p in pending]).tolist()
         m = self._metrics
-        for (objf_pf, xent, skipped), p in zip(vals, pending):
-            m.total_objf += objf_pf * p[3]
-            m.total_weight += p[3]
+        for objf_pf, xent, skipped, w_frames in vals:
+            m.total_objf += objf_pf * w_frames
+            m.total_weight += w_frames
             m.total_xent += xent
             m.skipped_steps += int(skipped != 0)
 
@@ -237,7 +265,7 @@ class Trainer:
         if key not in self._steps:
             self._steps[key] = make_eval_step(
                 self.model, self.net, self.den, self.chain_opts, self.config,
-                num_frames_out=batch.frames_per_seq)
+                num_frames_out=batch.frames_per_seq, group=self.group)
         placed = self.place_batch(batch)
         self._consume(placed)
         arrays, graph = placed

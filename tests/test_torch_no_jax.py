@@ -12,9 +12,10 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# the production loop's, the decoding path's and the serving path's modules
-# (data path, NG-SGD, trainer, checkpoint, decoders, streaming, tools): each
-# must be among the modules the script imports
+# the production loop's, the decoding path's, the serving path's and the
+# data-parallel path's modules (data path, NG-SGD, trainer, checkpoint,
+# decoders, streaming, process groups, tools): each must be among the
+# modules the script imports
 REQUIRED = [
     "kaldi_fp16_tpu_torch.io." + m for m in (
         "kaldi_io", "fst", "matrix", "egs", "native", "batch", "dataloader")
@@ -26,6 +27,8 @@ REQUIRED = [
         "graph", "viterbi", "lattice", "lm", "wer", "device_viterbi",
         "streaming")
 ] + [
+    "kaldi_fp16_tpu_torch.parallel.mesh",
+    "kaldi_fp16_tpu_torch.parallel.data_parallel",
     "kaldi_fp16_tpu_torch.utils.metrics", "kaldi_fp16_tpu_torch.utils.profiling",
     "kaldi_fp16_tpu_torch.tools.train",
     "kaldi_fp16_tpu_torch.tools.decode",
@@ -35,6 +38,8 @@ REQUIRED = [
     "kaldi_fp16_tpu_torch.tools.make_synthetic_egs",
     "kaldi_fp16_tpu_torch.tools.profile_step",
     "kaldi_fp16_tpu_torch.tools.ng_precision",
+    "kaldi_fp16_tpu_torch.tools.mpworker",
+    "kaldi_fp16_tpu_torch.tools.dryrun_multichip",
 ]
 
 SCRIPT = """

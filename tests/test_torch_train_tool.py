@@ -8,12 +8,16 @@
 * `python -m kaldi_fp16_tpu_torch.tools.train` end to end with
   `--device cpu`: configs/train_flagship.sh's flags parse unchanged, and a
   run killed after a checkpoint and resumed replays the uninterrupted one
-  bit for bit.
+  bit for bit; so does a run on 2 gloo ranks (`--data-parallel 2`),
+  whose first step equals one process's.
 """
 
+import os
 import re
 import shlex
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -171,9 +175,114 @@ def test_flagship_flags_parse_unchanged():
     assert args.xent_regularize == 0.1 and args.orthonormal_interval == 4
     assert args.device is None and args.l2_regularize == 5e-5
     assert re.search(r"cnn_tdnn\.xconfig$", args.xconfig)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        train.main(["--egs", "e", "--den-fst", "d", "--xconfig", "x",
-                    "--pdfs", "3", "--data-parallel", "2"])
+    assert args.data_parallel == 0
+    assert train.parse_args(["--egs", "e", "--den-fst", "d", "--xconfig", "x",
+                             "--pdfs", "3", "--data-parallel", "2"]
+                            ).data_parallel == 2
+
+
+@pytest.fixture(scope="module")
+def dp_full(egs, tmp_path_factory):
+    """The recipe at tiny width on 2 gloo ranks (--data-parallel 2
+    --device cpu), checkpoints every 3 steps."""
+    from kaldi_fp16_tpu_torch.tools import train
+    d = tmp_path_factory.mktemp("dp")
+    return d, train.main(tool_args(egs, d / "full", ["--data-parallel", "2"]))
+
+
+def test_train_tool_data_parallel_matches_one_process(egs, dp_full,
+                                                      tmp_path):
+    """--data-parallel 2 --device cpu against one process at the same
+    global batch: the first step, before any update, equal at rtol 1e-5
+    (the global batch's forward, BatchNorm statistics and objective
+    through 2 ranks).  --data-parallel 1 (one gloo rank, every collective
+    run) is the single process's run bit for bit: the data group's
+    BatchNorm merge and reported means reduce to torch.mean's and
+    torch.var's bits at world 1.  Later steps of 2 ranks are not held to
+    the single process: each rank's bf16 weight gradients are rounded
+    before they are summed (the fp32 parity of 2 and 4 ranks is
+    tests/test_torch_parallel.py's).  Rank 1's steps equal rank 0's, and
+    the tool holds the ranks' parameters bit-identical."""
+    from kaldi_fp16_tpu_torch.tools import train
+    one = train.main(tool_args(egs, tmp_path / "one"))
+    world1 = train.main(tool_args(egs, tmp_path / "w1",
+                                  ["--data-parallel", "1"]))
+    two = dp_full[1]
+    names = ("loss", "objf_per_frame", "num", "den", "grad_norm")
+    assert [s["step"] for s in world1["steps"]] == list(range(1, 9))
+    assert [[s[k] for k in names] for s in world1["steps"]] == \
+        [[s[k] for k in names] for s in one["steps"]]
+    assert world1["param_digest"] == train.state_digest(
+        one["trainer"].net.state_dict())
+    for k in names[:4]:
+        np.testing.assert_allclose(two["steps"][0][k], one["steps"][0][k],
+                                   rtol=1e-5, err_msg=k)
+    assert len(two["steps"]) == len(one["steps"]) == 8
+    assert all(s["ok"] and not s["skipped"] and np.isfinite(s["loss"])
+               for s in two["steps"])
+    assert two["ranks"][0]["steps"] == two["steps"]
+    # the gradient bucket at least: every parameter in fp32
+    n_params = sum(p.numel() for p in two["trainer"].net.parameters())
+    assert all(s["collectives"] > 0 and s["collective_bytes"] >= 4 * n_params
+               for s in two["steps"])
+
+
+def test_train_tool_under_torchrun_reads_file_shards(egs, tmp_path):
+    """Two processes started as torchrun starts them (RANK, LOCAL_RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT set): each is one gloo rank
+    and reads its share of the two files (`shard_files`), 2 examples per
+    batch of 4; both take the same 8 steps and end with the same
+    parameters (the tool checks, over the group)."""
+    from kaldi_fp16_tpu_torch.parallel.mesh import free_address
+    host, port = free_address()[len("tcp://"):].rsplit(":", 1)
+    procs = []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE="2", MASTER_ADDR=host, MASTER_PORT=port,
+                       PYTHONPATH=str(ROOT))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "kaldi_fp16_tpu_torch.tools.train"]
+                + tool_args(egs, tmp_path, ["--data-parallel", "2"]),
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    assert "2 of every 4 sequences per rank, files sharded per rank" \
+        in outs[0][0]
+    assert "done: 8 steps" in outs[0][0]
+    for rank, (out, _) in enumerate(outs):
+        assert f"rank {rank}/2 on cpu: 2 sequences per step" in out
+    assert sorted(p.name for p in tmp_path.glob("ckpt_*.pt")) == \
+        ["ckpt_3.pt", "ckpt_6.pt", "ckpt_8.pt"]
+
+
+def test_train_tool_data_parallel_refuses_what_it_cannot_run(egs, tmp_path):
+    from kaldi_fp16_tpu_torch.tools import train
+    with pytest.raises(SystemExit, match="does not divide"):
+        train.main(tool_args(egs, tmp_path, ["--data-parallel", "3"]))
+    with pytest.raises(SystemExit, match="counts cards"):
+        train.main(tool_args(egs, tmp_path, ["--data-parallel", "-1"]))
+
+
+def test_train_tool_data_parallel_resume_replays_bit_for_bit(egs, dp_full):
+    """2 ranks killed after the step-3 checkpoint and resumed on 2 ranks
+    end as the uninterrupted 2-rank run, bit for bit."""
+    from kaldi_fp16_tpu_torch.tools import train
+    d, full = dp_full
+    (d / "killed").mkdir()
+    shutil.copy(d / "full" / "ckpt_3.pt", d / "killed")
+    resumed = train.main(tool_args(egs, d / "killed",
+                                   ["--data-parallel", "2", "--resume"]))
+    assert [s["step"] for s in resumed["steps"]] == list(range(4, 9))
+    assert [s["loss"] for s in resumed["steps"]] == \
+        [s["loss"] for s in full["steps"][3:]]
+    assert resumed["param_digest"] == full["param_digest"]
 
 
 def test_train_tool_resume_replays_bit_for_bit(egs, tmp_path):

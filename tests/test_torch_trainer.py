@@ -155,10 +155,11 @@ def ng_pair():
         port_graph.make_phone_lm_den_fst(**DEN_KW), P), leaky=1e-5,
         device="cpu")
     return dict(jm=jm, pm=pm, jstep=jstep, jstate0=jstate0, pden=pden,
-                num_graph=port_graph.build_numerator_batch(csrs), batch=batch)
+                num_graph=port_graph.build_numerator_batch(csrs), batch=batch,
+                jden=jden, jgraph=jax_graph.build_numerator_batch(csrs))
 
 
-def port_from_jax(pair, jstate, per_call_graph=False):
+def port_from_jax(pair, jstate, per_call_graph=False, cfg=NG_CFG):
     """The port's network, step and states at a JAX training state."""
     pm = pair["pm"]
     net = port_net.Network(pm, torch.Generator().manual_seed(0), "cpu")
@@ -167,7 +168,7 @@ def port_from_jax(pair, jstate, per_call_graph=False):
     step = port_ts.make_train_step(
         pm, net, pair["pden"],
         None if per_call_graph else pair["num_graph"], ChainTrainingOpts(),
-        port_ts.TrainConfig(**NG_CFG), num_frames_out=T_OUT)
+        port_ts.TrainConfig(**cfg), num_frames_out=T_OUT)
     if per_call_graph:
         inner = step
 
@@ -245,6 +246,26 @@ def test_ng_non_finite_batch_skips_and_keeps_ng_state(ng_pair):
         fb, fa = _flat(b), _flat(a)
         for k in fb:
             np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
+
+
+def test_ng_step_with_an_unused_xent_head_matches_jax(ng_pair):
+    """NG-SGD at xent_regularize 0 on a model with an xent head (bench.py's
+    step on the flagship model): the head's sites have no path to the
+    loss, and their output-derivative samples are zeros, as the gradient
+    of the JAX package's tap is there."""
+    cfg = dict(NG_CFG, xent_regularize=0.0)
+    jstep = jax_ts.make_train_step(
+        ng_pair["jm"], ng_pair["jden"], ng_pair["jgraph"], JaxOpts(),
+        jax_ts.TrainConfig(**cfg), num_frames_out=T_OUT, donate=False)
+    jstate = list(ng_pair["jstate0"])
+    _, pstep, opt, scale = port_from_jax(ng_pair, jstate, cfg=cfg)
+    *jnew, jout = jstep(*jstate, {k: jnp.asarray(v) for k, v in
+                                  ng_pair["batch"].items()},
+                        jax.random.PRNGKey(1))
+    opt, _, pout = pstep(opt, scale, {k: torch.from_numpy(v) for k, v in
+                                      ng_pair["batch"].items()})
+    assert_outputs_close(pout, jout)
+    assert_ng_states_close(opt["ng"], tree_np(jnew[2])["ng"])
 
 
 IRREGULAR = """
