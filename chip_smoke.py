@@ -16,9 +16,12 @@ configs/train_flagship.sh's flags (NG-SGD, the xent head, loss scaling,
 the orthonormal constraint, checkpoints) at B = 128, killed and resumed;
 the same with --data-parallel 1, bench.py's step on two data-parallel
 ranks sharing the card, and the multi-process tools on the card.
-Then decoding: offline at HCLG scale and through `tools.decode`; online
-through the streaming decoders and the streaming encoder; and the closed
-accuracy loop of `tools.synthwer` (train, then decode to words).
+Then decoding: offline at HCLG scale and through `tools.decode`; the
+trained network handed to Kaldi's nnet3 formats and back, and decoded
+through `tools.decode --model`; online through the streaming decoders and
+the streaming encoder; the flagship with a restricted-attention layer,
+trained and streamed; and the closed accuracy loop of `tools.synthwer`
+(train, then decode to words).
 Phases, one line of numbers each:
 
   1. device          the card (nvidia-smi name and power limit); TF32 off
@@ -104,7 +107,19 @@ Phases, one line of numbers each:
                      HCLG-shaped graph written as an OpenFst file: every
                      utterance final, the lattices' 1-best equal to the
                      Viterbi words; the utterance count and wall seconds
- 18. stream_decode   streaming decoding at decode_hclg's HCLG scale and
+ 18. kaldi_model     the trainer phase's network (its step-8 checkpoint)
+                     exported to nnet3 text and a binary .raw by
+                     models/kaldi_loader.py, each loaded into a network of
+                     another seed: parameters and BN buffers (counts as
+                     max(count, 1)) and the fp32 and bf16 eval forwards
+                     equal the source's bit for bit; tools.modeltools info,
+                     copy text -> binary -> text, compare (0); tools.loadtest
+                     round trip (bit for bit) and --model on the .raw;
+                     tools.decode --on-device --model on the .raw, the
+                     decode_tool phase's cegs file and graph: the words of
+                     the network in memory, utterance for utterance;
+                     seconds of export, parse, binary write, loads, MB
+ 19. stream_decode   streaming decoding at decode_hclg's HCLG scale and
                      loglikes: the incremental decoder fed 16 frames at a
                      time and in a ragged 5, 7, 12 schedule, and the
                      windowed decoder at window >= T, equal to the offline
@@ -113,17 +128,28 @@ Phases, one line of numbers each:
                      every feed, utterances equal to offline counted, peak
                      memory over what the phase holds at T = 500 and 1000);
                      tools.streambench's decode-only rows
- 19. stream_encode   the streaming encoder on the flagship network (random
+ 20. stream_encode   the streaming encoder on the flagship network (random
                      weights, seed 0, 100-dim ivectors, B = 8) at chunk_out
                      6, 16 and 32: fp32 against its offline_reference and
                      across chunk sizes, bf16 against its own oracle;
                      tools.streambench's encoder and pipeline rows
- 20. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
+ 21. attention       the flagship with attention1 (15 heads, value 80, key
+                     40, context 5 + 1 + 2 at time-stride 3) after tdnnf21,
+                     16,271,624 parameters: bench.py's step with the
+                     default den, 1 warm-up + 3 timed, twice, in turns
+                     with the flagship's (flagship, attention, attention,
+                     flagship), 1 + 1 den_scan launches per step, ms
+                     beside the flagship's and train_fused's, peak
+                     memory; a narrow fp32 attention step on the card
+                     against the CPU (rtol 2e-4 / atol 2e-5 scalars, 1e-4 /
+                     1e-5 parameters); the streaming encoder (B = 8,
+                     chunk_out 16, fp32) against its offline reference
+ 22. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
                      and rescoring run of the JAX evidence: ok, the WER
                      trajectory, den_matmul launches (its den has L = 1,
                      F = 81: loop scans), the first batch's den against
                      the same den through plain matmuls
- 21. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 23. summary         the kernels' JSON line, then {"ok": true, "device": ...}
 
 small_step_vs_cpu also holds a narrow NG step (patch-lowered convs) on
 the card against the CPU.
@@ -194,9 +220,16 @@ from kaldi_fp16_tpu_torch.parallel.mesh import free_address, spawn_ranks
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
     segment_order, segment_order_plain, segment_reduce, segment_reduce_plain,
 )
+from kaldi_fp16_tpu_torch.io.nnet3_binary import (
+    Nnet3Model, components_from_text, write_nnet3,
+)
+from kaldi_fp16_tpu_torch.models.kaldi_loader import (
+    export_network_text, load_into_network, parse_nnet3_text,
+)
 from kaldi_fp16_tpu_torch.tools import (
-    decode as decode_tool, decodebench, dryrun_multichip, make_synthetic_egs,
-    mpworker, ng_precision, streambench, synthwer,
+    decode as decode_tool, decodebench, dryrun_multichip, loadtest,
+    make_synthetic_egs, modeltools, mpworker, ng_precision, streambench,
+    synthwer,
 )
 from kaldi_fp16_tpu_torch.tools.dryrun_multichip import run_setup
 from kaldi_fp16_tpu_torch.tools.profile_step import (
@@ -305,6 +338,19 @@ DP_JOIN_S = 600
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, ibid.
 FLUSH_BYTES = 128 << 20          # > the 50 MB L2
+# the model of the attention phase: the flagship with one restricted
+# attention layer after tdnnf21, at the head and context widths of Kaldi's
+# restricted-attention xconfig recipes; its narrow twin for the card-vs-CPU
+# step, held at tests/test_torch_train_step.py's scalar bars (and its
+# parameter bars, SMALL_RTOL / 1e-5)
+ATTENTION_LAYER = ("attention-relu-batchnorm-layer name=attention1 "
+                   "num-heads=15 value-dim=80 key-dim=40 num-left-inputs=5 "
+                   "num-right-inputs=2 time-stride=3")
+SMALL_ATTENTION_LAYER = ("attention-relu-batchnorm-layer name=attention1 "
+                         "num-heads=3 value-dim=6 key-dim=4 num-left-inputs=5 "
+                         "num-right-inputs=2 time-stride=3")
+ATTENTION_SIZE = (16_271_624, (63, 54))      # parameters, time context
+ATTENTION_SCALAR = dict(rtol=2e-4, atol=2e-5)
 # the flagship's layer types at narrow widths (tests/test_torch_train_step.py)
 SMALL_XCONFIG = """
 input name=ivector dim=10
@@ -868,11 +914,16 @@ def small_step_phase(dev):
     phase("small_step_vs_cpu", **result)
 
 
-def small_step_pair(dev, natural_gradient):
+def small_step_pair(dev, natural_gradient, xconfig=SMALL_XCONFIG,
+                    scalar_tol=None):
+    """Two fp32 steps of `xconfig` on the card and on the CPU; the losses,
+    grad and update norms within `scalar_tol` (default rtol SMALL_RTOL),
+    every parameter within rtol SMALL_RTOL / atol 1e-5."""
+    scalar_tol = scalar_tol or dict(rtol=SMALL_RTOL)
     n_seq, t_in, n_pdfs = 4, 30, 24
     t_out = (t_in - LEFT + STRIDE - 1) // STRIDE
     rng = np.random.default_rng(5)
-    model = build_model_from_string(SMALL_XCONFIG)
+    model = build_model_from_string(xconfig)
     graph = DenominatorGraph.from_fst(
         make_phone_lm_den_fst(n_pdfs, 13, 2, 4, seed=3), n_pdfs)
     num_graph = bench_num_graph(n_seq, t_out, 2 * t_out, n_pdfs, rng)
@@ -901,7 +952,7 @@ def small_step_pair(dev, natural_gradient):
     for name in ("loss", "grad_norm", "param_change_norm"):
         a = float(getattr(outs["card"], name))
         r = float(getattr(outs["cpu"], name))
-        np.testing.assert_allclose(a, r, rtol=SMALL_RTOL, err_msg=name)
+        np.testing.assert_allclose(a, r, **scalar_tol, err_msg=name)
         worst[name] = abs(a - r) / abs(r)
     for lname, p in params["cpu"].items():
         for pname, w in p.items():
@@ -912,12 +963,15 @@ def small_step_pair(dev, natural_gradient):
             "loss": float(outs["card"].loss), "rel_diff": worst}
 
 
-def train_phase(dev, den, name, counters, per_step, check_den=None):
-    """1 warm-up + 5 timed flagship steps.  counters: {kernel name: object
-    with a `launches` count}; each count is set to 0 before the steps and
-    must grow by per_step[name] in every step.  check_den: another den
-    that each step's den input is run through afterwards, to hold `den`
-    against it on the nnet outputs that training produced."""
+def train_phase(dev, den, name, counters, per_step, check_den=None,
+                xconfig=None, steps=6):
+    """1 warm-up + (steps - 1) timed steps of bench.py's step on the
+    flagship (or `xconfig`).  counters: {kernel name: object with a
+    `launches` count}; each count is set to 0 before the steps and must
+    grow by per_step[name] in every step.  check_den: another den that
+    each step's den input is run through afterwards, to hold `den`
+    against it on the nnet outputs that training produced.  Prints the
+    phase line `name` (None: none); returns (launches, losses, numbers)."""
     seen = []
     if check_den is not None:
         run = den.forward_backward
@@ -928,7 +982,7 @@ def train_phase(dev, den, name, counters, per_step, check_den=None):
 
         den.forward_backward = keep_input
     rng = np.random.default_rng(0)
-    model = build_model(str(ROOT / "configs" / "cnn_tdnn.xconfig"))
+    model = build_model(xconfig or str(ROOT / "configs" / "cnn_tdnn.xconfig"))
     num_graph = bench_num_graph(B, T_OUT, AN, P, rng)
     config = TrainConfig(learning_rate=1e-3, momentum=0.9,
                          frame_subsampling_factor=STRIDE, left_context=LEFT)
@@ -950,7 +1004,7 @@ def train_phase(dev, den, name, counters, per_step, check_den=None):
     for counter in counters.values():
         counter.launches = 0
     step_ms, losses, den_logprobs = [], [], []
-    for i in range(6):
+    for i in range(steps):
         before = {k: c.launches for k, c in counters.items()}
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -992,13 +1046,16 @@ def train_phase(dev, den, name, counters, per_step, check_den=None):
                    "den_logp_max_rel_vs_check": worst_lp,
                    "den_post_max_abs_vs_check": worst_post}
         del seen
-    phase(name, B=B, T_in=T_IN, T_out=T_OUT, timed_steps=len(step_ms),
-          step_ms=mean_ms, step_ms_each=step_ms, losses=losses,
-          den_logprobs=den_logprobs, **checked,
-          train_audio_sec_per_s_per_chip=B * T_IN / 100.0 / (mean_ms / 1e3),
-          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-          **{f"{k}_launches": v for k, v in launches.items()})
-    return launches, losses
+    numbers = dict(
+        B=B, T_in=T_IN, T_out=T_OUT, timed_steps=len(step_ms),
+        step_ms=mean_ms, step_ms_each=step_ms, losses=losses,
+        den_logprobs=den_logprobs, **checked,
+        train_audio_sec_per_s_per_chip=B * T_IN / 100.0 / (mean_ms / 1e3),
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        **{f"{k}_launches": v for k, v in launches.items()})
+    if name is not None:
+        phase(name, **numbers)
+    return launches, losses, numbers
 
 
 def ng_vs_cpu_phase(dev, den):
@@ -2233,6 +2290,223 @@ def decode_tool_phase(egs_dir):
           lattice_1best_equals_viterbi=True, all_final=True)
 
 
+def bn_count_rule(sd):
+    """A state dict as a Kaldi round trip gives it back: BatchNorm counts
+    as max(count, 1) (the JAX loader's rule)."""
+    return {k: v.clamp(min=1.0) if k.endswith(".count") else v
+            for k, v in sd.items()}
+
+
+def kaldi_model_phase(egs_dir, dev):
+    """The trainer phase's trained network (its final checkpoint) exported
+    to nnet3 text and a binary .raw, loaded back, handed to the model
+    tools and decoded through tools.decode --model (see the module
+    docstring).  Files go to build/chip_smoke/kaldi_model/."""
+    xconfig = str(ROOT / "configs" / "cnn_tdnn.xconfig")
+    model = build_model(xconfig)
+    src = Network(model, torch.Generator(device=dev).manual_seed(0), dev)
+    src.load_state_dict(CheckpointManager(str(WORK / "ckpt_full")).load(
+        TRAIN_STEPS)["network"], strict=True)
+    src.eval()
+    d = WORK / "kaldi_model"
+    d.mkdir(exist_ok=True)
+    txt, raw = d / "final.txt", d / "final.raw"
+    secs = {}
+    t0 = time.perf_counter()
+    text = export_network_text(src)
+    secs["text_export"] = time.perf_counter() - t0
+    txt.write_text(text)
+    t0 = time.perf_counter()
+    comps = parse_nnet3_text(text)
+    secs["text_parse"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_nnet3(Nnet3Model(config_lines=[],
+                           components=components_from_text(comps)), str(raw))
+    secs["binary_write"] = time.perf_counter() - t0
+    del text, comps
+
+    want = bn_count_rule(src.state_dict())
+    rng = np.random.default_rng(8)
+    feats = torch.from_numpy(rng.normal(size=(8, EGS_T_IN, 40))
+                             .astype(np.float32)).to(dev)
+    ivecs = torch.from_numpy(rng.normal(size=(8, 100))
+                             .astype(np.float32)).to(dev)
+    reports = {}
+    for kind, path in (("text", txt), ("binary", raw)):
+        net = Network(model, torch.Generator(device=dev).manual_seed(1), dev)
+        t0 = time.perf_counter()
+        reports[kind] = load_into_network(net, str(path))
+        torch.cuda.synchronize()
+        secs[f"{kind}_load"] = time.perf_counter() - t0
+        net.eval()
+        got = net.state_dict()
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        if differ or got.keys() != want.keys():
+            raise AssertionError(f"{kind} round trip: {len(differ)} tensors "
+                                 f"differ, e.g. {differ[:3]}")
+        for dtype in (torch.float32, torch.bfloat16):
+            with torch.no_grad(), train_tool.deterministic_cudnn():
+                a, _ = src(feats, ivecs, train=False, compute_dtype=dtype)
+                b, _ = net(feats, ivecs, train=False, compute_dtype=dtype)
+            if not all(torch.equal(a[n], b[n]) for n in a):
+                raise AssertionError(f"{kind} round trip: the {dtype} "
+                                     f"forward differs")
+        del net
+    # every layer with parameters or BN statistics (30 in the flagship)
+    if reports["text"] != reports["binary"] or \
+            set(reports["text"]) != set(src.params) | set(src.bn_state()):
+        raise AssertionError(f"load reports {reports}")
+
+    t0 = time.perf_counter()
+    copy_raw, copy_txt = d / "copy.raw", d / "copy.txt"
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rcs = [modeltools.main(["info", str(raw)]),
+               modeltools.main(["copy", str(txt), str(copy_raw), "--binary"]),
+               modeltools.main(["copy", str(copy_raw), str(copy_txt),
+                                "--text"]),
+               modeltools.main(["compare", str(txt), str(copy_txt)])]
+    secs["modeltools"] = time.perf_counter() - t0
+    tool_out = out.getvalue()
+    if rcs != [0, 0, 0, 0] or "worst |diff| = 0.000e+00" not in tool_out \
+            or copy_raw.read_bytes() != raw.read_bytes():
+        raise AssertionError(f"modeltools: exit codes {rcs}, "
+                             f"{tool_out.splitlines()[-1]}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        lt = {"round_trip": loadtest.main([]),
+              "model": loadtest.main(["--model", str(raw)])}
+    secs["loadtest"] = time.perf_counter() - t0
+    if any(r["failures"] for r in lt.values()) or \
+            lt["round_trip"]["round_trip_max_abs_err"] != 0.0:
+        raise AssertionError(f"loadtest: {lt}")
+
+    # the decode tool with --model, against the same weights from memory
+    flags = ["--egs", str(egs_dir / "cegs.1.ark"), "--graph",
+             str(WORK / "HCLG.fst"), "--xconfig", xconfig, "--pdfs", str(P),
+             "--batch", str(B), "--on-device", "--model", str(raw)]
+    t0 = time.perf_counter()
+    with open(WORK / "decode_model.txt", "w") as log, \
+            contextlib.redirect_stdout(log):
+        run = decode_tool.main(flags)
+    torch.cuda.synchronize()
+    secs["decode_tool"] = time.perf_counter() - t0
+    posts = decode_tool.acoustic_posteriors(src, DataLoader(
+        str(egs_dir / "cegs.1.ark"),
+        DataLoaderConfig(batch_size=B, label_dim=P)), dev)
+    graph = DecodingGraph.from_file(str(WORK / "HCLG.fst"))
+    if len(graph.eps_dst):
+        raise AssertionError("the decode tool's graph has epsilon arcs")
+    ref = SparseViterbiDecoder(graph, device=dev).decode_batch(
+        torch.stack(list(posts.values())))
+    memory = {k: r["words"] for k, r in zip(posts, ref)}
+    if len(run["hyps"]) != EGS_PER_FILE or run["hyps"] != memory:
+        differ = [k for k in memory if run["hyps"].get(k) != memory[k]]
+        raise AssertionError(f"decode --model: {len(run['hyps'])} "
+                             f"utterances, {len(differ)} differ from the "
+                             f"network in memory, e.g. {differ[:3]}")
+    phase("kaldi_model", source=f"trainer checkpoint step {TRAIN_STEPS}",
+          values_loaded=sum(reports["binary"].values()),
+          layers_loaded=len(reports["binary"]),
+          text_mb=txt.stat().st_size / 1e6, binary_mb=raw.stat().st_size / 1e6,
+          seconds=secs, params_bit_identical=True, forward_bit_identical=True,
+          modeltools_compare_worst=0.0,
+          loadtest_round_trip_max_abs_err=0.0,
+          decode_utterances=len(run["hyps"]), decode_words_equal=True,
+          decode_all_final=all(run["final_reached"].values()),
+          mean_words=float(np.mean([len(w) for w in memory.values()])))
+    del src
+    torch.cuda.empty_cache()
+
+
+def attention_xconfig():
+    """The flagship with ATTENTION_LAYER after tdnnf21 (prefinal-l takes
+    its output), written to build/chip_smoke/attention.xconfig."""
+    text = (ROOT / "configs" / "cnn_tdnn.xconfig").read_text()
+    old = "prefinal-layer name=prefinal-l input=tdnnf21"
+    if old not in text:
+        raise AssertionError(f"configs/cnn_tdnn.xconfig has no {old!r}")
+    path = WORK / "attention.xconfig"
+    path.write_text(text.replace(old, ATTENTION_LAYER + "\n" + old.replace(
+        "input=tdnnf21", "input=attention1")))
+    return str(path)
+
+
+def attention_phase(dev, graph, fused):
+    """The flagship with one attention layer: bench.py's step with the
+    default den, in turns with the flagship's, a narrow fp32 attention
+    step on the card against the CPU, the streaming encoder against its
+    offline reference (see the module docstring).  fused: the
+    train_fused phase's numbers.  Returns the attention steps' kernel
+    launches."""
+    xconfig = attention_xconfig()
+    model = build_model(xconfig)
+    if (model.num_params(), model.time_context()) != ATTENTION_SIZE:
+        raise AssertionError(f"attention model: {model.num_params()} "
+                             f"parameters, context {model.time_context()}")
+    counts = {"den_scan_fwd": den_scan.fused_forward,
+              "den_scan_bwd": den_scan.fused_backward,
+              "den_matmul": DenMatmul}
+    # the attention model's steps and the flagship's in turns, so that the
+    # two step times share the card's and the host's state
+    runs = {"attention": [], "flagship": []}
+    launches = dict.fromkeys(counts, 0)
+    for tag in ("flagship", "attention", "attention", "flagship"):
+        counted, _, numbers = train_phase(
+            dev, DenominatorComputation(graph, leaky=1e-5, device=dev), None,
+            counts, {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0},
+            xconfig=xconfig if tag == "attention" else None, steps=4)
+        runs[tag].append(numbers)
+        if tag == "attention":
+            launches = {k: launches[k] + counted[k] for k in counts}
+        torch.cuda.empty_cache()
+    att_ms = float(np.mean([r["step_ms"] for r in runs["attention"]]))
+    flag_ms = float(np.mean([r["step_ms"] for r in runs["flagship"]]))
+    small_xconfig = SMALL_XCONFIG.replace(
+        "prefinal-layer name=prefinal-l input=tdnnf4",
+        SMALL_ATTENTION_LAYER
+        + "\nprefinal-layer name=prefinal-l input=attention1")
+    small = small_step_pair(dev, False, small_xconfig,
+                            scalar_tol=ATTENTION_SCALAR)
+
+    net = Network(model, torch.Generator(device=dev).manual_seed(0), dev)
+    net.eval()
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(
+        STREAM_B, 3 * STREAM_T_OUT, 40)).astype(np.float32)).to(dev)
+    iv = torch.from_numpy(rng.normal(size=(STREAM_B, 100))
+                          .astype(np.float32)).to(dev)
+    enc = StreamingEncoder(net, chunk_out=16, compute_dtype=torch.float32,
+                           device=dev)
+    got, ref = encode_stream(enc, x, iv), enc.offline_reference(x, iv)
+    excess = float(((got - ref).abs() - ENC_FP32_TOL * ref.abs()).max())
+    if got.shape != ref.shape or not torch.isfinite(got).all() or \
+            not excess <= ENC_FP32_TOL:
+        raise AssertionError(f"attention streaming encoder: "
+                             f"{tuple(got.shape)} vs {tuple(ref.shape)}, "
+                             f"excess {excess}")
+    phase("attention", params=model.num_params(),
+          context=list(model.time_context()), step_ms=att_ms,
+          step_ms_each=[r["step_ms_each"] for r in runs["attention"]],
+          flagship_step_ms=flag_ms,
+          flagship_step_ms_each=[r["step_ms_each"] for r in runs["flagship"]],
+          step_ms_over_flagship=att_ms / flag_ms,
+          train_fused_step_ms=fused["step_ms"],
+          losses=[r["losses"] for r in runs["attention"]], launches=launches,
+          train_audio_sec_per_s_per_chip=B * T_IN / 100.0 / (att_ms / 1e3),
+          max_memory_allocated_bytes=runs["attention"][0][
+              "max_memory_allocated_bytes"],
+          flagship_max_memory_allocated_bytes=runs["flagship"][0][
+              "max_memory_allocated_bytes"],
+          small_step_vs_cpu=small,
+          stream_fp32_chunk16={"max_abs_err": float((got - ref).abs().max()),
+                               "max_abs_ref": float(ref.abs().max()),
+                               "max_excess_over_rtol": excess,
+                               "lag": enc.lag})
+    del net, enc
+    torch.cuda.empty_cache()
+    return launches
+
+
 def results_equal(a, b):
     """Hypothesis dicts equal in words, alignment, final_reached and cost."""
     key = ("words", "alignment", "final_reached", "total_cost")
@@ -2525,13 +2799,13 @@ def main():
     red = segment_reduce_phase(dev, den_b)
     del den_b
     small_step_phase(dev)
-    launches, losses = train_phase(dev, den, "train",
+    launches, losses, _ = train_phase(dev, den, "train",
                                    {"den_matmul": DenMatmul},
                                    {"den_matmul": 2 * T_OUT})
     scan_counts = {"den_scan_fwd": den_scan.fused_forward,
                    "den_scan_bwd": den_scan.fused_backward,
                    "den_matmul": DenMatmul}
-    fused_launches, fused_losses = train_phase(
+    fused_launches, fused_losses, fused = train_phase(
         dev, den_f, "train_fused", scan_counts,
         {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0},
         check_den=den)
@@ -2545,10 +2819,12 @@ def main():
     dp_launches = data_parallel_phase(egs_dir, graph, trainer_ref, dev)
     hclg_graph, hclg_ll, hclg_offline = decode_hclg_phase(dev)
     decode_tool_phase(egs_dir)
+    kaldi_model_phase(egs_dir, dev)
     stream_decode_phase(dev, hclg_graph, hclg_ll, hclg_offline)
     del hclg_graph, hclg_ll, hclg_offline
     torch.cuda.empty_cache()
     stream_encode_phase(dev)
+    att_launches = attention_phase(dev, graph, fused)
     sw_launches, sw_err = synthwer_phase(dev)
     src = "kaldi_fp16_tpu_torch/csrc/"
     F, n = k["F"], k["n"]
@@ -2576,14 +2852,16 @@ def main():
               k["pre_plain_us"] / 1e3, mm_bound["pre"],
               k["pre_library_us"] / 1e3),
         entry("den_scan_fwd", "den_scan.cu", SCAN_REPLACES["fwd"],
-              fused_launches["den_scan_fwd"] + dp_launches["den_scan_fwd"],
+              fused_launches["den_scan_fwd"] + dp_launches["den_scan_fwd"]
+              + att_launches["den_scan_fwd"],
               max(v for errs in (scan["kernel_max_abs_err"],
                                  den_check["scan_max_abs_err"])
                   for n, v in errs.items() if n != "beta_hist"),
               scan["kernel_fwd_ms"], scan["kernel_fwd_plain_ms"],
               scan["fwd_bound"], None),
         entry("den_scan_bwd", "den_scan.cu", SCAN_REPLACES["bwd"],
-              fused_launches["den_scan_bwd"] + dp_launches["den_scan_bwd"],
+              fused_launches["den_scan_bwd"] + dp_launches["den_scan_bwd"]
+              + att_launches["den_scan_bwd"],
               max(scan["kernel_max_abs_err"]["beta_hist"],
                   den_check["scan_max_abs_err"]["beta_hist"]),
               scan["kernel_bwd_ms"], scan["kernel_bwd_plain_ms"],

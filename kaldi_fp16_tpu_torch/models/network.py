@@ -3,9 +3,9 @@
 Port of kaldi_fp16_tpu/models/network.py for the flagship layer set:
 idct, batchnorm, SpecAugment, the ivector linear (ReplaceIndex input),
 combine-feature-maps, conv-relu-batchnorm (direct, cut-conv and patch
-lowerings), tdnnf, relu-batchnorm, prefinal and the output heads, and the
-natural-gradient sites (`ng_sites`, `NGContext`).  Not ported yet: the
-attention layer, which raises NotImplementedError.
+lowerings), tdnnf, restricted attention (attention-relu-batchnorm),
+relu-batchnorm, prefinal and the output heads, and the natural-gradient
+sites (`ng_sites`, `NGContext`): every layer type the JAX package builds.
 
 Layouts follow the JAX package at every public boundary: activations are
 [B, T, D] with a feature map's column = height * num_filters + filter
@@ -45,7 +45,8 @@ from torch import nn
 
 from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.models.layers import (
-    CombineFeatureMapsSpec, ConvReluBNSpec, Layer, SpecAugmentSpec, TDNNFSpec,
+    AttentionSpec, CombineFeatureMapsSpec, ConvReluBNSpec, Layer,
+    SpecAugmentSpec, TDNNFSpec,
 )
 from kaldi_fp16_tpu_torch.models.model import Model
 from kaldi_fp16_tpu_torch.models.xconfig import InputType, LayerType
@@ -143,8 +144,8 @@ def _init_layer(layer: Layer, generator: torch.Generator,
         return {"w": xavier(s.input_dim, s.output_dim),
                 "b": zeros(s.output_dim)}
     if t == LayerType.ATTENTION_RELU_BATCHNORM:
-        raise NotImplementedError(
-            f"{layer.name}: attention is not ported to PyTorch yet")
+        proj = s.num_heads * s.input_dim_per_head
+        return {"w": xavier(s.input_dim, proj), "b": zeros(proj)}
     return {}
 
 
@@ -390,6 +391,39 @@ def _fwd_tdnnf(spec: TDNNFSpec, p: dict, bn: dict, x: torch.Tensor,
         # the scale is rounded to the compute dtype first, as in JAX
         out = out + x.new_tensor(spec.bypass_scale, dtype=out.dtype) * x
     return out, new_bn
+
+
+def _fwd_attention(spec: AttentionSpec, p: dict, bn: dict, x: torch.Tensor,
+                   train: bool, dtype, ng=None, lname="",
+                   group=None) -> Tuple[torch.Tensor, dict]:
+    """Restricted per-head time attention (network.py:447-482): one
+    projection into keys, values, query-keys and query-context scores per
+    head; for each of the context_dim offsets o, the keys and values at
+    t + (o - num_left_inputs) * time_stride (zero outside), scored in
+    fp32; softmax over the offsets, the weighted values and the weights
+    concatenated per head, relu, BatchNorm."""
+    B, T, _ = x.shape
+    H, kd, vd = spec.num_heads, spec.key_dim, spec.value_dim
+    cd = spec.context_dim
+    proj = _matmul(x, p["w"], dtype) + p["b"].float()      # [B, T, H * iph]
+    proj = _site(ng, f"{lname}/w", x, proj)
+    proj = proj.reshape(B, T, H, spec.input_dim_per_head)
+    keys = proj[..., :kd]
+    values = proj[..., kd:kd + vd]
+    q_key = proj[..., kd + vd:kd + vd + kd]
+    q_ctx = proj[..., kd + vd + kd:]
+    scores, vals = [], []
+    for o in range(cd):
+        delta = (o - spec.num_left_inputs) * spec.time_stride
+        dot = (q_key * _shift_time(keys, delta, "zero")).sum(-1)
+        scores.append(q_ctx[..., o] + spec.key_scale * dot)   # [B, T, H]
+        vals.append(_shift_time(values, delta, "zero"))
+    attn = torch.softmax(torch.stack(scores, dim=-1), dim=-1)  # [B, T, H, cd]
+    ctx_out = torch.einsum("bthc,bthcv->bthv", attn,
+                           torch.stack(vals, dim=-2))
+    out = torch.cat([ctx_out, attn], dim=-1).reshape(B, T, H * (vd + cd))
+    out = torch.relu(out).to(dtype)
+    return _batchnorm(out, bn, spec.target_rms, 1e-3, train, group)
 
 
 def spec_augment_masks(spec: SpecAugmentSpec, B: int, T: int,
@@ -750,6 +784,10 @@ class Network(nn.Module):
                     grid_cut=gc, group=group)
             elif t == LayerType.TDNNF:
                 out, new_state[layer.name] = _fwd_tdnnf(
+                    s, p, st, x, train, dtype, ng=ng, lname=layer.name,
+                    group=group)
+            elif t == LayerType.ATTENTION_RELU_BATCHNORM:
+                out, new_state[layer.name] = _fwd_attention(
                     s, p, st, x, train, dtype, ng=ng, lname=layer.name,
                     group=group)
             elif t == LayerType.RELU_BATCHNORM:

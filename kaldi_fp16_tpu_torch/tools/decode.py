@@ -7,21 +7,25 @@ differences:
 
   --device    where the network and the --on-device decoders run
               (default: the current CUDA device); it replaces --cpu
-  --model     raises: the nnet3 model loader is not ported yet (ROADMAP
-              queue 1 item 4)
+  --model     a Kaldi model file (binary .mdl / .raw or nnet3 text) is
+              loaded into the network --xconfig builds
+              (models/kaldi_loader.load_into_network), as the JAX tool
+              does; without --egs, --graph and --xconfig it is an error
+              (the JAX tool ignores it in demo mode)
 
 Usage:
   python -m kaldi_fp16_tpu_torch.tools.decode --egs 'data/cegs.*.ark' \\
-      --xconfig cfg --pdfs P --graph HCLG.fst [--acoustic-scale 1.0] \\
+      --xconfig cfg --pdfs P --graph HCLG.fst [--model final.mdl] \\
+      [--acoustic-scale 1.0] \\
       [--beam 16] [--lattice-beam 8] [--ref ref.txt] [--nbest 0] \\
       [--on-device]
 
 With no --egs/--graph/--xconfig it runs a synthetic demo (a 2-word graph).
 `--ref` is a text file "utt-key word-id word-id ..." for WER scoring.  The
-network has random weights from seed 0.  `--on-device` decodes batched and
-exact on the device (decode/device_viterbi.py): Viterbi, or lattices when
---nbest, --arpa-lm or --ctm is given; without it the host token-passing
-LatticeDecoder runs.
+network's weights are --model's, else random from seed 0.  `--on-device`
+decodes batched and exact on the device (decode/device_viterbi.py):
+Viterbi, or lattices when --nbest, --arpa-lm or --ctm is given; without
+it the host token-passing LatticeDecoder runs.
 
 `main(argv)` returns {"hyps": {key: words}, "final_reached": {key: bool},
 "wer": the WER report or None}.
@@ -43,7 +47,7 @@ def parse_args(argv=None):
     ap.add_argument("--graph")
     ap.add_argument("--xconfig")
     ap.add_argument("--model",
-                    help="not ported yet: raises NotImplementedError")
+                    help="Kaldi model to load (binary .mdl/.raw or text)")
     ap.add_argument("--pdfs", type=int, default=48)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--acoustic-scale", type=float, default=1.0)
@@ -141,9 +145,10 @@ def _host(ll) -> np.ndarray:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.model:
-        raise NotImplementedError("--model: the nnet3 model loader is not "
-                                  "ported yet (ROADMAP queue 1 item 4)")
+    demo = not (args.egs and args.graph and args.xconfig)
+    if args.model and demo:
+        raise SystemExit("--model needs --egs, --graph and --xconfig: its "
+                         "weights go into the network --xconfig builds")
     from kaldi_fp16_tpu_torch.decode.graph import DecodingGraph
     from kaldi_fp16_tpu_torch.decode.lattice import (
         LatticeDecodeOptions, LatticeDecoder, rescore_with_lm,
@@ -152,7 +157,7 @@ def main(argv=None) -> dict:
     from kaldi_fp16_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
-    if not (args.egs and args.graph and args.xconfig):
+    if demo:
         print("demo mode: synthetic graph + posteriors "
               "(pass --egs/--graph/--xconfig for real decoding)")
         graph = DecodingGraph.from_fst(eps_free_graph() if args.on_device
@@ -168,6 +173,11 @@ def main(argv=None) -> dict:
         graph = DecodingGraph.from_file(args.graph)
         net = Network(build_model(args.xconfig),
                       torch.Generator(device=device).manual_seed(0), device)
+        if args.model:
+            from kaldi_fp16_tpu_torch.models.kaldi_loader import (
+                load_into_network,
+            )
+            load_into_network(net, args.model)
         net.eval()
         posts = acoustic_posteriors(
             net, DataLoader(args.egs, DataLoaderConfig(

@@ -8,8 +8,13 @@
   mean error under 0.02); and those posteriors decoded by JAX's and the
   port's SparseViterbiDecoder to equal words.
 * The tool end to end with `--device cpu`: demo mode prints what
-  tools/decode.py prints, `--ref` gives JAX's WER report, `--model`
-  raises.
+  tools/decode.py prints, `--ref` gives JAX's WER report.
+* `--model` with a Kaldi model the JAX exporter wrote (nnet3 text and a
+  binary .raw): with both tools' networks in fp32, the posteriors the
+  decoder gets equal the JAX tool's at the fp32 network bars (rtol / atol
+  1e-4) and the words are equal; in the tool's bf16 the words are those
+  of the same weights decoded from memory; without --egs, --graph and
+  --xconfig it is an error.
 * decodebench: its graphs equal tools/decodebench.py's, and its JSON line
   carries the JAX tool's mean cost / mean lattice size.
 """
@@ -177,8 +182,116 @@ def test_ref_gives_the_jax_wer_report(data, flags, capsys):
     assert all(out["final_reached"].values())
 
 
-def test_model_flag_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.fixture(scope="module")
+def kaldi_models(data):
+    """JAX weights (seed 5, BN statistics from one fp32 training forward)
+    exported by the JAX exporter as nnet3 text and as a binary .raw."""
+    from kaldi_fp16_tpu.io import nnet3_binary as jb
+    from kaldi_fp16_tpu.models import kaldi_loader as jl
+    jm = data["jax_model"]
+    params, state = jax_net.init_params(jm, jax.random.PRNGKey(5))
+    rng = np.random.default_rng(5)
+    _, state = jax_net.forward(
+        jm, params, state,
+        jnp.asarray(rng.normal(size=(4, 27, 40)).astype(np.float32)),
+        jnp.asarray(rng.normal(size=(4, 100)).astype(np.float32)),
+        train=True, compute_dtype=jnp.float32)
+    text = jl.export_params_to_text(jm, params, state)
+    paths = {"text": data["dir"] / "final.txt", "raw": data["dir"] / "final.raw"}
+    paths["text"].write_text(text)
+    jb.write_nnet3(jb.Nnet3Model(config_lines=[], components=(
+        jb.components_from_text(jl.parse_nnet3_text(text)))),
+        str(paths["raw"]))
+    return {k: str(v) for k, v in paths.items()}
+
+
+def decode_flags(data, model):
+    return ["--egs", data["egs"], "--graph", data["graph"], "--xconfig",
+            data["xconfig"], "--pdfs", str(P), "--batch", "4",
+            "--model", model, "--on-device"]
+
+
+def jax_decode_tool(monkeypatch):
+    """tools/decode.py as a module (it imports tools/_common)."""
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    monkeypatch.setenv("KALDI_TPU_NO_COMPILE_CACHE", "1")
+    spec = importlib.util.spec_from_file_location(
+        "jax_decode", ROOT / "tools" / "decode.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def recorded(monkeypatch, cls):
+    """Record every batch of loglikes `cls.decode_batch` is given."""
+    seen, run = [], cls.decode_batch
+
+    def decode_batch(self, lls, *args, **kwargs):
+        seen.append(np.asarray(lls, np.float32))
+        return run(self, lls, *args, **kwargs)
+
+    monkeypatch.setattr(cls, "decode_batch", decode_batch)
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["text", "raw"])
+def test_model_flag_gives_the_jax_tools_posteriors_and_words(
+        data, kaldi_models, kind, monkeypatch, capsys):
+    """--model in both tools, their networks in fp32: the posteriors the
+    decoder is given agree at the fp32 network bars (rtol / atol 1e-4)
+    and the words are equal, utterance for utterance."""
+    flags = decode_flags(data, kaldi_models[kind])
+    jax_forward = jax_net.forward
+    monkeypatch.setattr(jax_net, "forward", lambda *a, **kw: jax_forward(
+        *a, **{**kw, "compute_dtype": jnp.float32}))
+    jax_seen = recorded(monkeypatch, jv.SparseViterbiDecoder)
+    monkeypatch.setattr(sys, "argv", ["decode.py", "--cpu"] + flags)
+    jax_decode_tool(monkeypatch).main()
+    jax_words = {line.split(":")[0]: line.split(":")[1].split("(")[0].split()
+                 for line in capsys.readouterr().out.splitlines()
+                 if "on-device)" in line}
+
+    port_forward = port_net.Network.forward
+    monkeypatch.setattr(port_net.Network, "forward",
+                        lambda self, *a, **kw: port_forward(
+                            self, *a, **{**kw,
+                                         "compute_dtype": torch.float32}))
+    port_seen = recorded(monkeypatch, pv.SparseViterbiDecoder)
+    out = decode_tool.main(flags + ["--device", "cpu"])
+    assert len(port_seen) == len(jax_seen) == 1
+    assert port_seen[0].shape == (8, 8, P)
+    np.testing.assert_allclose(port_seen[0], jax_seen[0], rtol=1e-4,
+                               atol=1e-4)
+    assert {k: list(map(int, w)) for k, w in jax_words.items()} == \
+        out["hyps"]
+    # the weights came from the file: seed 0's network posts differently
+    no_model = decode_tool.main(flags[:-3] + ["--on-device", "--device",
+                                              "cpu"])
+    assert len(port_seen) == 2
+    assert not np.allclose(port_seen[1], port_seen[0], atol=1e-3)
+    assert sorted(no_model["hyps"]) == sorted(out["hyps"])
+
+
+def test_model_flag_decodes_as_the_network_in_memory(data, kaldi_models):
+    """--model on the .raw gives the words of the same weights decoded
+    from memory (bf16, the tool's default), utterance for utterance."""
+    from kaldi_fp16_tpu_torch.models import kaldi_loader as pl
+    net = port_net.Network(build_model_from_string(EGS_XCONFIG),
+                           torch.Generator().manual_seed(3), "cpu")
+    pl.load_into_network(net, kaldi_models["text"])
+    net.eval()
+    posts = decode_tool.acoustic_posteriors(net, DataLoader(
+        data["egs"], DataLoaderConfig(batch_size=4, label_dim=P)), "cpu")
+    _, pg = both_graphs(data["fst"])
+    ref = pv.SparseViterbiDecoder(pg, device="cpu").decode_batch(
+        torch.stack(list(posts.values())))
+    out = decode_tool.main(decode_flags(data, kaldi_models["raw"])
+                           + ["--device", "cpu"])
+    assert out["hyps"] == {k: r["words"] for k, r in zip(posts, ref)}
+
+
+def test_model_flag_without_the_decode_inputs_is_an_error():
+    with pytest.raises(SystemExit, match="--xconfig"):
         decode_tool.main(["--model", "final.mdl", "--device", "cpu"])
 
 

@@ -224,12 +224,3 @@ def test_forward_bf16_close_to_jax(nets, time_subsample):
         j = np.asarray(jouts[name], np.float32)
         np.testing.assert_allclose(p, j, rtol=0, atol=0.1)
         assert np.abs(p - j).mean() < 0.02
-
-
-def test_unported_layers_raise():
-    with pytest.raises(NotImplementedError):
-        port_net.Network(build_model_from_string(
-            "input name=input dim=8\n"
-            "attention-relu-batchnorm-layer name=a num-heads=1 value-dim=4 "
-            "key-dim=4 num-left-inputs=1 num-right-inputs=1\n"),
-            torch.Generator(), "cpu")

@@ -12,13 +12,17 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# the production loop's, the decoding path's, the serving path's and the
-# data-parallel path's modules (data path, NG-SGD, trainer, checkpoint,
-# decoders, streaming, process groups, tools): each must be among the
-# modules the script imports
+# the production loop's, the decoding path's, the serving path's, the
+# data-parallel path's and the model interchange's modules (data path,
+# NG-SGD, trainer, checkpoint, decoders, streaming, process groups, the
+# nnet3 container and loader, tools): each must be among the modules the
+# script imports
 REQUIRED = [
     "kaldi_fp16_tpu_torch.io." + m for m in (
-        "kaldi_io", "fst", "matrix", "egs", "native", "batch", "dataloader")
+        "kaldi_io", "fst", "matrix", "egs", "native", "batch", "dataloader",
+        "nnet3_binary")
+] + [
+    "kaldi_fp16_tpu_torch.models.kaldi_loader",
 ] + [
     "kaldi_fp16_tpu_torch.training." + m for m in (
         "natural_gradient", "schedulers", "trainer", "checkpoint")
@@ -40,6 +44,9 @@ REQUIRED = [
     "kaldi_fp16_tpu_torch.tools.ng_precision",
     "kaldi_fp16_tpu_torch.tools.mpworker",
     "kaldi_fp16_tpu_torch.tools.dryrun_multichip",
+    "kaldi_fp16_tpu_torch.tools.modeltools",
+    "kaldi_fp16_tpu_torch.tools.loadtest",
+    "kaldi_fp16_tpu_torch.tools.nnettest",
 ]
 
 SCRIPT = """
@@ -68,6 +75,6 @@ def test_port_and_chip_smoke_import_without_jax():
                           cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # models x4, chain x7, ops x4, training x8, tools x11, io x9, utils x2,
-    # decode x7, convert, device, the subpackages
-    assert int(proc.stdout.strip()) >= 60
+    # models x5, chain x7, ops x4, training x8, tools x16, io x9, utils x2,
+    # decode x7, parallel x2, convert, device, the 9 subpackages
+    assert int(proc.stdout.strip()) >= 71
