@@ -149,7 +149,38 @@ Phases, one line of numbers each:
                      trajectory, den_matmul launches (its den has L = 1,
                      F = 81: loop scans), the first batch's den against
                      the same den through plain matmuls
- 23. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 23. verify_chain    the verification harness, on the egs phase's files:
+                     tools.chainverify at its defaults (a strict CPU pass,
+                     then the card), then on the 7052-state den.fst and its
+                     cegs (T = 50, 3080 pdfs) on the card once per den path,
+                     each route asserted from the tool's output: structured
+                     with the fused scans at B = 128, the loop scans at
+                     B = 8 with split "kernel" and "pre", blocked with the
+                     kernel reduce at B = 8 (phases 1-4: the fp64 oracle,
+                     finite differences of the probed row's objective,
+                     repeats bit for bit); tools.denverify on that den.fst;
+                     tools.chaintest on the flagship; tools.chainbench
+                     --topology phone-lm at production scale
+ 24. verify_net      tools.fwdtest on the flagship (B = 8, T = 150, 20
+                     iterations) with and without --bn-identity;
+                     tools.backtest and tools.sgdtest on the card, TF32 off
+ 25. verify_train    tools.traintest on the flagship at B = 128 over the egs
+                     phase's cegs, 9 steps at lr 1e-4 (fused route, the
+                     first batch's loss falls by its second visit, the
+                     loop's train_audio_sec_per_s_per_chip); tools.soak on the
+                     flagship (SIGKILL after 25 steps, --resume, run 1's
+                     objf reproduced exactly; cut to 2 epochs and a
+                     checkpoint every 20 steps); tools.abtest --ab grid
+ 26. verify_data     tools.gputest (pageable and pinned copies to the card),
+                     tools.dltest (in-line, --workers 2, --process-workers 2:
+                     one bf16 error), egstools analyze / verify, nscheck and
+                     csrdump on the egs phase's files
+ 27. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+
+The verify phases run each tool's main in this process (soak and abtest
+start tools.train processes), its output in build/chip_smoke/verify/; a
+FAIL line or a nonzero exit fails the run.  Their den_scan, den_matmul
+and segment_reduce launches count in the kernels line.
 
 small_step_vs_cpu also holds a narrow NG step (patch-lowered convs) on
 the card against the CPU.
@@ -2782,6 +2813,266 @@ def synthwer_phase(dev):
     return launches, err
 
 
+
+# ---- the verification harness (tools.chainverify ... tools.csrdump) -------
+
+VERIFY = WORK / "verify"
+KERNEL_COUNTERS = ("den_matmul", "den_matmul_pre", "den_scan_fwd",
+                   "den_scan_bwd", "segment_reduce")
+FLAGSHIP = str(ROOT / "configs" / "cnn_tdnn.xconfig")
+# chainverify's den paths on the egs phase's den.fst and cegs: (tag, flags,
+# the route the tool must report, the kernel each path must launch)
+CHAINVERIFY_PATHS = (
+    ("fused", ["--layout", "structured", "--scan-impl", "fused",
+               "--batch", "128"],
+     {"layout": "structured", "scan": "fused", "posterior_reduce": None},
+     ("den_scan_fwd", "den_scan_bwd")),
+    ("loop_kernel", ["--scan-impl", "loop", "--batch", "8",
+                     "--split", "kernel"],
+     {"layout": "structured", "scan": "loop", "posterior_reduce": None},
+     ("den_matmul",)),
+    ("loop_pre", ["--scan-impl", "loop", "--batch", "8", "--split", "pre"],
+     {"layout": "structured", "scan": "loop", "posterior_reduce": None},
+     ("den_matmul_pre",)),
+    ("blocked", ["--layout", "blocked", "--batch", "8"],
+     {"layout": "blocked", "scan": None, "posterior_reduce": "kernel"},
+     ("segment_reduce",)),
+)
+# soak on the flagship at its default pdfs and batch, cut in epochs and
+# checkpoint interval only: killed at step 25 with the last checkpoint at
+# step 20 and the next at 40, so the resumed run re-trains steps 21..25+
+SOAK_CUTS = {"--epochs": "2", "--ckpt-every": "20"}
+# traintest on the flagship over the egs phase's 8 batches of 128: 9 steps,
+# so the last step sees the first batch again, at lr 1e-4.  At the JAX
+# tool's lr 1e-2 (and at 1e-3) the flagship on the 7052-state den with
+# synthetic supervision spikes and climbs, in both packages (PERF.md,
+# section 6)
+TRAINTEST_STEPS, TRAINTEST_LR = 9, "1e-4"
+
+
+def card():
+    """nvidia-smi's name and power limit of the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def kernel_launches():
+    """The wrappers' launch counts, by the kernels line's names."""
+    return {"den_matmul": DenMatmul.launches,
+            "den_matmul_pre": DenMatmul.launches_pre,
+            "den_scan_fwd": den_scan.fused_forward.launches,
+            "den_scan_bwd": den_scan.fused_backward.launches,
+            "segment_reduce": segment_reduce.launches}
+
+
+def zero_launches():
+    DenMatmul.launches = DenMatmul.launches_pre = 0
+    den_scan.fused_forward.launches = den_scan.fused_backward.launches = 0
+    segment_reduce.launches = 0
+
+
+def run_tool(tool, argv, log, totals):
+    """One tool's main(argv) in this process, its output in
+    VERIFY/<log>.txt.  Every kernel count is set to 0 just before the run
+    and read just after, into `totals`.  Fails on a FAIL line or a nonzero
+    exit; returns (main's result, the output, seconds, the run's
+    launches)."""
+    VERIFY.mkdir(parents=True, exist_ok=True)
+    buf = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    code = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = tool.main(argv)
+    except SystemExit as e:
+        res, code = None, e.code
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    for k, n in launches.items():
+        totals[k] = totals.get(k, 0) + n
+    text = buf.getvalue()
+    (VERIFY / f"{log}.txt").write_text(text)
+    failed = [ln.strip() for ln in text.splitlines()
+              if ln.strip().startswith("FAIL")
+              or ln.strip() == "SOAK FAIL"]
+    if code not in (0, None) or failed:
+        raise AssertionError(f"{log}: exit {code}, {failed[:6]}")
+    return res, text, seconds, launches
+
+
+def verify_chain_phase(egs_dir, totals):
+    """tools.chainverify at its defaults (strict CPU pass, then the card),
+    then on the egs phase's den.fst and cegs once per den path, each route
+    asserted; tools.denverify on that den.fst; tools.chaintest on the
+    flagship; tools.chainbench --topology phone-lm at production scale."""
+    from kaldi_fp16_tpu_torch.tools import (
+        chainbench, chaintest, chainverify, denverify,
+    )
+    res, _, s, n = run_tool(chainverify, [], "chainverify_defaults", totals)
+    if res["failures"] or not res["repeats_identical"]:
+        raise AssertionError("chainverify at its defaults failed")
+    if res["route"]["posterior_reduce"] != "kernel" or not n["segment_reduce"]:
+        raise AssertionError(f"chainverify's default den took {res['route']}"
+                             f", {n}")
+    out = {"defaults": {"route": res["route"], "seconds": s,
+                        "strict_fd_err": res["passes"]["strict"]["fd_err"],
+                        "device_fd_err": res["passes"]["device"]["fd_err"],
+                        "device_den_post_err":
+                            res["passes"]["device"]["den_post_err"],
+                        "launches": n}}
+    den_fst = str(egs_dir / "den.fst")
+    common = ["--den-fst", den_fst, "--egs", str(egs_dir / "cegs.1.ark"),
+              "--pdfs", str(P), "--skip-strict"]
+    for tag, flags, route, kernels in CHAINVERIFY_PATHS:
+        res, _, s, n = run_tool(chainverify, common + flags,
+                                f"chainverify_{tag}", totals)
+        if res["route"] != route:
+            raise AssertionError(f"chainverify {tag}: route {res['route']}, "
+                                 f"expected {route}")
+        if not res["repeats_identical"] or not all(n[k] for k in kernels):
+            raise AssertionError(f"chainverify {tag}: repeats identical "
+                                 f"{res['repeats_identical']}, launches {n}")
+        dp = res["passes"]["device"]
+        worst_lp = max(abs(got - ref) for _, got, ref in dp["checks"])
+        out[tag] = {"route": res["route"], "seconds": s, "launches": n,
+                    "logprob_max_abs_err_vs_fp64": worst_lp,
+                    "num_post_err": dp["num_post_err"],
+                    "den_post_err": dp["den_post_err"],
+                    "fd_err": dp["fd_err"],
+                    # the derivative's size at the probed points, beside
+                    # the finite differences' error
+                    "fd_max_abs_analytic": max(abs(r[4]) for r in dp["fd"])}
+    res, _, s, n = run_tool(denverify, ["--den-fst", den_fst, "--pdfs",
+                                        str(P)], "denverify", totals)
+    out["denverify"] = {"seconds": s, "launches": n,
+                        "rows": [{k: r[k] for k in ("name", "err_oracle",
+                                                    "err_brute", "grad_err")}
+                                 for r in res["rows"]]}
+    res, _, s, n = run_tool(chaintest, [
+        "--xconfig", FLAGSHIP, "--pdfs", str(P), "--egs",
+        str(egs_dir / "cegs.*.ark"), "--den-fst", den_fst], "chaintest",
+        totals)
+    out["chaintest"] = {"seconds": s, "launches": n,
+                        "objf_per_frame": res["objf_per_frame"],
+                        "deriv": {k: v for k, v in res["deriv"].items()
+                                  if k != "shape"},
+                        "memory_mb": res["memory_mb"]}
+    _, text, s, n = run_tool(chainbench, ["--topology", "phone-lm"],
+                             "chainbench", totals)
+    out["chainbench"] = json.loads(text.strip().splitlines()[-1])
+    out["chainbench"]["launches"] = n
+    phase("verify_chain", card=card(), **out)
+
+
+def verify_net_phase(totals):
+    """tools.fwdtest on the flagship (B = 8, T = 150, 20 iterations) with
+    and without --bn-identity, tools.backtest and tools.sgdtest on the
+    card, TF32 off."""
+    from kaldi_fp16_tpu_torch.tools import backtest, fwdtest, sgdtest
+    out = {}
+    for tag, extra in (("fwdtest", []), ("fwdtest_bn_identity",
+                                         ["--bn-identity"])):
+        res, _, s, _ = run_tool(fwdtest, ["--xconfig", FLAGSHIP, "--batch",
+                                          "8", "--frames", "150", "--iters",
+                                          "20"] + extra, tag, totals)
+        if not all(o["finite"] for o in res["outputs"].values()):
+            raise AssertionError(f"{tag}: outputs not finite")
+        out[tag] = {"frames_per_s": res["frames_per_s"],
+                    "outputs": {k: o["shape"] for k, o in
+                                res["outputs"].items()}}
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("TF32 is on before backtest")
+    res, _, s, _ = run_tool(backtest, [], "backtest", totals)
+    out["backtest"] = {"worst_rel_err": res["worst"], "seconds": s}
+    res, _, s, _ = run_tool(sgdtest, [], "sgdtest", totals)
+    out["sgdtest"] = {"checks": len(res["checks"]), "seconds": s}
+    phase("verify_net", card=card(), **out)
+
+
+def verify_train_phase(egs_dir, totals):
+    """tools.traintest on the flagship at B = 128 over the egs phase's
+    cegs (fused den route asserted, the first batch's loss must fall by its
+    second visit), tools.soak on the
+    flagship (SIGKILL and resume, run 1's objf reproduced exactly) and
+    tools.abtest --ab grid at its defaults."""
+    from kaldi_fp16_tpu_torch.tools import abtest, soak, traintest
+    res, _, s, n = run_tool(traintest, [
+        "--xconfig", FLAGSHIP, "--den-topology", "phone-lm", "--pdfs",
+        str(P), "--egs-dir", str(egs_dir), "--batch", str(B), "--steps",
+        str(TRAINTEST_STEPS), "--lr", TRAINTEST_LR, "--bench-json"],
+        "traintest", totals)
+    if res["den_route"] != "structured den, fused scans":
+        raise AssertionError(f"traintest took {res['den_route']}")
+    if not res["improved"] or n["den_scan_fwd"] != TRAINTEST_STEPS:
+        raise AssertionError(f"traintest: improved {res['improved']}, "
+                             f"launches {n}")
+    out = {"traintest": {
+        "B": B, "steps": TRAINTEST_STEPS, "lr": TRAINTEST_LR,
+        "den_route": res["den_route"], "losses": res["losses"],
+        "train_audio_sec_per_s_per_chip": res["audio_sec_per_s"],
+        "step_ms": res["step_ms"], "timed_steps": res["timed_steps"],
+        "phase_ms": res["phase_ms"], "launches": n, "seconds": s}}
+    argv = ["--workdir", str(WORK / "soak")]
+    for flag, value in SOAK_CUTS.items():
+        argv += [flag, value]
+    res, _, s, _ = run_tool(soak, argv, "soak", totals)
+    if not (res["ok"] and res["replay_exact"] and res["replayed_steps"] > 0):
+        raise AssertionError(f"soak: {res}")
+    out["soak"] = {"cuts": SOAK_CUTS, "seconds": s,
+                   **{k: res[k] for k in (
+                       "killed_at_step", "last_ckpt_step", "resumed_at_step",
+                       "replayed_steps", "replay_max_objf_diff",
+                       "replay_exact", "no_restart", "continuity_ok",
+                       "lr_schedule_preserved", "final_objf",
+                       "total_steps")}}
+    res, text, s, _ = run_tool(abtest, ["--ab", "grid", "--workdir",
+                                        str(WORK / "abtest")], "abtest",
+                               totals)
+    out["abtest"] = {"seconds": s, **json.loads(text.strip().splitlines()[-1])}
+    phase("verify_train", card=card(), **out)
+
+
+def verify_data_phase(egs_dir, totals):
+    """The host data tools on the egs phase's files: tools.gputest (to the
+    card), tools.dltest plain / --workers 2 / --process-workers 2,
+    egstools analyze / verify, nscheck and csrdump."""
+    from kaldi_fp16_tpu_torch.tools import (
+        csrdump, dltest, egstools, gputest, nscheck,
+    )
+    arks = str(egs_dir / "cegs.*.ark")
+    files = sorted(str(f) for f in egs_dir.glob("cegs.*.ark"))
+    res, _, s, _ = run_tool(gputest, ["--egs", arks, "--pdfs", str(P)],
+                            "gputest", totals)
+    out = {"gputest": {k: res[k] for k in ("parse_ms", "batch_mb",
+                                           "batch_ms", "raw_gb_per_s",
+                                           "bit_exact")}}
+    errs = {}
+    for tag, extra in (("plain", []), ("workers_2", ["--workers", "2"]),
+                       ("process_workers_2", ["--process-workers", "2"])):
+        res, _, s, _ = run_tool(dltest, [arks] + extra, f"dltest_{tag}",
+                                totals)
+        errs[tag] = res["bf16_max_err"]
+        out[f"dltest_{tag}"] = {"batches": res["batches"],
+                                "frames_per_s": res["frames_per_s"],
+                                "bf16_max_err": res["bf16_max_err"]}
+    if len(set(errs.values())) != 1:
+        raise AssertionError(f"dltest's loaders disagree: {errs}")
+    for cmd in ("analyze", "verify"):
+        _, text, s, _ = run_tool(egstools, [cmd] + files, f"egstools_{cmd}",
+                                 totals)
+        out[f"egstools_{cmd}"] = text.strip().splitlines()[:2]
+    _, text, _, _ = run_tool(nscheck, [arks], "nscheck", totals)
+    out["nscheck_lines"] = len(text.splitlines())
+    _, text, _, _ = run_tool(csrdump, [arks], "csrdump", totals)
+    out["csrdump_lines"] = len(text.splitlines())
+    phase("verify_data", card=card(), **out)
+
+
 def main():
     dev = device_phase()
     build_phase()
@@ -2826,6 +3117,11 @@ def main():
     stream_encode_phase(dev)
     att_launches = attention_phase(dev, graph, fused)
     sw_launches, sw_err = synthwer_phase(dev)
+    verify = {}
+    verify_chain_phase(egs_dir, verify)
+    verify_net_phase(verify)
+    verify_train_phase(egs_dir, verify)
+    verify_data_phase(egs_dir, verify)
     src = "kaldi_fp16_tpu_torch/csrc/"
     F, n = k["F"], k["n"]
     mm_io = 4 * 2 * F * n                     # v read, out written
@@ -2843,17 +3139,18 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("den_matmul", "den_matmul.cu", KERNEL_REPLACES,
-              launches["den_matmul"] + sw_launches,
+              launches["den_matmul"] + sw_launches + verify["den_matmul"],
               max(k["kernel_max_abs_err_vs_plain"], sw_err),
               k["kernel_kernel_us"] / 1e3, k["kernel_plain_us"] / 1e3,
               mm_bound["kernel"], k["kernel_library_us"] / 1e3),
-        entry("den_matmul_pre", "den_matmul.cu", PRE_REPLACES, pre_launches,
+        entry("den_matmul_pre", "den_matmul.cu", PRE_REPLACES,
+              pre_launches + verify["den_matmul_pre"],
               k["pre_max_abs_err_vs_plain"], k["pre_kernel_us"] / 1e3,
               k["pre_plain_us"] / 1e3, mm_bound["pre"],
               k["pre_library_us"] / 1e3),
         entry("den_scan_fwd", "den_scan.cu", SCAN_REPLACES["fwd"],
               fused_launches["den_scan_fwd"] + dp_launches["den_scan_fwd"]
-              + att_launches["den_scan_fwd"],
+              + att_launches["den_scan_fwd"] + verify["den_scan_fwd"],
               max(v for errs in (scan["kernel_max_abs_err"],
                                  den_check["scan_max_abs_err"])
                   for n, v in errs.items() if n != "beta_hist"),
@@ -2861,13 +3158,14 @@ def main():
               scan["fwd_bound"], None),
         entry("den_scan_bwd", "den_scan.cu", SCAN_REPLACES["bwd"],
               fused_launches["den_scan_bwd"] + dp_launches["den_scan_bwd"]
-              + att_launches["den_scan_bwd"],
+              + att_launches["den_scan_bwd"] + verify["den_scan_bwd"],
               max(scan["kernel_max_abs_err"]["beta_hist"],
                   den_check["scan_max_abs_err"]["beta_hist"]),
               scan["kernel_bwd_ms"], scan["kernel_bwd_plain_ms"],
               scan["bwd_bound"], None),
         entry("segment_reduce", "segment_reduce.cu", REDUCE_REPLACES,
-              red_launches, red["max_abs_err"], red["sorted"]["ms"],
+              red_launches + verify["segment_reduce"], red["max_abs_err"],
+              red["sorted"]["ms"],
               red["sorted"]["plain_ms"], red["sorted"]["bound"],
               red["sorted"]["library_ms"]),
     ]}), flush=True)

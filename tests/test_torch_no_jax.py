@@ -13,10 +13,10 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 # the production loop's, the decoding path's, the serving path's, the
-# data-parallel path's and the model interchange's modules (data path,
-# NG-SGD, trainer, checkpoint, decoders, streaming, process groups, the
-# nnet3 container and loader, tools): each must be among the modules the
-# script imports
+# data-parallel path's, the model interchange's and the verification
+# harness's modules (data path, NG-SGD, trainer, checkpoint, decoders,
+# streaming, process groups, the nnet3 container and loader, tools): each
+# must be among the modules the script imports
 REQUIRED = [
     "kaldi_fp16_tpu_torch.io." + m for m in (
         "kaldi_io", "fst", "matrix", "egs", "native", "batch", "dataloader",
@@ -47,6 +47,14 @@ REQUIRED = [
     "kaldi_fp16_tpu_torch.tools.modeltools",
     "kaldi_fp16_tpu_torch.tools.loadtest",
     "kaldi_fp16_tpu_torch.tools.nnettest",
+] + [
+    # the verification harness and its numpy copy of utils/lowp.py
+    "kaldi_fp16_tpu_torch.tools." + m for m in (
+        "chainverify", "denverify", "chaintest", "fwdtest", "backtest",
+        "sgdtest", "traintest", "soak", "abtest", "gputest", "dltest",
+        "egstools", "nscheck", "csrdump")
+] + [
+    "kaldi_fp16_tpu_torch.utils.lowp",
 ]
 
 SCRIPT = """
@@ -75,6 +83,6 @@ def test_port_and_chip_smoke_import_without_jax():
                           cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # models x5, chain x7, ops x4, training x8, tools x16, io x9, utils x2,
+    # models x5, chain x7, ops x4, training x8, tools x31, io x9, utils x3,
     # decode x7, parallel x2, convert, device, the 9 subpackages
-    assert int(proc.stdout.strip()) >= 71
+    assert int(proc.stdout.strip()) >= 87
