@@ -21,7 +21,10 @@ trained network handed to Kaldi's nnet3 formats and back, and decoded
 through `tools.decode --model`; online through the streaming decoders and
 the streaming encoder; the flagship with a restricted-attention layer,
 trained and streamed; and the closed accuracy loop of `tools.synthwer`
-(train, then decode to words).
+(train, then decode to words).  Last, the verification harness's tools,
+the x-vector family (Adam, tools.xvectortrain), the train step with
+rematerialisation, and the measurement tools (trainbench, roofline,
+scalebench, profile_host, profile_latdecode, profile_den, a trace).
 Phases, one line of numbers each:
 
   1. device          the card (nvidia-smi name and power limit); TF32 off
@@ -175,12 +178,40 @@ Phases, one line of numbers each:
                      tools.dltest (in-line, --workers 2, --process-workers 2:
                      one bf16 error), egstools analyze / verify, nscheck and
                      csrdump on the egs phase's files
- 27. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 27. xvector         the x-vector family at XVectorConfig()'s widths with
+                     1024 speakers: 30 fp32 Adam steps (warmup + StepLR) at
+                     B = 64 x 300 frames, the loss on a fixed batch of 256
+                     utterances must fall; ms per step,
+                     peak memory; one fp32 loss + grad on the card against
+                     the CPU at B = 4 (rtol 1e-4), then two adam_update
+                     steps from that state on the same gradients, with and
+                     without weight decay, parameters and m / v held card
+                     against CPU (rtol 1e-4); tools.xvectortrain at its
+                     defaults (ok)
+ 28. remat           bench.py's step (B = 128, T_in = 150, fused den) with
+                     TrainConfig.remat off and on, same weights, batch and
+                     SpecAugment generator, 2 steps each: losses, grad
+                     norms and parameters at the JAX bars (rel 1e-6, 1e-5;
+                     rtol 1e-5 / atol 1e-7), the generator's state and the
+                     BN buffers equal; peak memory and ms of each
+ 29. measure         the measurement twins: tools.trainbench at B = 128
+                     (plain, --remat, --natural-gradient) and --topology
+                     random; tools.roofline at B = 128 on every stage (no
+                     share over 100 %); tools.scalebench --worlds 1,2
+                     (world 1 over NCCL, world 2 gloo ranks sharing the card);
+                     tools.profile_host --place on the egs phase's files;
+                     tools.profile_latdecode at its defaults (100,000
+                     states, B = 64, T = 300); tools.profile_den --impls
+                     high,pallas,fused; one trainbench step inside
+                     utils.profiling.trace, whose Chrome trace must name
+                     the den_scan kernels
+ 30. summary         the kernels' JSON line, then {"ok": true, "device": ...}
 
-The verify phases run each tool's main in this process (soak and abtest
-start tools.train processes), its output in build/chip_smoke/verify/; a
-FAIL line or a nonzero exit fails the run.  Their den_scan, den_matmul
-and segment_reduce launches count in the kernels line.
+The verify and measure phases run each tool's main in this process (soak
+and abtest start tools.train processes), its output in
+build/chip_smoke/verify/; a FAIL line or a nonzero exit fails the run.
+Their den_scan, den_matmul and segment_reduce launches, and the remat
+phase's, count in the kernels line.
 
 small_step_vs_cpu also holds a narrow NG step (patch-lowered convs) on
 the card against the CPU.
@@ -263,6 +294,13 @@ from kaldi_fp16_tpu_torch.tools import (
     synthwer,
 )
 from kaldi_fp16_tpu_torch.tools.dryrun_multichip import run_setup
+from kaldi_fp16_tpu_torch.models.xvector import (
+    XVectorConfig, init_xvector, xvector_forward, xvector_loss,
+)
+from kaldi_fp16_tpu_torch.training.schedulers import (
+    adam_update, init_adam_state, step_lr, warmup_lr,
+)
+from kaldi_fp16_tpu_torch.utils.profiling import profile_fn, trace
 from kaldi_fp16_tpu_torch.tools.profile_step import (
     supervision as bench_num_graph,
 )
@@ -273,7 +311,9 @@ from kaldi_fp16_tpu_torch.training.train_step import (
     TrainConfig, init_train_state, make_train_step,
 )
 from kaldi_fp16_tpu_torch.training.trainer import Trainer
-from kaldi_fp16_tpu_torch.utils.profiling import kernel_times
+from kaldi_fp16_tpu_torch.utils.profiling import (
+    H100_PEAK_BF16_FLOPS, H100_PEAK_HBM_BYTES, kernel_times,
+)
 
 ROOT = Path(__file__).resolve().parent
 B, T_IN, P, AN = 128, 150, 3080, 256
@@ -366,8 +406,6 @@ NARROW_NG_V = dict(rtol=1e-4, atol=1e-5)
 MP_FILES, MP_LOCAL_B, MP_STEPS = 4, 4, 2
 MP_HEARTBEAT_S, MP_TIMEOUT_S = 20, 300
 DP_JOIN_S = 600
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores, ibid.
 FLUSH_BYTES = 128 << 20          # > the 50 MB L2
 # the model of the attention phase: the flagship with one restricted
 # attention layer after tdnnf21, at the head and context widths of Kaldi's
@@ -421,8 +459,8 @@ def cuda_ms(fn, iters):
 
 def bound(nbytes, flops):
     """(least ms the card could take, "bytes" or "operations")."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / H100_PEAK_HBM_BYTES * 1e3
+    t_ops = flops / H100_PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3073,6 +3111,322 @@ def verify_data_phase(egs_dir, totals):
     phase("verify_data", card=card(), **out)
 
 
+# ---- the side stack and the measurement tools -----------------------------
+
+# the x-vector phase: XVectorConfig()'s widths with a 1024-speaker head, B
+# = 64 utterances of 300 frames drawn as tools.xvectortrain's synth_batch
+# does, its schedule (Adam, warmup 10, StepLR 60 x 0.5 from 2e-3); the
+# card-vs-CPU loss + grad at B = 4
+XV_SPEAKERS, XV_B, XV_T, XV_STEPS, XV_SMALL_B = 1024, 64, 300, 30, 4
+# remat against no remat: the JAX package's bars (tests/test_training.py:
+# 407-428); REMAT_STEPS of bench.py's step each
+REMAT_LOSS_RTOL, REMAT_GRAD_RTOL = 1e-6, 1e-5
+REMAT_PARAMS = dict(rtol=1e-5, atol=1e-7)
+REMAT_STEPS = 2
+MEASURE = WORK / "measure"
+# the den_scan kernels a profiled train step must show in its trace
+SCAN_KERNEL_NAMES = ("fwd_product_kernel", "fwd_update_kernel",
+                     "bwd_product_kernel", "bwd_update_kernel")
+
+
+def xvector_phase(dev, totals):
+    """The x-vector family at XVectorConfig()'s widths (feat 30, TDNN 512 x
+    4 + 1500, embedding 512, segments 512, 512) with 1024 speakers: 30
+    fp32 Adam steps at B = 64 x 300 frames with tools.xvectortrain's
+    schedule (warmup and StepLR); the loss on a fixed batch of 256
+    utterances (the tool's evaluation set) must fall.  In 30 steps each
+    of the 1024 speakers is drawn about twice, so the training batches'
+    own losses stay near ln 1024.  Then one fp32 loss + grad on the card
+    and on the CPU from the same weights at B = 4 (SMALL_RTOL), and two
+    adam_update steps from those weights on each device, fed the same
+    gradients (the CPU's, then the card's), with weight decay 0 and 1e-2:
+    parameters, m and v card against CPU at SMALL_RTOL, so the card's
+    Adam is the CPU's, which the tests hold to JAX's.
+    tools.xvectortrain at its defaults must report ok.  The forward on the
+    evaluation batch is timed by utils.profiling.profile_fn."""
+    from kaldi_fp16_tpu_torch.tools import xvectortrain
+    cfg = XVectorConfig(num_speakers=XV_SPEAKERS)
+    rng = np.random.default_rng(0)
+    centers = 2.0 * rng.normal(size=(XV_SPEAKERS, cfg.feat_dim))
+    eval_feats, eval_labels = (
+        torch.from_numpy(a).to(dev) for a in xvectortrain.synth_batch(
+            rng, centers, 256, XV_T, cfg.feat_dim))
+    params = init_xvector(cfg, torch.Generator().manual_seed(0), dev)
+
+    def eval_loss():
+        with torch.no_grad():
+            return float(xvector_loss(cfg, params, eval_feats, eval_labels))
+
+    eval_before = eval_loss()
+    n_params = sum(w.numel() for p in params.values() for w in p.values())
+    opt = init_adam_state(params)
+    sched = warmup_lr(step_lr(2e-3, 60, gamma=0.5), 10)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for step in range(XV_STEPS):
+        feats, labels = (torch.from_numpy(a).to(dev) for a in
+                         xvectortrain.synth_batch(rng, centers, XV_B, XV_T,
+                                                  cfg.feat_dim))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt, loss = xvectortrain.train_step(cfg, params, opt, feats, labels,
+                                            float(np.float32(sched(step))))
+        end.record()
+        end.synchronize()
+        losses.append(float(loss))
+        if step:
+            ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    eval_after = eval_loss()
+    with torch.no_grad():
+        fwd = profile_fn(xvector_forward, cfg, params, eval_feats, iters=5)
+    if not (np.all(np.isfinite(losses)) and eval_after < eval_before):
+        raise AssertionError(f"x-vector loss did not fall: evaluation "
+                             f"{eval_before} -> {eval_after}, training "
+                             f"{losses}")
+
+    # fp32 loss + grad, card against CPU, from the same weights
+    small = {}
+    init = init_xvector(cfg, torch.Generator().manual_seed(1), "cpu")
+    feats, labels = xvectortrain.synth_batch(rng, centers, XV_SMALL_B, XV_T,
+                                             cfg.feat_dim)
+    for tag, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        p = {k: {n: w.detach().to(d).requires_grad_() for n, w in g.items()}
+             for k, g in init.items()}
+        loss = xvector_loss(cfg, p, torch.from_numpy(feats).to(d),
+                            torch.from_numpy(labels).to(d))
+        loss.backward()
+        small[tag] = (float(loss.detach()),
+                      {f"{k}/{n}": w.grad.cpu().numpy()
+                       for k, g in p.items() for n, w in g.items()})
+    np.testing.assert_allclose(small["card"][0], small["cpu"][0],
+                               rtol=SMALL_RTOL, err_msg="x-vector loss")
+    worst = 0.0
+    for k, ref in small["cpu"][1].items():
+        got = small["card"][1][k]
+        scale = float(np.abs(ref).max())
+        np.testing.assert_allclose(got, ref, rtol=SMALL_RTOL,
+                                   atol=SMALL_RTOL * scale, err_msg=k)
+        worst = max(worst, float(np.abs(got - ref).max()) / scale)
+
+    adam_worst = {}
+    for wd in (0.0, 1e-2):
+        state = {}
+        for tag, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            p = {k: {n: w.detach().clone().to(d) for n, w in g.items()}
+                 for k, g in init.items()}
+            opt = init_adam_state(p)
+            for grads in (small["cpu"][1], small["card"][1]):
+                p, opt = adam_update(
+                    p, {k: {n: torch.from_numpy(grads[f"{k}/{n}"]).to(d)
+                            for n in g} for k, g in p.items()},
+                    opt, 1e-3, weight_decay=wd)
+            if int(opt["step"]) != 2:
+                raise AssertionError(f"adam_update on {tag}: step "
+                                     f"{int(opt['step'])}")
+            state[tag] = {f"{what}/{k}/{n}": w.cpu().numpy()
+                          for what, tree in (("w", p), ("m", opt["m"]),
+                                             ("v", opt["v"]))
+                          for k, g in tree.items() for n, w in g.items()}
+        adam_worst[str(wd)] = 0.0
+        for k, ref in state["cpu"].items():
+            got = state["card"][k]
+            scale = float(np.abs(ref).max()) or 1.0
+            np.testing.assert_allclose(got, ref, rtol=SMALL_RTOL,
+                                       atol=SMALL_RTOL * scale,
+                                       err_msg=f"adam_update wd {wd}: {k}")
+            adam_worst[str(wd)] = max(adam_worst[str(wd)],
+                                      float(np.abs(got - ref).max()) / scale)
+
+    res, _, s, _ = run_tool(xvectortrain, [], "xvectortrain", totals)
+    if not res["ok"]:
+        raise AssertionError(f"tools.xvectortrain: {res}")
+    phase("xvector", card=card(), parameters=n_params, B=XV_B, T=XV_T,
+          speakers=XV_SPEAKERS, steps=XV_STEPS,
+          eval_loss={"before": eval_before, "after": eval_after},
+          eval_forward_256=fwd,
+          losses=losses,
+          step_ms=float(np.mean(ms)), step_ms_each=ms,
+          max_memory_allocated_bytes=peak,
+          card_vs_cpu={"B": XV_SMALL_B, "loss": small["card"][0],
+                       "loss_rel_diff": abs(small["card"][0]
+                                            - small["cpu"][0])
+                       / abs(small["cpu"][0]),
+                       "grad_max_abs_diff_over_max": worst,
+                       "adam_2_steps_max_abs_diff_over_max": adam_worst},
+          xvectortrain={k: v for k, v in res.items() if k != "losses"},
+          xvectortrain_seconds=s)
+
+
+def remat_phase(dev, graph, totals):
+    """bench.py's step at flagship width (B = 128, T_in = 150, the default
+    den: the fused scans) with remat off and on, from the same weights,
+    batch and SpecAugment generator, REMAT_STEPS steps each, cuDNN
+    deterministic: losses, grad norms and parameters at the JAX bars, the
+    generator's state and the BN buffers equal, 1 + 1 den_scan launches
+    per step; peak memory and step ms of each (the recompute rebuilds the
+    activations in the backward, so the peak need not fall)."""
+    rng = np.random.default_rng(0)
+    model = build_model(FLAGSHIP)
+    den = DenominatorComputation(graph, leaky=1e-5, device=dev)
+    num_graph = bench_num_graph(B, T_OUT, AN, P, rng)
+    batch = {
+        "features": torch.from_numpy(
+            rng.normal(size=(B, T_IN, 40)).astype(np.float32)).to(dev),
+        "ivectors": torch.from_numpy(
+            rng.normal(size=(B, 100)).astype(np.float32)).to(dev),
+        "weights": torch.ones(B, device=dev),
+    }
+    runs = {}
+    zero_launches()
+    with train_tool.deterministic_cudnn():
+        for remat in (False, True):
+            config = TrainConfig(learning_rate=1e-3, momentum=0.9,
+                                 frame_subsampling_factor=STRIDE,
+                                 left_context=LEFT, remat=remat)
+            net, opt, scale = init_train_state(
+                model, torch.Generator().manual_seed(0), config, dev)
+            step = make_train_step(model, net, den, num_graph,
+                                   ChainTrainingOpts(), config,
+                                   num_frames_out=T_OUT)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            outs, ms = [], []
+            for _ in range(REMAT_STEPS):
+                before = den_scan.fused_forward.launches
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                opt, scale, out = step(opt, scale, batch, generator=gen)
+                end.record()
+                end.synchronize()
+                if den_scan.fused_forward.launches - before != 1:
+                    raise AssertionError("a remat-phase step did not take "
+                                         "the fused scans")
+                outs.append(out)
+                ms.append(start.elapsed_time(end))
+            runs[remat] = {
+                "loss": [float(o.loss) for o in outs],
+                "grad_norm": [float(o.grad_norm) for o in outs],
+                "ok": all(bool(o.ok) and not bool(o.skipped) for o in outs),
+                "params": {k: v.detach().cpu().numpy().copy()
+                           for k, v in net.state_dict().items()},
+                "generator": gen.get_state().clone(),
+                "step_ms": ms,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+            del net, opt, step
+            torch.cuda.empty_cache()
+    launches = kernel_launches()
+    for k, n in launches.items():
+        totals[k] = totals.get(k, 0) + n
+    if launches["den_scan_fwd"] != 2 * REMAT_STEPS or \
+            launches["den_scan_bwd"] != 2 * REMAT_STEPS:
+        raise AssertionError(f"remat phase launches {launches}")
+    plain, remat = runs[False], runs[True]
+    if not (plain["ok"] and remat["ok"]):
+        raise AssertionError("a remat-phase step was skipped or not ok")
+    np.testing.assert_allclose(remat["loss"], plain["loss"],
+                               rtol=REMAT_LOSS_RTOL, err_msg="remat loss")
+    np.testing.assert_allclose(remat["grad_norm"], plain["grad_norm"],
+                               rtol=REMAT_GRAD_RTOL,
+                               err_msg="remat grad_norm")
+    bn = [k for k in plain["params"]
+          if k.rsplit(".", 1)[-1] in ("count", "mean", "var")]
+    worst = 0.0
+    for k, v in plain["params"].items():
+        np.testing.assert_allclose(remat["params"][k], v, **REMAT_PARAMS,
+                                   err_msg=f"remat {k}")
+        worst = max(worst, float(np.abs(remat["params"][k] - v).max()))
+    if not all(np.array_equal(remat["params"][k], plain["params"][k])
+               for k in bn):
+        raise AssertionError("remat changed the BN buffers")
+    if not torch.equal(plain["generator"], remat["generator"]):
+        raise AssertionError("remat left the SpecAugment generator in "
+                             "another state")
+    phase("remat", card=card(), B=B, T_in=T_IN, steps=REMAT_STEPS,
+          losses=plain["loss"], grad_norms=plain["grad_norm"],
+          remat_losses=remat["loss"], param_max_abs_diff=worst,
+          bit_identical=all(np.array_equal(remat["params"][k], v)
+                            for k, v in plain["params"].items()),
+          bn_buffers_equal=True, generator_state_equal=True,
+          step_ms={"plain": plain["step_ms"], "remat": remat["step_ms"]},
+          max_memory_allocated_bytes={
+              "plain": plain["max_memory_allocated_bytes"],
+              "remat": remat["max_memory_allocated_bytes"]},
+          launches=launches)
+
+
+def measure_phase(egs_dir, totals):
+    """The measurement twins in this process: trainbench at B = 128
+    (plain, --remat, --natural-gradient; 5 iterations) and with the random
+    topology (the blocked den, the segment_reduce kernel) at its default
+    batch; roofline at B = 128 on every stage (no share over 100 %);
+    scalebench at worlds 1 and 2 on the card (NCCL, then two gloo ranks
+    sharing it); profile_host on the egs phase's files with --place;
+    profile_latdecode at its defaults; profile_den --impls
+    high,pallas,fused; one trainbench step inside utils.profiling.trace,
+    whose Chrome trace must name the den_scan kernels."""
+    from kaldi_fp16_tpu_torch.tools import (
+        profile_den, profile_host, profile_latdecode, roofline, scalebench,
+        trainbench,
+    )
+    out = {}
+    for tag, extra in (("plain", []), ("remat", ["--remat"]),
+                       ("natural_gradient", ["--natural-gradient"])):
+        res, _, s, n = run_tool(trainbench, ["--batch", str(B), "--iters",
+                                             "5"] + extra,
+                                f"trainbench_{tag}", totals)
+        if res["detail"]["scan_used"] != "fused" or not n["den_scan_fwd"]:
+            raise AssertionError(f"trainbench {tag}: {res['detail']}, {n}")
+        out[f"trainbench_{tag}"] = {**res, "seconds": s, "launches": n}
+    res, _, s, n = run_tool(trainbench, ["--topology", "random"],
+                            "trainbench_random", totals)
+    if res["detail"]["posterior_reduce"] != "kernel" or \
+            not n["segment_reduce"]:
+        raise AssertionError(f"trainbench random: {res['detail']}, {n}")
+    out["trainbench_random"] = {**res, "seconds": s, "launches": n}
+    res, _, s, n = run_tool(roofline, ["--batch", str(B)], "roofline",
+                            totals)
+    out["roofline"] = {"rows": res["rows"], "seconds": s}
+    res, _, s, _ = run_tool(scalebench, ["--worlds", "1,2"], "scalebench",
+                            totals)
+    ranks = [(p["devices"], p["backend"], p["device"].split(":")[0])
+             for p in res["points"]]
+    if ranks != [(1, "nccl", "cuda"), (2, "gloo", "cuda")]:
+        raise AssertionError(f"scalebench: worlds, backends, devices "
+                             f"{ranks}")
+    out["scalebench"] = {**res, "seconds": s}
+    res, _, s, _ = run_tool(profile_host, [
+        "--egs-dir", str(egs_dir), "--batch", str(B), "--frames-in",
+        str(EGS_T_IN), "--frames-out", str(EGS_T_OUT), "--pdfs", str(P),
+        "--place"], "profile_host", totals)
+    out["profile_host"] = {**res, "seconds": s}
+    res, _, s, _ = run_tool(profile_latdecode, [], "profile_latdecode",
+                            totals)
+    out["profile_latdecode"] = {**res, "seconds": s}
+    res, _, s, n = run_tool(profile_den, ["--impls", "high,pallas,fused"],
+                            "profile_den", totals)
+    out["profile_den"] = {**res, "seconds": s, "launches": n}
+
+    logdir = MEASURE / "trace"
+    with trace(str(logdir)):
+        res, _, _, n = run_tool(trainbench, ["--batch", str(B), "--iters",
+                                             "1"], "trainbench_traced",
+                                totals)
+    events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    missing = [k for k in SCAN_KERNEL_NAMES
+               if not any(k in name for name in names)]
+    if missing:
+        raise AssertionError(f"the trace names no {missing}")
+    out["trace"] = {"events": len(events), "scan_kernels_named":
+                    list(SCAN_KERNEL_NAMES), "launches": n,
+                    "bytes": (logdir / "trace.json").stat().st_size}
+    phase("measure", card=card(), **out)
+
+
 def main():
     dev = device_phase()
     build_phase()
@@ -3117,11 +3471,14 @@ def main():
     stream_encode_phase(dev)
     att_launches = attention_phase(dev, graph, fused)
     sw_launches, sw_err = synthwer_phase(dev)
-    verify = {}
-    verify_chain_phase(egs_dir, verify)
-    verify_net_phase(verify)
-    verify_train_phase(egs_dir, verify)
-    verify_data_phase(egs_dir, verify)
+    tools = {}          # the launches of the tool and side-stack phases
+    verify_chain_phase(egs_dir, tools)
+    verify_net_phase(tools)
+    verify_train_phase(egs_dir, tools)
+    verify_data_phase(egs_dir, tools)
+    xvector_phase(dev, tools)
+    remat_phase(dev, graph, tools)
+    measure_phase(egs_dir, tools)
     src = "kaldi_fp16_tpu_torch/csrc/"
     F, n = k["F"], k["n"]
     mm_io = 4 * 2 * F * n                     # v read, out written
@@ -3139,18 +3496,18 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("den_matmul", "den_matmul.cu", KERNEL_REPLACES,
-              launches["den_matmul"] + sw_launches + verify["den_matmul"],
+              launches["den_matmul"] + sw_launches + tools["den_matmul"],
               max(k["kernel_max_abs_err_vs_plain"], sw_err),
               k["kernel_kernel_us"] / 1e3, k["kernel_plain_us"] / 1e3,
               mm_bound["kernel"], k["kernel_library_us"] / 1e3),
         entry("den_matmul_pre", "den_matmul.cu", PRE_REPLACES,
-              pre_launches + verify["den_matmul_pre"],
+              pre_launches + tools["den_matmul_pre"],
               k["pre_max_abs_err_vs_plain"], k["pre_kernel_us"] / 1e3,
               k["pre_plain_us"] / 1e3, mm_bound["pre"],
               k["pre_library_us"] / 1e3),
         entry("den_scan_fwd", "den_scan.cu", SCAN_REPLACES["fwd"],
               fused_launches["den_scan_fwd"] + dp_launches["den_scan_fwd"]
-              + att_launches["den_scan_fwd"] + verify["den_scan_fwd"],
+              + att_launches["den_scan_fwd"] + tools["den_scan_fwd"],
               max(v for errs in (scan["kernel_max_abs_err"],
                                  den_check["scan_max_abs_err"])
                   for n, v in errs.items() if n != "beta_hist"),
@@ -3158,13 +3515,13 @@ def main():
               scan["fwd_bound"], None),
         entry("den_scan_bwd", "den_scan.cu", SCAN_REPLACES["bwd"],
               fused_launches["den_scan_bwd"] + dp_launches["den_scan_bwd"]
-              + att_launches["den_scan_bwd"] + verify["den_scan_bwd"],
+              + att_launches["den_scan_bwd"] + tools["den_scan_bwd"],
               max(scan["kernel_max_abs_err"]["beta_hist"],
                   den_check["scan_max_abs_err"]["beta_hist"]),
               scan["kernel_bwd_ms"], scan["kernel_bwd_plain_ms"],
               scan["bwd_bound"], None),
         entry("segment_reduce", "segment_reduce.cu", REDUCE_REPLACES,
-              red_launches + verify["segment_reduce"], red["max_abs_err"],
+              red_launches + tools["segment_reduce"], red["max_abs_err"],
               red["sorted"]["ms"],
               red["sorted"]["plain_ms"], red["sorted"]["bound"],
               red["sorted"]["library_ms"]),

@@ -8,7 +8,10 @@ nf_out] in JAX, OIHW [nf_out, nf_in, kt, kh] in the port.
 `train_state_from_jax` / `train_state_to_numpy` and
 `data_position_from_jax` carry a whole training state (velocities, step
 count, NG states, loss scale, data position) across, so a JAX checkpoint
-continues in the port.
+continues in the port.  The x-vector family's parameters
+(`xvector_params_from_jax` / `_to_numpy`) and an Adam state
+(`adam_state_from_jax` / `_to_numpy`) share the JAX layout and cross
+unchanged.
 """
 
 from __future__ import annotations
@@ -153,3 +156,46 @@ def data_position_from_jax(pos):
     from kaldi_fp16_tpu_torch.training.checkpoint import DataPosition
     return DataPosition(epoch=int(pos.epoch), file_index=int(pos.file_index),
                         batches_consumed=int(pos.batches_consumed))
+
+
+def _tensors(tree, device, dtype=None, requires_grad=False):
+    """A nested dict of arrays -> the same dict of tensors on `device`."""
+    return {k: (_tensors(v, device, dtype, requires_grad)
+                if isinstance(v, dict) else
+                torch.tensor(np.asarray(v), dtype=dtype, device=device,
+                             requires_grad=requires_grad))
+            for k, v in tree.items()}
+
+
+def _arrays(tree):
+    """A nested dict of tensors -> the same dict of numpy arrays."""
+    return {k: (_arrays(v) if isinstance(v, dict)
+                else v.detach().cpu().numpy().copy())
+            for k, v in tree.items()}
+
+
+def xvector_params_from_jax(params: dict, device=None) -> dict:
+    """A JAX x-vector parameter tree ({layer: {"w": [in, out], "b"}}) ->
+    the port's: fp32 leaves that require grad, on `device` (default: the
+    current CUDA device)."""
+    from kaldi_fp16_tpu_torch.device import resolve_device
+    return _tensors(params, resolve_device(device), torch.float32, True)
+
+
+def xvector_params_to_numpy(params: dict) -> dict:
+    return _arrays(params)
+
+
+def adam_state_from_jax(state: dict, device=None) -> dict:
+    """A JAX Adam state ({"m", "v", "step"}) -> the port's, on `device`."""
+    from kaldi_fp16_tpu_torch.device import resolve_device
+    device = resolve_device(device)
+    return {"m": _tensors(state["m"], device, torch.float32),
+            "v": _tensors(state["v"], device, torch.float32),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def adam_state_to_numpy(state: dict) -> dict:
+    return {"m": _arrays(state["m"]), "v": _arrays(state["v"]),
+            "step": np.asarray(int(state["step"]), np.int32)}

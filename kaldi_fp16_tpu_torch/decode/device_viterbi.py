@@ -561,8 +561,10 @@ class DeviceLatticeDecoder:
         self._beam = torch.tensor(lattice_beam, dtype=torch.float32,
                                   device=self.device)
         # set by each decode_batch: "dense", "compact" or
-        # "compact-overflow" (compacted, over compact_cap, shipped dense)
+        # "compact-overflow" (compacted, over compact_cap, shipped dense),
+        # and the nonzero mask bytes a compaction found (None: dense)
         self.last_transfer = None
+        self.last_kept_bytes = None
 
     def masks(self, loglikes):
         """loglikes [B, T, P] -> (packed keep-masks [T, ceil(A/8), B]
@@ -576,9 +578,14 @@ class DeviceLatticeDecoder:
             return _lattice_masks_ckpt(self._g, ac_tpb, self._beam, B, chunk)
         return _lattice_masks(self._g, ac_tpb, self._beam, B)
 
-    def decode_batch(self, loglikes) -> List["object"]:
-        """loglikes [B, T, P] -> list of Lattice (already beam-pruned)."""
+    def decode_batch(self, loglikes, mark=None) -> List["object"]:
+        """loglikes [B, T, P] -> list of Lattice (already beam-pruned).
+
+        mark: called with a phase's name where it ends ("scans",
+        "compact_sync", "compact", "assembly", "gather"; a name may come
+        twice), e.g. a utils.profiling.PhaseClock."""
         from kaldi_fp16_tpu_torch.decode.lattice import ArcArrays, Lattice
+        mark = mark or (lambda name: None)
         if len(self.arcs.src) == 0:
             return [Lattice(num_nodes=1, arcs=[],
                             final_cost=np.array([np.inf]),
@@ -587,12 +594,13 @@ class DeviceLatticeDecoder:
         ll = _loglikes(loglikes, self.device)
         B, T, P = ll.shape
         packed, best = self.masks(ll)
+        mark("scans")
         nbytes_row = int(packed.shape[1])
         use_compact = (self.transfer == "compact"
                        or (self.transfer == "auto"
                            and packed.numel() > self.AUTO_COMPACT_BYTES))
         sparse_by_b = None
-        self.last_transfer = "dense"
+        self.last_transfer, self.last_kept_bytes = "dense", None
         if use_compact:
             # kept bits are ~0.1-5% dense at real lattice beams: ship the
             # nonzero bytes and their flat indices, not the whole mask
@@ -600,6 +608,8 @@ class DeviceLatticeDecoder:
             # 390 MB mask on an H100; nonzero 7 MB)
             flat = packed.view(-1)
             idx = torch.nonzero(flat).view(-1)
+            mark("compact_sync")
+            self.last_kept_bytes = int(idx.numel())
             self.last_transfer = "compact-overflow"
             if idx.numel() <= self.compact_cap:
                 self.last_transfer = "compact"
@@ -614,12 +624,14 @@ class DeviceLatticeDecoder:
                     for m in (bcol == b for b in range(B))]
         if sparse_by_b is None:
             packed = packed.cpu().numpy()               # [T, bits/8, B]
+        mark("compact")
         a = self.arcs
         A = len(a.src)
         S = self.arcs.num_states
         # acoustic costs: with the compact transfer, gather ONLY the kept
         # arcs' loglikes on the device instead of downloading [B, T, P]
         lls = None if sparse_by_b is not None else ll.cpu().numpy()
+        mark("gather")
         pending = []          # (ts, ais, uniq, inv) per b
         out = []
         for b in range(B):
@@ -647,6 +659,7 @@ class DeviceLatticeDecoder:
                 np.concatenate([start_key, src_keys, dst_keys]),
                 return_inverse=True)
             pending.append((ts, ais, uniq, inv))
+        mark("assembly")
 
         if lls is None:
             # one batched device gather for every kept arc of every b
@@ -669,6 +682,7 @@ class DeviceLatticeDecoder:
         else:
             ac_by_b = [lls[b, p[0], a.pdf[p[1]]]
                        for b, p in enumerate(pending)]
+        mark("gather")
 
         for b, (ts, ais, uniq, inv) in enumerate(pending):
             n = len(uniq)
@@ -686,4 +700,5 @@ class DeviceLatticeDecoder:
                 final[at_T] = fc
             out.append(Lattice(num_nodes=n, arcs=arcs, final_cost=final,
                                node_frame=frames))
+        mark("assembly")
         return out

@@ -248,14 +248,20 @@ def _direct_conv_ok(spec: ConvReluBNSpec) -> bool:
 class NGContext:
     """Collects, per natural-gradient site ("<layer>/<param>"), the matmul
     input X (`xs`) and, once the backward has run, the gradient G of the
-    site's fp32 pre-activation output (`gs`)."""
+    site's fp32 pre-activation output (`gs`).  Once `frozen`, sites record
+    nothing: a rematerialised forward (TrainConfig.remat) re-runs them
+    during the backward, and must neither replace X nor hook a second
+    output."""
 
     def __init__(self):
         self.xs: Dict[str, torch.Tensor] = {}
         self.gs: Dict[str, torch.Tensor] = {}
+        self.frozen = False
 
     def site(self, name: str, x: torch.Tensor,
              out: torch.Tensor) -> torch.Tensor:
+        if self.frozen:
+            return out
         self.xs[name] = x.detach()
         if out.requires_grad:
             out.register_hook(lambda g, name=name: self.gs.__setitem__(name, g))
@@ -459,6 +465,30 @@ def spec_augment_masks(spec: SpecAugmentSpec, B: int, T: int,
                & (t_idx < (starts + widths)[:, :, None])).any(dim=1)
         t_keep = ~hit
     return f_keep, t_keep
+
+
+def _draw_masks(spec: SpecAugmentSpec, B: int, T: int,
+                generator: torch.Generator, device, group=None):
+    """One SpecAugment layer's masks as the forward draws them: for the
+    global batch under a data group, of which this rank keeps its rows."""
+    world = group.world if group is not None else 1
+    masks = spec_augment_masks(spec, B * world, T, generator, device)
+    return masks if group is None else spec_rows(masks, group)
+
+
+def draw_spec_masks(model: Model, B: int, T: int,
+                    generator: torch.Generator, device=None,
+                    group=None) -> dict:
+    """{layer: masks} of every SpecAugment layer, drawn from `generator` in
+    the order and with the shapes the forward draws them (SpecAugment runs
+    at the input's frame rate, T frames), so that `forward(spec_masks=...)`
+    equals `forward(generator=...)` and leaves the generator in the same
+    state."""
+    device = resolve_device(device)
+    return {layer.name: _draw_masks(layer.spec, B, T, generator, device,
+                                    group)
+            for layer in model.execution_order()
+            if layer.type == LayerType.SPEC_AUGMENT}
 
 
 def _fwd_spec_augment(x: torch.Tensor, masks) -> torch.Tensor:
@@ -769,11 +799,8 @@ class Network(nn.Module):
                 if train and spec_masks is not None and layer.name in spec_masks:
                     masks = spec_masks[layer.name]
                 elif train and generator is not None:
-                    world = group.world if group is not None else 1
-                    masks = spec_augment_masks(s, B * world, x.shape[1],
-                                               generator, x.device)
-                    if group is not None:
-                        masks = spec_rows(masks, group)
+                    masks = _draw_masks(s, B, x.shape[1], generator,
+                                        x.device, group)
                 out = x if masks is None else _fwd_spec_augment(x, masks)
             elif t == LayerType.COMBINE_FEATURE_MAPS:
                 out = _fwd_combine_feature_maps(s, x)

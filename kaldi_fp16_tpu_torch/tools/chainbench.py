@@ -21,16 +21,16 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 import numpy as np
 import torch
 
 from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
-from kaldi_fp16_tpu_torch.chain.graph import (
-    LOG_ZERO, DenominatorGraph, NumeratorGraphBatch, make_phone_lm_den_fst,
-)
+from kaldi_fp16_tpu_torch.chain.graph import LOG_ZERO, NumeratorGraphBatch
 from kaldi_fp16_tpu_torch.chain.numerator import numerator_forward_backward
+from kaldi_fp16_tpu_torch.tools._common import (
+    DEN_ARCS, DEN_STATES, den_graph, time_ms,
+)
 
 
 def parse_args(argv=None):
@@ -38,8 +38,8 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--frames", type=int, default=50)  # post-subsampling
     ap.add_argument("--pdfs", type=int, default=3080)
-    ap.add_argument("--den-states", type=int, default=7052)
-    ap.add_argument("--den-arcs", type=int, default=113380)
+    ap.add_argument("--den-states", type=int, default=DEN_STATES)
+    ap.add_argument("--den-arcs", type=int, default=DEN_ARCS)
     ap.add_argument("--num-arcs", type=int, default=256)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--topology", default="random",
@@ -64,21 +64,8 @@ def parse_args(argv=None):
 def make_graph(args, rng):
     """tools/chainbench.py:60-86: the phone-LM den graph, or a uniformly
     random one at den.fst scale."""
-    P, S, A = args.pdfs, args.den_states, args.den_arcs
-    if args.topology == "phone-lm":
-        kw = {} if P >= 3080 else dict(
-            num_phones=max(2, P // 2), states_per_phone=2,
-            branching=min(8, max(2, P // 4)))
-        return DenominatorGraph.from_fst(make_phone_lm_den_fst(num_pdfs=P,
-                                                               **kw), P)
-    dst = np.sort(rng.integers(0, S, size=A).astype(np.int32))
-    return DenominatorGraph(
-        src=rng.integers(0, S, size=A).astype(np.int32), dst=dst,
-        pdf=rng.integers(0, P, size=A).astype(np.int32),
-        prob=rng.uniform(0.1, 1.0, size=A).astype(np.float32),
-        initial=(lambda v: v / v.sum())(
-            rng.uniform(0, 1, S).astype(np.float32)),
-        num_states=S, num_pdfs=P, start_state=0)
+    return den_graph(args.topology, args.pdfs, args.den_states,
+                     args.den_arcs, rng)
 
 
 def make_num_graph(B, T, P, num_arcs, rng):
@@ -95,25 +82,6 @@ def make_num_graph(B, T, P, num_arcs, rng):
         final_logw=np.where(np.arange(Sn)[None, :] == Sn - 1, 0.0,
                             LOG_ZERO).astype(np.float32).repeat(B, 0),
         num_states=Sn, num_arcs=An)
-
-
-def time_ms(fn, iters, dev):
-    """Mean milliseconds per call after one warm-up: CUDA events on a
-    card, the host clock on the CPU."""
-    fn()
-    if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def main(argv=None):

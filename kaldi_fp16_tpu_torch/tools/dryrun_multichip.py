@@ -74,9 +74,13 @@ def _numpy(tree):
 def run_setup(setup: Setup, group=None, device=None) -> dict:
     """Run `setup` on this process (group None) on `device` (default: the
     current CUDA device), or as this rank of `group` on the group's
-    device.  Returns numpy results: each step's outputs, the
-    final state_dict and NG states, the SpecAugment masks the forward
-    used (this rank's rows) and the data group's collectives per step."""
+    device.  Returns numpy results: each step's outputs and host
+    seconds (the step and the read of its outputs, which waits for the
+    device), the final state_dict and NG states, the SpecAugment masks
+    the forward used (this rank's rows) and the data group's collectives
+    per step."""
+    import time
+
     from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
     from kaldi_fp16_tpu_torch.chain.graph import DenominatorGraph
     from kaldi_fp16_tpu_torch.chain.objective import ChainTrainingOpts
@@ -124,16 +128,19 @@ def run_setup(setup: Setup, group=None, device=None) -> dict:
         return m
 
     setattr(network, drawn, record)
-    outputs, calls = [], []
+    outputs, calls, seconds = [], [], []
     try:
         for _ in range(setup.steps):
             before = group.calls if group is not None else 0
+            t0 = time.perf_counter()
             opt, scale, out = step(opt, scale, tensors, generator=gen)
             outputs.append({k: float(v) for k, v in out._asdict().items()})
+            seconds.append(time.perf_counter() - t0)
             calls.append((group.calls if group is not None else 0) - before)
     finally:
         setattr(network, drawn, draw)
-    return {"outputs": outputs, "calls_per_step": calls, "masks": masks,
+    return {"outputs": outputs, "step_seconds": seconds,
+            "calls_per_step": calls, "masks": masks,
             "device": str(device),
             "backend": group.backend if group is not None else None,
             "params": _numpy(net.state_dict()),
@@ -155,14 +162,15 @@ def _run_setups(group, setups):
 
 def run_on_ranks(setups: List[Setup], ranks: int,
                  join_seconds: Optional[float] = None, device=None,
-                 backend: Optional[str] = None) -> List[List[dict]]:
-    """Each setup on `ranks` spawned ranks of one process group, on
-    `device`'s kind (default: the cards, parallel/mesh.py's
-    `rank_devices`): results[rank][setup]."""
+                 backend: Optional[str] = None,
+                 rank0_here: bool = False) -> List[List[dict]]:
+    """Each setup on `ranks` ranks of one process group, on `device`'s
+    kind (default: the cards, parallel/mesh.py's `rank_devices`), spawned
+    but for rank 0 with rank0_here: results[rank][setup]."""
     from kaldi_fp16_tpu_torch.parallel.mesh import rank_devices, spawn_ranks
     return spawn_ranks(_run_setups, rank_devices(device, ranks, backend),
                        args=(setups,), backend=backend,
-                       join_seconds=join_seconds)
+                       join_seconds=join_seconds, rank0_here=rank0_here)
 
 
 def dryrun_setup(ranks: int) -> Setup:

@@ -2,9 +2,8 @@
 
 Port of kaldi_fp16_tpu/training/train_step.py (`TrainConfig` :51,
 `apply_natural_gradient` :97-138, `make_train_step` :141-364,
-`init_train_state` :367, `EvalStepOutput` / `make_eval_step` :385-490),
-without rematerialisation (`remat`), which is not ported yet.  Per step,
-as Kaldi NnetChainTrainer::TrainInternal:
+`init_train_state` :367, `EvalStepOutput` / `make_eval_step` :385-490).
+Per step, as Kaldi NnetChainTrainer::TrainInternal:
 
   features/ivectors -> Network.forward (bf16 compute, frame grid)
   -> supervision frames (stride 3 from left_context)
@@ -22,6 +21,18 @@ old BN statistics and leaves the NG states as they were (their counters
 do not advance).  The numerator graph is either fixed when the step is
 made or passed with each call, with that batch's left_context (the
 Trainer's path: the JAX package's `graph_in_args`).
+
+`remat` (the JAX package's jax.checkpoint of the forward, train_step.py
+:242 there) runs the network forward under torch.utils.checkpoint: its
+activations are recomputed in the backward instead of kept, which changes
+memory and never the numbers.  The forward has side effects that JAX's
+pure function has not, and the recompute must not repeat them: the
+SpecAugment masks are drawn before the checkpointed region (the
+generator then ends where a plain step leaves it), the NG sites are
+frozen once the first forward has recorded them, and BatchNorm's running
+statistics are those the first forward returned (the forward never writes
+them; the recompute's are discarded).  Under a data group the recompute
+repeats BatchNorm's all-reduces, on every rank alike.
 
 The step reads the device once, after the backward: whether the batch is
 skipped, whether the orthonormal constraint is due and, with NG, the
@@ -47,6 +58,7 @@ from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
 from kaldi_fp16_tpu_torch.chain.graph import NumeratorGraphBatch
@@ -57,7 +69,7 @@ from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.models.model import Model
 from kaldi_fp16_tpu_torch.models.network import (
     NGContext, Network, conv_weight_from_oihw, conv_weight_to_oihw,
-    grid_layers, ng_sites, trainable_mask,
+    draw_spec_masks, grid_layers, ng_sites, trainable_mask,
 )
 from kaldi_fp16_tpu_torch.models.xconfig import LayerType
 from kaldi_fp16_tpu_torch.parallel.data_parallel import (
@@ -99,6 +111,9 @@ class TrainConfig:
     orthonormal_interval: int = 4
     # run grid-eligible layers only at the supervision frame rate
     grid_subsample: bool = True
+    # rematerialize the network forward in the backward pass
+    # (torch.utils.checkpoint): trades FLOPs for activation memory
+    remat: bool = False
 
 
 class TrainStepOutput(NamedTuple):
@@ -305,10 +320,23 @@ def make_train_step(model: Model, net: Network,
         old_state = net.bn_state()
         net.zero_grad(set_to_none=True)
         ng = NGContext() if sites else None
-        outs, new_state = net(feats, ivecs, train=True, compute_dtype=dtype,
-                              time_subsample=time_subsample,
-                              spec_masks=spec_masks, generator=generator,
-                              ng=ng, group=group)
+        if config.remat and generator is not None and spec_masks is None:
+            spec_masks = draw_spec_masks(model, feats.shape[0],
+                                         feats.shape[1], generator, dev,
+                                         group)
+
+        def forward():
+            return net(feats, ivecs, train=True, compute_dtype=dtype,
+                       time_subsample=time_subsample, spec_masks=spec_masks,
+                       generator=generator, ng=ng, group=group)
+
+        if config.remat:
+            outs, new_state = torch.utils.checkpoint.checkpoint(
+                forward, use_reentrant=False)
+            if ng is not None:
+                ng.frozen = True
+        else:
+            outs, new_state = forward()
         out = pick_frames(outs[chain_head_name].float(),
                           chain_head_name in grid)
         objf, result, num_post = objf_fn(out, weights, dws_arg)

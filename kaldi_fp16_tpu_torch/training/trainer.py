@@ -59,6 +59,46 @@ _GRAPH_FIELDS = ("arc_src", "arc_dst", "arc_pdf", "arc_logw", "arc_mask",
                  "start", "final_logw")
 
 
+def upload_batch(batch: ChainBatch, device: torch.device,
+                 copy_stream=None):
+    """Copy a batch's arrays and numerator graph to `device`: on a card
+    from pinned host buffers with non_blocking copies on `copy_stream`.
+    Returns (arrays, num_graph) of device tensors; `wait_upload` makes
+    the current stream wait for them."""
+    host = dict(batch.arrays())
+    if batch.deriv_weights is not None:
+        host["deriv_weights"] = batch.deriv_weights
+    g = batch.num_graph
+    for name in _GRAPH_FIELDS:
+        host["graph/" + name] = getattr(g, name)
+    host = {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v)))
+            for k, v in host.items()}
+    if copy_stream is not None:
+        with torch.cuda.stream(copy_stream):
+            placed = {k: v.pin_memory().to(device, non_blocking=True)
+                      for k, v in host.items()}
+    else:
+        placed = {k: v.to(device) for k, v in host.items()}
+    graph = NumeratorGraphBatch(
+        **{name: placed.pop("graph/" + name) for name in _GRAPH_FIELDS},
+        num_states=g.num_states, num_arcs=g.num_arcs)
+    return placed, graph
+
+
+def wait_upload(placed, device: torch.device, copy_stream=None) -> None:
+    """Make the current stream wait for the uploads of `placed` on
+    `copy_stream` and mark its tensors as used there."""
+    if copy_stream is None:
+        return
+    main = torch.cuda.current_stream(device)
+    main.wait_stream(copy_stream)
+    arrays, graph = placed
+    for t in list(arrays.values()) + [getattr(graph, n)
+                                      for n in _GRAPH_FIELDS]:
+        t.record_stream(main)
+
+
 def exponential_lr(initial: float, final: float, num_steps: int
                    ) -> Callable[[int], float]:
     """Kaldi-style exponential decay lr(t) = li * (lf/li)^(t/T)."""
@@ -162,37 +202,7 @@ class Trainer:
         self._validate_geometry(batch)
         if self.group is not None and self.shard_batches:
             batch = shard_chain_batch(batch, self.group)
-        host = dict(batch.arrays())
-        if batch.deriv_weights is not None:
-            host["deriv_weights"] = batch.deriv_weights
-        g = batch.num_graph
-        for name in _GRAPH_FIELDS:
-            host["graph/" + name] = getattr(g, name)
-        host = {k: (v if isinstance(v, torch.Tensor)
-                    else torch.from_numpy(np.ascontiguousarray(v)))
-                for k, v in host.items()}
-        if self._cuda:
-            with torch.cuda.stream(self._copy_stream):
-                placed = {k: v.pin_memory().to(self.device, non_blocking=True)
-                          for k, v in host.items()}
-        else:
-            placed = {k: v.to(self.device) for k, v in host.items()}
-        graph = NumeratorGraphBatch(
-            **{name: placed.pop("graph/" + name) for name in _GRAPH_FIELDS},
-            num_states=g.num_states, num_arcs=g.num_arcs)
-        return placed, graph
-
-    def _consume(self, placed):
-        """Make the default stream wait for the uploads of `placed` and
-        mark its tensors as used there."""
-        if not self._cuda:
-            return
-        main = torch.cuda.current_stream(self.device)
-        main.wait_stream(self._copy_stream)
-        arrays, graph = placed
-        for t in list(arrays.values()) + [getattr(graph, n)
-                                          for n in _GRAPH_FIELDS]:
-            t.record_stream(main)
+        return upload_batch(batch, self.device, self._copy_stream)
 
     def _step_fn(self, batch: ChainBatch):
         """One step per supervision length (the step's num_frames_out)."""
@@ -211,7 +221,7 @@ class Trainer:
             placed = self.place_batch(batch)
         else:
             self._validate_geometry(batch)
-        self._consume(placed)
+        wait_upload(placed, self.device, self._copy_stream)
         arrays, graph = placed
         step = self._step_fn(batch)
         lr = (self.lr_schedule(self.global_step) if self.lr_schedule
@@ -267,7 +277,7 @@ class Trainer:
                 self.model, self.net, self.den, self.chain_opts, self.config,
                 num_frames_out=batch.frames_per_seq, group=self.group)
         placed = self.place_batch(batch)
-        self._consume(placed)
+        wait_upload(placed, self.device, self._copy_stream)
         arrays, graph = placed
         return self._steps[key](arrays, graph, batch.left_context)
 

@@ -1,5 +1,12 @@
 """Step timing on the host clock and, on a card, with CUDA events; the
-kernels of one call by name under torch.profiler.
+kernels of one call by name under torch.profiler; a Chrome trace of a
+block (`trace`); the latency of a call (`profile_fn`); the H100's peaks.
+
+`trace` and `profile_fn` port kaldi_fp16_tpu/utils/profiling.py:21 and
+:63.  `mxu_utilization` (:84) is not ported: it divides by the TPU v5e's
+MXU peak.  The H100's peaks are `H100_PEAK_BF16_FLOPS` and
+`H100_PEAK_HBM_BYTES` below, which chip_smoke's bounds and tools.roofline
+read.
 
 `StepTimer` ports kaldi_fp16_tpu/utils/profiling.py:32-61.  Over the timed
 steps (the first `skip_first` left out) it reports:
@@ -26,12 +33,18 @@ steps (the first `skip_first` left out) it reports:
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
+H100_PEAK_BF16_FLOPS = 989e12          # bf16 / fp16 tensor cores
+H100_PEAK_HBM_BYTES = 3.35e12          # HBM3 bytes per second
 
 
 class StepTimer:
@@ -117,3 +130,89 @@ def kernel_times(fn, device=None):
              e.device_time_total if cuda else e.self_cpu_time_total)
             for e in prof.key_averages()]
     return wall, sorted([r for r in rows if r[2] > 0], key=lambda r: -r[2])
+
+
+@contextlib.contextmanager
+def trace(logdir: str, device=None):
+    """Profile the block with torch.profiler (the host's activity and, with
+    a CUDA device, the card's) and write its Chrome trace to
+    logdir/trace.json; yields the profiler.  `device` None: the card when
+    there is one."""
+    cuda = (torch.cuda.is_available() if device is None
+            else torch.device(device).type == "cuda")
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def sync_device(device) -> None:
+    """Wait for the card's queued work; nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sync(out) -> None:
+    """Wait for the devices of the tensors in `out` (nested tuples, lists
+    and dicts); nothing for CPU tensors."""
+    devices = set()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            devices.add(x.device)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+
+    walk(out)
+    for d in devices:
+        sync_device(d)
+
+
+def profile_fn(fn: Callable, *args, iters: int = 20, warmup: int = 2) -> dict:
+    """Time fn(*args) after warm-up on the host clock, each call ended by a
+    sync of its outputs' devices: {mean_ms, p50_ms, min_ms}."""
+    out = fn(*args)
+    for _ in range(max(0, warmup - 1)):
+        out = fn(*args)
+    _sync(out)
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync(out)
+        times.append(time.perf_counter() - t0)
+    a = np.asarray(times)
+    return {"mean_ms": float(a.mean() * 1000),
+            "p50_ms": float(np.percentile(a, 50) * 1000),
+            "min_ms": float(a.min() * 1000)}
+
+
+class PhaseClock:
+    """Wall seconds per phase of a call that marks where each phase ends
+    (e.g. DeviceLatticeDecoder.decode_batch's `mark`): each mark syncs the
+    device, so a phase's time is its work's, and the phases sum to the
+    call from `start()` to the last mark."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.seconds: dict = {}
+        self._last = None
+
+    def start(self) -> "PhaseClock":
+        sync_device(self.device)
+        self.seconds = {}
+        self._last = time.perf_counter()
+        return self
+
+    def __call__(self, name: str) -> None:
+        sync_device(self.device)
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._last
+        self._last = now

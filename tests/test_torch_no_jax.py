@@ -13,8 +13,8 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 # the production loop's, the decoding path's, the serving path's, the
-# data-parallel path's, the model interchange's and the verification
-# harness's modules (data path, NG-SGD, trainer, checkpoint, decoders,
+# data-parallel path's, the model interchange's, the verification
+# harness's, the side stack's and the measurement tools' modules (data path, NG-SGD, trainer, checkpoint, decoders,
 # streaming, process groups, the nnet3 container and loader, tools): each
 # must be among the modules the script imports
 REQUIRED = [
@@ -55,6 +55,14 @@ REQUIRED = [
         "egstools", "nscheck", "csrdump")
 ] + [
     "kaldi_fp16_tpu_torch.utils.lowp",
+] + [
+    # the side stack and the measurement tools
+    "kaldi_fp16_tpu_torch.models.xvector", "kaldi_fp16_tpu_torch.ops.nn",
+    "kaldi_fp16_tpu_torch.ops.losses",
+] + [
+    "kaldi_fp16_tpu_torch.tools." + m for m in (
+        "xvectortrain", "trainbench", "roofline", "scalebench",
+        "profile_host", "profile_latdecode", "profile_den")
 ]
 
 SCRIPT = """
@@ -83,6 +91,6 @@ def test_port_and_chip_smoke_import_without_jax():
                           cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # models x5, chain x7, ops x4, training x8, tools x31, io x9, utils x3,
+    # models x6, chain x7, ops x6, training x8, tools x37, io x9, utils x3,
     # decode x7, parallel x2, convert, device, the 9 subpackages
-    assert int(proc.stdout.strip()) >= 87
+    assert int(proc.stdout.strip()) >= 96

@@ -64,11 +64,19 @@ def test_the_verification_twins_are_among_the_tools():
             "egstools", "nscheck", "csrdump"} <= set(TOOLS)
 
 
+def test_the_measurement_twins_are_among_the_tools():
+    assert {"xvectortrain", "trainbench", "roofline", "scalebench",
+            "profile_host", "profile_latdecode", "profile_den"} <= set(TOOLS)
+
+
 # each twin with a device, and the least argv it needs besides --device
 DEVICE_TWINS = [("chainverify", []), ("denverify", []), ("chaintest", []),
                 ("fwdtest", []), ("backtest", []), ("sgdtest", []),
                 ("traintest", []), ("gputest", []), ("soak", []),
-                ("abtest", ["--ab", "grid"])]
+                ("abtest", ["--ab", "grid"]), ("xvectortrain", []),
+                ("trainbench", []), ("roofline", []),
+                ("scalebench", []), ("profile_host", ["--place"]),
+                ("profile_latdecode", []), ("profile_den", [])]
 
 
 @pytest.mark.parametrize("tool,argv", DEVICE_TWINS,
