@@ -16,7 +16,8 @@ configs/train_flagship.sh's flags (NG-SGD, the xent head, loss scaling,
 the orthonormal constraint, checkpoints) at B = 128, killed and resumed;
 the same with --data-parallel 1, bench.py's step on two data-parallel
 ranks sharing the card, and the multi-process tools on the card.
-Then decoding: offline at HCLG scale and through `tools.decode`; the
+Then decoding: offline at HCLG scale in each layout (segment, ELL,
+tree-ELL), data-parallel on two ranks, and through `tools.decode`; the
 trained network handed to Kaldi's nnet3 formats and back, and decoded
 through `tools.decode --model`; online through the streaming decoders and
 the streaming encoder; the flagship with a restricted-attention layer,
@@ -104,13 +105,41 @@ Phases, one line of numbers each:
                      equal to the arc decoder at decodebench's defaults (S =
                      2048, P = 512, B = 32, T = 500); decode_audio_sec_per_s,
                      decode ms, launches per decode and peak memory
- 17. decode_tool     tools.decode's main --on-device, plainly and with
+ 17. decode_layouts  decode_hclg's graph and loglikes through the ELL and
+                     tree-ELL layouts (width 128): the tree Viterbi
+                     (checkpointed) and the ELL Viterbi (plain), and the
+                     segment and tree plain paths, equal to the segment
+                     decode bit for bit in best, words and alignment, and
+                     their repeats; the two tie graphs decode to the
+                     smallest arc id in every layout; the tree lattice
+                     (checkpointed, compact transfer) and the ELL lattice
+                     at B = 4 with the segment lattice's 1-best, equal to
+                     the same layout on the CPU (2 utterances) bit for
+                     bit, their arc instances that differ from the
+                     segment lattice's counted and, for the utterance
+                     with the most, each within float32 rounding of the
+                     keep threshold in a float64 recomputation (the
+                     layouts add in other orders); the tree windowed
+                     stream (window >= T, chunks of 32) equal to the
+                     offline decode; per layout ms per decode,
+                     decode_audio_sec_per_s, launches per decode, peak
+                     memory over held and the device ms split into
+                     scatter, gather, reduce and other; the profile_tree
+                     and profile_lattice twins' per-frame lines at their
+                     defaults
+ 18. decode_parallel two gloo ranks sharing the card, 8 rows each of
+                     decode_hclg's batch (loglikes made from the same
+                     seed): the segment and tree Viterbi decoders and the
+                     tree lattice decoder with mesh=, each rank's results
+                     for all 16 rows equal to one process's, one
+                     all-reduce per decode
+ 19. decode_tool     tools.decode's main --on-device, plainly and with
                      --nbest 3, on one of the egs phase's cegs files (512
                      utterances) through the flagship model and a 20000-state
                      HCLG-shaped graph written as an OpenFst file: every
                      utterance final, the lattices' 1-best equal to the
                      Viterbi words; the utterance count and wall seconds
- 18. kaldi_model     the trainer phase's network (its step-8 checkpoint)
+ 20. kaldi_model     the trainer phase's network (its step-8 checkpoint)
                      exported to nnet3 text and a binary .raw by
                      models/kaldi_loader.py, each loaded into a network of
                      another seed: parameters and BN buffers (counts as
@@ -122,7 +151,7 @@ Phases, one line of numbers each:
                      decode_tool phase's cegs file and graph: the words of
                      the network in memory, utterance for utterance;
                      seconds of export, parse, binary write, loads, MB
- 19. stream_decode   streaming decoding at decode_hclg's HCLG scale and
+ 21. stream_decode   streaming decoding at decode_hclg's HCLG scale and
                      loglikes: the incremental decoder fed 16 frames at a
                      time and in a ragged 5, 7, 12 schedule, and the
                      windowed decoder at window >= T, equal to the offline
@@ -131,12 +160,12 @@ Phases, one line of numbers each:
                      every feed, utterances equal to offline counted, peak
                      memory over what the phase holds at T = 500 and 1000);
                      tools.streambench's decode-only rows
- 20. stream_encode   the streaming encoder on the flagship network (random
+ 22. stream_encode   the streaming encoder on the flagship network (random
                      weights, seed 0, 100-dim ivectors, B = 8) at chunk_out
                      6, 16 and 32: fp32 against its offline_reference and
                      across chunk sizes, bf16 against its own oracle;
                      tools.streambench's encoder and pipeline rows
- 21. attention       the flagship with attention1 (15 heads, value 80, key
+ 23. attention       the flagship with attention1 (15 heads, value 80, key
                      40, context 5 + 1 + 2 at time-stride 3) after tdnnf21,
                      16,271,624 parameters: bench.py's step with the
                      default den, 1 warm-up + 3 timed, twice, in turns
@@ -147,12 +176,12 @@ Phases, one line of numbers each:
                      against the CPU (rtol 2e-4 / atol 2e-5 scalars, 1e-4 /
                      1e-5 parameters); the streaming encoder (B = 8,
                      chunk_out 16, fp32) against its offline reference
- 22. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
+ 24. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
                      and rescoring run of the JAX evidence: ok, the WER
                      trajectory, den_matmul launches (its den has L = 1,
                      F = 81: loop scans), the first batch's den against
                      the same den through plain matmuls
- 23. verify_chain    the verification harness, on the egs phase's files:
+ 25. verify_chain    the verification harness, on the egs phase's files:
                      tools.chainverify at its defaults (a strict CPU pass,
                      then the card), then on the 7052-state den.fst and its
                      cegs (T = 50, 3080 pdfs) on the card once per den path,
@@ -164,21 +193,21 @@ Phases, one line of numbers each:
                      repeats bit for bit); tools.denverify on that den.fst;
                      tools.chaintest on the flagship; tools.chainbench
                      --topology phone-lm at production scale
- 24. verify_net      tools.fwdtest on the flagship (B = 8, T = 150, 20
+ 26. verify_net      tools.fwdtest on the flagship (B = 8, T = 150, 20
                      iterations) with and without --bn-identity;
                      tools.backtest and tools.sgdtest on the card, TF32 off
- 25. verify_train    tools.traintest on the flagship at B = 128 over the egs
+ 27. verify_train    tools.traintest on the flagship at B = 128 over the egs
                      phase's cegs, 9 steps at lr 1e-4 (fused route, the
                      first batch's loss falls by its second visit, the
                      loop's train_audio_sec_per_s_per_chip); tools.soak on the
                      flagship (SIGKILL after 25 steps, --resume, run 1's
                      objf reproduced exactly; cut to 2 epochs and a
                      checkpoint every 20 steps); tools.abtest --ab grid
- 26. verify_data     tools.gputest (pageable and pinned copies to the card),
+ 28. verify_data     tools.gputest (pageable and pinned copies to the card),
                      tools.dltest (in-line, --workers 2, --process-workers 2:
                      one bf16 error), egstools analyze / verify, nscheck and
                      csrdump on the egs phase's files
- 27. xvector         the x-vector family at XVectorConfig()'s widths with
+ 29. xvector         the x-vector family at XVectorConfig()'s widths with
                      1024 speakers: 30 fp32 Adam steps (warmup + StepLR) at
                      B = 64 x 300 frames, the loss on a fixed batch of 256
                      utterances must fall; ms per step,
@@ -188,13 +217,13 @@ Phases, one line of numbers each:
                      without weight decay, parameters and m / v held card
                      against CPU (rtol 1e-4); tools.xvectortrain at its
                      defaults (ok)
- 28. remat           bench.py's step (B = 128, T_in = 150, fused den) with
+ 30. remat           bench.py's step (B = 128, T_in = 150, fused den) with
                      TrainConfig.remat off and on, same weights, batch and
                      SpecAugment generator, 2 steps each: losses, grad
                      norms and parameters at the JAX bars (rel 1e-6, 1e-5;
                      rtol 1e-5 / atol 1e-7), the generator's state and the
                      BN buffers equal; peak memory and ms of each
- 29. measure         the measurement twins: tools.trainbench at B = 128
+ 31. measure         the measurement twins: tools.trainbench at B = 128
                      (plain, --remat, --natural-gradient) and --topology
                      random; tools.roofline at B = 128 on every stage (no
                      share over 100 %); tools.scalebench --worlds 1,2
@@ -205,7 +234,7 @@ Phases, one line of numbers each:
                      high,pallas,fused; one trainbench step inside
                      utils.profiling.trace, whose Chrome trace must name
                      the den_scan kernels
- 30. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 32. summary         the kernels' JSON line, then {"ok": true, "device": ...}
 
 The verify and measure phases run each tool's main in this process (soak
 and abtest start tools.train processes), its output in
@@ -254,7 +283,8 @@ from kaldi_fp16_tpu_torch.chain.reference import (
 )
 from kaldi_fp16_tpu_torch.convert import params_to_numpy
 from kaldi_fp16_tpu_torch.decode.device_viterbi import (
-    DenseViterbiDecoder, DeviceLatticeDecoder, SparseViterbiDecoder,
+    NEG_INF, ArcGraph, DenseViterbiDecoder, DeviceLatticeDecoder,
+    SparseViterbiDecoder,
 )
 from kaldi_fp16_tpu_torch.decode.graph import DecodingGraph
 from kaldi_fp16_tpu_torch.decode.streaming import (
@@ -290,8 +320,8 @@ from kaldi_fp16_tpu_torch.models.kaldi_loader import (
 )
 from kaldi_fp16_tpu_torch.tools import (
     decode as decode_tool, decodebench, dryrun_multichip, loadtest,
-    make_synthetic_egs, modeltools, mpworker, ng_precision, streambench,
-    synthwer,
+    make_synthetic_egs, modeltools, mpworker, ng_precision, profile_lattice,
+    profile_tree, streambench, synthwer,
 )
 from kaldi_fp16_tpu_torch.tools.dryrun_multichip import run_setup
 from kaldi_fp16_tpu_torch.models.xvector import (
@@ -354,6 +384,9 @@ DEC_S, DEC_B, DEC_T, DEC_BEAM = 100_000, 16, 500, 4.0
 DENSE_S, DENSE_P, DENSE_B, DENSE_T, DENSE_E = 2048, 512, 32, 500, 8
 DEC_COST_RTOL = 1e-5             # fp32 path costs, card vs CPU
 DEC_ITERS = 2                    # timed decodes per decoder
+TREE_W = 128                     # the tree layout's row width
+ELL_LAT_B = 4                    # ELL lattices keep [T, S, B] alphas: 0.8 GB
+LAT_CPU_B = 2                    # a layout's lattices re-run on the CPU
 TOOL_S = 20_000                  # the decode tool's HCLG-shaped graph
 # streaming: tools/streambench.py's chunk sizes, window and batch; a ragged
 # feed schedule; encoder outputs for 96 frames (a multiple of every chunk)
@@ -2173,13 +2206,31 @@ def lattices_equal(a, b):
                     for f in fields))
 
 
+def decode_split(name: str) -> str:
+    """A decode kernel's share: "scatter" (scatter_reduce_'s amax / amin:
+    torch's scatter-like scatter_gather kernel), "gather" (torch.take,
+    gather, index), "reduce" (the axis max / min / argmax and sums:
+    reduce_kernel) or "other" (elementwise, fills, copies)."""
+    if "scatter_gather_internal_kernel<true" in name:
+        return "scatter"
+    if "take" in name or "gather" in name or "index" in name:
+        return "gather"
+    if "reduce_kernel" in name:
+        return "reduce"
+    return "other"
+
+
 def decode_profile(fn, dev):
-    """Device launches (kernels and copies), their summed device ms and
-    the three costliest kernels of one call of fn, under torch.profiler."""
+    """Device launches (kernels and copies), their summed device ms, the
+    ms of each decode_split share and the three costliest kernels of one
+    call of fn, under torch.profiler."""
     wall, rows = kernel_times(fn, dev)
+    split = {"scatter": 0.0, "gather": 0.0, "reduce": 0.0, "other": 0.0}
+    for name, _, us in rows:
+        split[decode_split(name)] += us / 1e3
     return {"launches": sum(r[1] for r in rows),
             "device_busy_ms": sum(r[2] for r in rows) / 1e3,
-            "profiled_wall_ms": wall,
+            "profiled_wall_ms": wall, "split_ms": split,
             "top": [[name[:60], n, us / 1e3] for name, n, us in rows[:3]]}
 
 
@@ -2307,6 +2358,348 @@ def decode_hclg_phase(dev):
           sparse_at_dense_shape_decode_audio_sec_per_s=dense_audio
           / (sparse_ms / 1e3))
     return graph, ll, card
+
+
+def arc_set(lat):
+    """tests/test_tpu_viterbi.py's `_arc_set`: a lattice's arcs as (frame,
+    ilabel, olabel, graph cost, acoustic cost) with costs to 1e-4."""
+    frames = lat.node_frame
+    a = lat.arcs
+    return {(int(frames[s]), int(i), int(o), round(float(g), 4),
+             round(float(c), 4))
+            for s, i, o, g, c in zip(a.src, a.ilabel, a.olabel,
+                                     a.graph_cost, a.acoustic_cost)}
+
+
+def tie_graphs():
+    """tests/test_tpu_viterbi.py:687 and :701: two arcs 0 -> 1 of equal
+    score (olabels 7 and 8), and nine equal-score arcs into one sink from
+    different sources (split over level-1 rows at width 2)."""
+    s = [FstState() for _ in range(3)]
+    s[0].arcs.append(FstArc(1, 0.5, 1, olabel=7))
+    s[0].arcs.append(FstArc(1, 0.5, 1, olabel=8))
+    s[1].arcs.append(FstArc(2, 0.0, 2, olabel=0))
+    s[2].final = 0.0
+    c = [FstState() for _ in range(11)]
+    for i in range(1, 10):
+        c[0].arcs.append(FstArc(1, 0.5, i, olabel=i))
+        c[i].arcs.append(FstArc(2, 0.5, 10, olabel=100 + i))
+    c[10].final = 0.0
+    return [DecodingGraph.from_fst(Fst(start=0, states=x)) for x in (s, c)]
+
+
+def kept_arcs(packed, b, A, slot_arc=None):
+    """The arc instances utterance b keeps in a packed [T, nbytes, B] mask
+    (bits in arc order, or in slot order mapped by slot_arc), as sorted
+    t * A + arc; only the nonzero bytes are unpacked."""
+    pb = packed[:, :, b]
+    t8, byts = np.nonzero(pb)
+    bits = np.unpackbits(pb[t8, byts]) > 0               # MSB first
+    slots = (byts[:, None] * 8 + np.arange(8)[None, :]).ravel()[bits]
+    t = np.repeat(t8, 8)[bits].astype(np.int64)
+    arcs = slots if slot_arc is None else slot_arc[slots]
+    live = arcs < A
+    return np.sort(t[live] * A + arcs[live])
+
+
+def edge_margins(a, ac, beam, t_idx, a_idx):
+    """Lattice.prune's keep criterion in float64 for one utterance:
+    alpha[t, src] + cost + beta[t + 1, dst] - (best + beam) of the arc
+    instances (t_idx, a_idx); ac [T, P] acoustic costs."""
+    S, T = a.num_states, ac.shape[0]
+    g = -a.weight.astype(np.float64)
+    fc = np.where(a.final > NEG_INF / 2, -a.final.astype(np.float64),
+                  np.inf)
+    has_in = np.bincount(a.dst, minlength=S) > 0
+    in_starts = np.searchsorted(a.dst, np.arange(S))[has_in]
+    order = np.argsort(a.src, kind="stable")
+    has_out = np.bincount(a.src, minlength=S) > 0
+    out_starts = np.searchsorted(a.src[order], np.arange(S))[has_out]
+    alphas = np.full((T + 1, S), np.inf)
+    alphas[0, a.start] = 0.0
+    for t in range(T):
+        cand = alphas[t, a.src] + g + ac[t, a.pdf]
+        alphas[t + 1, has_in] = np.minimum.reduceat(cand, in_starts)
+    thr = np.min(alphas[T] + fc) + beam
+    beta, margins = fc, np.empty(len(t_idx))
+    for t in range(T - 1, -1, -1):
+        cand = g + ac[t, a.pdf] + beta[a.dst]
+        sel = t_idx == t
+        arcs = a_idx[sel]
+        margins[sel] = alphas[t, a.src[arcs]] + cand[arcs] - thr
+        beta = np.full(S, np.inf)
+        beta[has_out] = np.minimum.reduceat(cand[order], out_starts)
+    return margins, thr
+
+
+def layout_vs_segment(layout, graph, ll, lats, seg_lats, masks, seg_masks,
+                      steps):
+    """A layout's lattices against the segment layout's on the same
+    loglikes.  The 1-best must be equal.  The layout's own arithmetic
+    must repeat on the CPU bit for bit (LAT_CPU_B utterances).  The arc
+    sets may differ only at the beam's edge: the layouts add alpha, cost
+    and beta in other orders (so does the JAX package), so an arc whose
+    total lies within float32 rounding of best + beam may flip.  For the
+    utterance with the most differing arc instances, each one's keep
+    margin is recomputed in float64 and must lie within the worst-case
+    rounding of the float32 alpha and beta sums, 2 T ulps of |thr|
+    (four additions a frame, half an ulp each)."""
+    if [x.best_path()[0] for x in lats] != [
+            x.best_path()[0] for x in seg_lats]:
+        raise AssertionError(f"{layout} lattice: 1-best differs from the "
+                             f"segment lattice")
+    n_cpu = min(LAT_CPU_B, ll.shape[0])
+    t0 = time.perf_counter()
+    cpu = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, layout=layout,
+                               tree_max_width=TREE_W, device="cpu")
+    if not all(lattices_equal(x, y) for x, y in zip(
+            cpu.decode_batch(ll[:n_cpu].cpu()), lats[:n_cpu])):
+        raise AssertionError(f"{layout} lattice: the card and the CPU "
+                             f"differ")
+    cpu_s = time.perf_counter() - t0
+    a = ArcGraph.from_graph(graph)
+    masks = masks.cpu().numpy()
+    slot_arc = getattr(steps, "slot_arc", None)
+    A = len(a.src)
+    differ = [np.setxor1d(kept_arcs(masks, b, A, slot_arc),
+                          kept_arcs(seg_masks, b, A), assume_unique=True)
+              for b in range(ll.shape[0])]
+    out = {"one_best_equal": True, "cpu_utterances": n_cpu,
+           "cpu_equal": True, "cpu_s": cpu_s,
+           "kept_arcs": [int(len(x.arcs)) for x in lats],
+           "differing_arc_instances": [len(d) for d in differ]}
+    w = int(np.argmax(out["differing_arc_instances"]))
+    if len(differ[w]):
+        t_idx, a_idx = np.divmod(differ[w], A)
+        t0 = time.perf_counter()
+        margins, thr = edge_margins(
+            a, -ll[w].double().cpu().numpy(), DEC_BEAM, t_idx, a_idx)
+        bound = 2 * ll.shape[1] * float(np.spacing(np.float32(abs(thr))))
+        worst = float(np.abs(margins).max())
+        if not worst <= bound:
+            raise AssertionError(
+                f"{layout} lattice, utterance {w}: an arc {worst} from the "
+                f"keep threshold in float64 differs from the segment "
+                f"lattice (float32 rounding reaches {bound})")
+        out["edge"] = {"utterance": w, "float64_margin_max_abs": worst,
+                       "rounding_bound": bound, "threshold": thr,
+                       "s": time.perf_counter() - t0}
+    return out
+
+
+def layout_numbers(dec, ll, dev):
+    """(decode_batch's results, {ms per decode, decode_audio_sec_per_s,
+    peak bytes over held, the decode's profile}) of one decoder."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ms, res = decodebench.time_decode(dec, ll, DEC_ITERS)
+    extra = torch.cuda.max_memory_allocated() - held
+    audio_s = ll.shape[0] * ll.shape[1] / 100.0
+    return res, {"decode_ms": ms,
+                 "decode_audio_sec_per_s": audio_s / (ms / 1e3),
+                 "peak_bytes_over_held": extra,
+                 "profile": decode_profile(lambda: dec.decode_batch(ll),
+                                           dev)}
+
+
+def decode_layouts_phase(dev, graph, ll, offline):
+    """The ELL and tree-ELL layouts on decode_hclg's graph and loglikes
+    (see the module docstring); `offline` is the segment layout's
+    decode_batch of ll."""
+    t_phase = time.perf_counter()
+    out = {"states": graph.num_states, "arcs": len(graph.em_dst),
+           "B": ll.shape[0], "T": ll.shape[1], "tree_max_width": TREE_W}
+    # Viterbi: each layout against the segment decode, bit for bit
+    vit = {}
+    for tag, layout, plain in (("segment", "segment", False),
+                               ("segment_plain", "segment", True),
+                               ("tree", "tree", False),
+                               ("tree_plain", "tree", True),
+                               ("ell", "ell", True)):
+        dec = SparseViterbiDecoder(graph, layout=layout,
+                                   tree_max_width=TREE_W, device=dev)
+        if plain:
+            dec.bp_hist_limit = 1 << 40
+        ckpt = layout != "ell" and not plain
+        if ckpt != (DEC_T * graph.num_states * DEC_B * 4
+                    > dec.bp_hist_limit):
+            raise AssertionError(f"Viterbi {tag}: the wrong path")
+        res, nums = layout_numbers(dec, ll, dev)
+        if not results_equal(res, offline):
+            raise AssertionError(f"Viterbi {tag}: best, words or alignment "
+                                 f"differ from the segment decode")
+        if not plain or layout == "ell":
+            best_a, _, arcs_a = dec.arc_path(ll)
+            best_b, _, arcs_b = dec.arc_path(ll)
+            if not (torch.equal(arcs_a, arcs_b)
+                    and torch.equal(best_a, best_b)):
+                raise AssertionError(f"Viterbi {tag}: repeats differ")
+            del best_a, arcs_a, best_b, arcs_b
+        vit[tag] = dict(nums, checkpointed=ckpt,
+                        launches_per_frame=nums["profile"]["launches"]
+                        / DEC_T)
+        del dec
+    out["viterbi"] = vit
+    out["viterbi_equal_to_segment"] = True
+    torch.cuda.empty_cache()
+
+    # ties on the card: the smallest arc id in every layout
+    ties = []
+    for g in tie_graphs():
+        z = torch.zeros((1, 2, 3), device=dev)
+        ref = SparseViterbiDecoder(g, device=dev).decode_batch(z)
+        for layout in ("ell", "tree"):
+            got = SparseViterbiDecoder(g, layout=layout, tree_max_width=2,
+                                       device=dev).decode_batch(z)
+            if not results_equal(got, ref):
+                raise AssertionError(f"tie graph, {layout}: differs from "
+                                     f"the segment layout")
+        ties.append(ref[0]["words"])
+    if ties[0] != [7]:
+        raise AssertionError(f"tie graph: words {ties[0]}, expected [7]")
+    out["tie_words"] = ties
+
+    # lattices: tree (checkpointed, compact) and segment at B = 16; ELL
+    # and segment at B = ELL_LAT_B (ELL keeps the whole alpha history)
+    lat = {}
+    seg = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, device=dev)
+    seg_lats, lat["segment"] = layout_numbers(seg, ll, dev)
+    seg_masks = seg.masks(ll)[0].cpu().numpy()
+    del seg
+    tree = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, layout="tree",
+                                tree_max_width=TREE_W, device=dev)
+    tree_lats, lat["tree"] = layout_numbers(tree, ll, dev)
+    lat["tree"]["transfer"] = tree.last_transfer
+    lat["tree"]["mask_bits_per_frame"] = tree._g.nbits
+    if tree.last_transfer != "compact" or not (
+            DEC_T * graph.num_states * DEC_B * 4 > tree.alpha_hist_limit):
+        raise AssertionError(f"tree lattice: transfer {tree.last_transfer}, "
+                             f"expected the checkpointed path, compacted")
+    lat["tree"]["vs_segment"] = layout_vs_segment(
+        "tree", graph, ll, tree_lats, seg_lats, tree.masks(ll)[0],
+        seg_masks, tree._g)
+    del tree, seg_masks
+    torch.cuda.empty_cache()
+    small = ll[:ELL_LAT_B]
+    seg = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, device=dev)
+    seg_small, lat[f"segment_B{ELL_LAT_B}"] = layout_numbers(seg, small, dev)
+    seg_masks = seg.masks(small)[0].cpu().numpy()
+    del seg
+    ell = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, layout="ell",
+                               device=dev)
+    ell_lats, lat[f"ell_B{ELL_LAT_B}"] = layout_numbers(ell, small, dev)
+    lat[f"ell_B{ELL_LAT_B}"]["vs_segment"] = layout_vs_segment(
+        "ell", graph, small, ell_lats, seg_small, ell.masks(small)[0],
+        seg_masks, ell._g)
+    del ell, seg_masks
+    out["lattice"] = lat
+    out["lattice_beam"] = DEC_BEAM
+    out["mean_lattice_arcs"] = float(np.mean([len(x.arcs)
+                                              for x in tree_lats]))
+    del seg_small, ell_lats, small
+    torch.cuda.empty_cache()
+
+    # the tree stream (window >= T, chunks of 32) = the offline decode
+    sdec = WindowedStreamingDecoder(graph, window=DEC_T, layout="tree",
+                                    tree_max_width=TREE_W, device=dev)
+    got, wall, extra = peak_over_held(
+        lambda: sdec.finalize(stream(sdec, ll, (32,))))
+    if not results_equal(got, offline):
+        raise AssertionError("tree stream: differs from the offline decode")
+    out["tree_stream_chunk32"] = {"equal_to_offline": True, "s": wall,
+                                  "peak_bytes_over_held": extra}
+    del sdec
+    torch.cuda.empty_cache()
+
+    # the profile twins at their defaults
+    out["profile_tree"] = profile_tree.main(["--device", str(dev)])
+    out["profile_lattice"] = profile_lattice.main(["--device", str(dev)])
+    phase("decode_layouts", card=card(), phase_s=time.perf_counter() - t_phase,
+          **out)
+    return {"tree_lattices": tree_lats}
+
+
+def _decode_rank(group):
+    """A spawned rank of decode_parallel: decode_hclg's graph and
+    loglikes (made here from the same seed), its B / 2 rows decoded by
+    the segment and tree Viterbi decoders and the tree lattice decoder,
+    every rank given all rows' results."""
+    dev = group.device
+    graph = decodebench.synth_hclg_graph(DEC_S, P)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ll = torch.randn((DEC_B, DEC_T, P), generator=gen, device=dev)
+    out = {"ll_sum": float(ll.double().sum())}
+    for layout in ("segment", "tree"):
+        dec = SparseViterbiDecoder(graph, layout=layout, mesh=group,
+                                   tree_max_width=TREE_W, device=dev)
+        calls = group.calls
+        t0 = time.perf_counter()
+        out[layout] = {"results": dec.decode_batch(ll),
+                       "s": time.perf_counter() - t0,
+                       "collectives": group.calls - calls}
+        del dec
+    dec = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, layout="tree",
+                               mesh=group, tree_max_width=TREE_W, device=dev)
+    calls, nbytes = group.calls, group.bytes
+    t0 = time.perf_counter()
+    lats = dec.decode_batch(ll)
+    out["tree_lattice"] = {
+        "s": time.perf_counter() - t0, "collectives": group.calls - calls,
+        "all_reduce_bytes": group.bytes - nbytes,
+        "lattices": [{"num_nodes": x.num_nodes, "node_frame": x.node_frame,
+                      "final_cost": x.final_cost,
+                      **{f: getattr(x.arcs, f) for f in (
+                          "src", "dst", "ilabel", "olabel", "graph_cost",
+                          "acoustic_cost")}} for x in lats]}
+    return out
+
+
+def decode_parallel_phase(dev, ll, offline, layouts):
+    """Two gloo ranks sharing the card decode decode_hclg's batch: equal
+    to one process (`offline`, the tree lattices of decode_layouts)."""
+    fields = ("src", "dst", "ilabel", "olabel", "graph_cost", "acoustic_cost")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_decode_rank, [dev, dev], backend="gloo",
+                        join_seconds=DP_JOIN_S)
+    wall = time.perf_counter() - t0
+    ll_sum = float(ll.double().sum())
+    out = {"world": len(ranks), "B": DEC_B, "T": DEC_T, "wall_s": wall}
+    for r, got in enumerate(ranks):
+        if got["ll_sum"] != ll_sum:
+            raise AssertionError(f"rank {r}: other loglikes")
+        for layout in ("segment", "tree"):
+            if not results_equal(got[layout]["results"], offline):
+                raise AssertionError(f"rank {r}, Viterbi {layout}: differs "
+                                     f"from one process")
+            if got[layout]["collectives"] != 1:
+                raise AssertionError(f"rank {r}, Viterbi {layout}: "
+                                     f"{got[layout]['collectives']} "
+                                     f"collectives, expected 1")
+        tl = got["tree_lattice"]
+        for b, (x, y) in enumerate(zip(tl["lattices"],
+                                       layouts["tree_lattices"])):
+            if not (x["num_nodes"] == y.num_nodes
+                    and np.array_equal(x["node_frame"], y.node_frame)
+                    and np.array_equal(x["final_cost"], y.final_cost)
+                    and all(np.array_equal(x[f], getattr(y.arcs, f))
+                            for f in fields)):
+                raise AssertionError(f"rank {r}, tree lattice {b}: differs "
+                                     f"from one process")
+        if tl["collectives"] != 1:
+            raise AssertionError(f"rank {r}, tree lattice: "
+                                 f"{tl['collectives']} collectives")
+    out["per_rank"] = [{k: {"s": g[k]["s"], "collectives": g[k]["collectives"]}
+                        for k in ("segment", "tree")}
+                       | {"tree_lattice": {
+                           k: g["tree_lattice"][k]
+                           for k in ("s", "collectives", "all_reduce_bytes")}}
+                       for g in ranks]
+    phase("decode_parallel", card=card(), phase_s=time.perf_counter() - t0,
+          backend="gloo",
+          viterbi_equal_to_one_process=True,
+          lattice_equal_to_one_process=True, **out)
 
 
 def graph_fst(g):
@@ -3463,6 +3856,9 @@ def main():
     _, den_check, trainer_ref = trainer_phase(egs_dir, egs_graph, dev)
     dp_launches = data_parallel_phase(egs_dir, graph, trainer_ref, dev)
     hclg_graph, hclg_ll, hclg_offline = decode_hclg_phase(dev)
+    layouts = decode_layouts_phase(dev, hclg_graph, hclg_ll, hclg_offline)
+    decode_parallel_phase(dev, hclg_ll, hclg_offline, layouts)
+    del layouts
     decode_tool_phase(egs_dir)
     kaldi_model_phase(egs_dir, dev)
     stream_decode_phase(dev, hclg_graph, hclg_ll, hclg_offline)

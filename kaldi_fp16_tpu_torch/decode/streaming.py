@@ -27,13 +27,13 @@ classes and methods:
   the host.  Device memory grows T*S*B*4 bytes per stream.
 
 * **WindowedStreamingDecoder** — the same recursion with a bounded
-  backpointer window and traceback-delay commits, for HCLG-scale streams.
+  backpointer window and traceback-delay commits, for HCLG-scale streams,
+  through the segment layout's frame step or the tree-ELL one
+  (`layout="tree"`, equal to the offline tree decode bit for bit), its
+  rows split over the ranks of a data group (`mesh`).
 
 * **StreamingPipeline** — features in, hypotheses out; hides the encoder
   warm-up lag from the decoder.
-
-Not ported: the tree-ELL chunk step (the JAX package's windowed decoder
-takes it above 64K arcs; it gives the arc step's results) and `mesh`.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from kaldi_fp16_tpu_torch.decode.device_viterbi import (
-    NEG_INF, ArcGraph, _Arcs, _loglikes, _traceback, _viterbi_frames,
+    NEG_INF, ArcGraph, _Arcs, _loglikes, _Rows, _traceback, _Tree,
+    _viterbi_frames,
 )
 from kaldi_fp16_tpu_torch.device import resolve_device
 
@@ -264,7 +265,8 @@ class StreamingDecoder:
 
 @dataclass(frozen=True)
 class WindowedDecoderState:
-    score: torch.Tensor         # [S, B] carried Viterbi front
+    score: torch.Tensor         # [S, B] carried Viterbi front (this
+                                # rank's streams under a mesh)
     bps: tuple                  # device int32 [C_i, S, B] window chunks
     frames: int                 # total frames fed
     committed: tuple            # host np int32 [F_j, B] locked arc ids
@@ -278,20 +280,14 @@ class WindowedDecoderState:
         return sum(int(c.shape[0]) for c in self.committed)
 
 
-def _arc_layout(layout: str, mesh) -> str:
-    """The one chunk step ported: 'auto' and 'arc' both mean it."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: data-parallel streaming is not ported yet (ROADMAP "
-            "queue 1 item 3)")
-    if layout == "tree":
-        raise NotImplementedError(
-            "layout='tree': the tree-ELL chunk step is not ported (ROADMAP "
-            "queue 1 item 2.4); it gives the arc step's results, use "
-            "layout='arc'")
-    if layout not in ("auto", "arc"):
+def _stream_layout(layout: str) -> str:
+    """'auto' is the arc (segment) step at every scale: the JAX package's
+    auto takes the tree above 64K arcs because of the TPU's scatter."""
+    if layout == "auto":
+        return "arc"
+    if layout not in ("arc", "tree"):
         raise ValueError(f"unknown layout {layout!r}")
-    return "arc"
+    return layout
 
 
 class WindowedStreamingDecoder:
@@ -301,8 +297,8 @@ class WindowedStreamingDecoder:
 
     Per feed of a C-frame loglike chunk:
       1. the frame recursion runs on the device through the offline
-         decoder's arc step, appending a [C, S, B] winning-arc table to
-         the window;
+         decoder's frame step (`layout`), appending a [C, S, B]
+         winning-arc table to the window;
       2. while the window exceeds `window` frames, the decoder traces back
          from the CURRENT best state over the buffered chunks (on the
          device) and COMMITS the arcs of the oldest chunk(s), dropping
@@ -321,40 +317,58 @@ class WindowedStreamingDecoder:
     Device memory: score [S, B] + at most (window + C) backpointer frames
     of [S, B] int32, independent of stream length.
 
-    layout: 'auto' and 'arc' both take the arc step.  At HCLG scale (above
-    64K arcs) the JAX package took its tree-ELL layout on the TPU, whose
-    results equal the arc step's (tests/test_streaming.py:229 pins
-    tree = arc); 'tree' is not ported and raises, as does a `mesh`."""
+    layout: 'auto' and 'arc' take the arc step (the segment layout's),
+    'tree' the tree-ELL step over rows of at most `tree_max_width` slots
+    (device_viterbi._Tree); the two give the same results
+    (tests/test_streaming.py:229 pins tree = arc in the JAX package).
+
+    mesh: a parallel.mesh.DataGroup on this decoder's device: each rank
+    carries the score front and backpointer window of its batch / world
+    streams, and each commit, partial and finalize gives every rank the
+    arcs of all streams in one all-reduce."""
 
     def __init__(self, graph, acoustic_scale: float = 1.0,
-                 window: int = 96, layout: str = "auto", mesh=None,
-                 device=None):
-        self.layout = _arc_layout(layout, mesh)
+                 window: int = 96, layout: str = "auto",
+                 tree_max_width: int = 128, mesh=None, device=None):
+        self.layout = _stream_layout(layout)
         self.device = resolve_device(device)
+        self._rows = _Rows(mesh, self.device)
         self.arcs = ArcGraph.from_graph(graph)
         self.window = int(window)
-        self._g = _Arcs(self.arcs, acoustic_scale, self.device)
+        self._g = (_Tree(self.arcs, acoustic_scale, self.device,
+                         tree_max_width) if self.layout == "tree"
+                   else _Arcs(self.arcs, acoustic_scale, self.device))
         self._final = np.asarray(self.arcs.final)
 
     def init(self, batch: int) -> WindowedDecoderState:
-        return WindowedDecoderState(score=self._g.start_scores(batch),
+        r0, r1 = self._rows.span(batch)
+        return WindowedDecoderState(score=self._g.start_scores(r1 - r0),
                                     bps=(), frames=0, committed=())
 
-    def _window_traceback(self, st: WindowedDecoderState,
-                          last: np.ndarray) -> List[np.ndarray]:
-        """Device traceback over the buffered window from `last` [B];
-        per-chunk host arc arrays in time order, in one transfer."""
+    def _batch(self, st: WindowedDecoderState) -> int:
+        return int(st.score.shape[1]) * (self._rows.group.world
+                                         if self._rows.group else 1)
+
+    def _window_traceback(self, st: WindowedDecoderState, best, last):
+        """Device traceback over the buffered window from this rank's
+        states `last` [b] -> (best [B], per-chunk host arc arrays in time
+        order), all streams' in one transfer."""
         state = torch.from_numpy(last.astype(np.int64)).to(self.device)
-        arcs = _walk(self._g, st.bps, state).cpu().numpy()
-        return np.split(arcs, np.cumsum([int(b.shape[0])
-                                         for b in st.bps])[:-1])
+        arcs = _walk(self._g, st.bps, state)
+        best_t = torch.from_numpy(best.astype(np.float32)).to(self.device)
+        best_t, arcs = self._rows.join(self._batch(st), best_t[None], arcs)
+        arcs = arcs.cpu().numpy()
+        return best_t[0].cpu().numpy(), np.split(
+            arcs, np.cumsum([int(b.shape[0]) for b in st.bps])[:-1])
 
     def feed(self, st: WindowedDecoderState,
              loglikes) -> WindowedDecoderState:
         """loglikes [B, C, P].  Runs the recursion, then commits any frames
         older than `window` by a traceback from the current best state."""
         ll = _loglikes(loglikes, self.device)
-        score, bps_new = _arc_viterbi_chunk(self._g, st.score, ll)
+        B = ll.shape[0]
+        r0, r1 = self._rows.span(B)
+        score, bps_new = _arc_viterbi_chunk(self._g, st.score, ll[r0:r1])
         bps = st.bps + (bps_new,)
         frames = st.frames + int(ll.shape[1])
         committed = st.committed
@@ -375,7 +389,7 @@ class WindowedStreamingDecoder:
                 state = torch.argmax(score, dim=0)
                 arcs = _walk(self._g, bps, state)
                 n = sum(sizes[:n_drop])
-                host = arcs[:n].cpu().numpy()
+                host = self._rows.join(B, arcs[:n])[0].cpu().numpy()
                 committed = committed + tuple(
                     np.split(host, np.cumsum(sizes[:n_drop])[:-1]))
                 bps = bps[n_drop:]
@@ -394,8 +408,9 @@ class WindowedStreamingDecoder:
         if st.frames == 0:
             return []
         score = st.score.cpu().numpy()
-        tail = self._window_traceback(st, score.argmax(axis=0))
-        res = self._assemble(score.max(axis=0), st.committed, tail)
+        best, tail = self._window_traceback(st, score.max(axis=0),
+                                            score.argmax(axis=0))
+        res = self._assemble(best, st.committed, tail)
         for r in res:
             r["final_reached"] = False
         return res
@@ -404,8 +419,9 @@ class WindowedStreamingDecoder:
         """Final-weighted traceback of the window appended to the committed
         prefix."""
         total = st.score.cpu().numpy() + self._final[:, None]
-        tail = self._window_traceback(st, total.argmax(axis=0))
-        return self._assemble(total.max(axis=0), st.committed, tail)
+        best, tail = self._window_traceback(st, total.max(axis=0),
+                                            total.argmax(axis=0))
+        return self._assemble(best, st.committed, tail)
 
 
 # ---------------------------------------------------------------------------

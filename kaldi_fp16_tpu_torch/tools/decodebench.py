@@ -9,13 +9,15 @@ audio second).  On a card the time is from CUDA events around the timed
 decodes, each of which ends by copying its result to the host; with
 `--device cpu` it is the host clock.
 
-Flags as tools/decodebench.py's, with --device in place of --cpu;
---layout takes auto and segment only (the ELL and tree layouts are not
-ported).
+Flags as tools/decodebench.py's, with --device in place of --cpu.
+--layout takes segment, ell and tree (rows of at most 128 slots); auto
+is the segment layout at every scale (the JAX tool's auto takes the tree
+above 64K arcs).
 
 Usage: python -m kaldi_fp16_tpu_torch.tools.decodebench [--states 2048]
        [--pdfs 512] [--batch 32] [--frames 500] [--arcs-per-state 8]
        [--iters 3] [--hclg] [--on-device-ll] [--dense | --lattice]
+       [--layout auto]
 """
 
 from __future__ import annotations
@@ -135,9 +137,10 @@ def parse_args(argv=None):
                          "shape: the acoustic model's output is already "
                          "there; leaves the host-to-device upload out of "
                          "the measurement)")
-    ap.add_argument("--layout", default="auto", choices=["auto", "segment"],
-                    help="sparse-kernel layout (the segment layout is the "
-                         "one ported)")
+    ap.add_argument("--layout", default="auto",
+                    choices=["auto", "segment", "ell", "tree"],
+                    help="sparse-decoder layout (tree = capped multi-level "
+                         "scatter-free reductions; auto is segment)")
     ap.add_argument("--dense", action="store_true",
                     help="use the dense [S,S] decoder")
     ap.add_argument("--lattice", action="store_true",
@@ -203,6 +206,7 @@ def main(argv=None) -> dict:
                       "traceback)"),
         "detail": {"decoder": ("lattice" if args.lattice else
                                "dense" if args.dense else "sparse"),
+                   "layout": getattr(dec, "layout", None),
                    "device": (torch.cuda.get_device_name(device)
                               if device.type == "cuda" else "cpu"),
                    "states": S, "pdfs": P, "batch": B, "frames": T,

@@ -10,10 +10,11 @@ the host's enqueue; with `--device cpu` it is the host clock.
 
 Flags as tools/streambench.py's, with --device added.  The network has
 random weights from seed 0; the --hclg graph is
-tools.decodebench.synth_hclg_graph; the windowed decoder takes the arc
-step at every scale (the tree-ELL layout is not ported).  Prints one JSON
-row per chunk size with the JAX tool's keys; `main(argv)` returns the
-rows.
+tools.decodebench.synth_hclg_graph; the windowed decoder takes its
+"auto" layout, the arc step at every scale (the JAX package's auto takes
+the tree-ELL step above 64K arcs; the port's is `layout="tree"`, with the
+same results).  Prints one JSON row per chunk size with the JAX tool's
+keys; `main(argv)` returns the rows.
 
 Usage: python -m kaldi_fp16_tpu_torch.tools.streambench [--batch 8]
        [--chunks 6,16,32] [--decode-only] [--hclg] [--decoder windowed]

@@ -319,9 +319,11 @@ def test_decodebench_graphs_equal_the_jax_tool(monkeypatch):
 
 @pytest.mark.parametrize("flags", [[], ["--dense"], ["--lattice"],
                                    ["--lattice", "--transfer", "compact"],
-                                   ["--hclg"]],
+                                   ["--hclg"], ["--layout", "tree"],
+                                   ["--layout", "ell"],
+                                   ["--lattice", "--layout", "tree"]],
                          ids=["sparse", "dense", "lattice", "compact",
-                              "hclg"])
+                              "hclg", "tree", "ell", "lattice-tree"])
 def test_decodebench_line_matches_the_jax_tool(flags, capsys):
     size = ["--states", "64", "--pdfs", "16", "--batch", "2", "--frames",
             "20", "--iters", "1"]
@@ -334,3 +336,5 @@ def test_decodebench_line_matches_the_jax_tool(flags, capsys):
     for key in ("decoder", "states", "pdfs", "batch", "frames",
                 "mean_cost", "mean_lattice_arcs"):
         assert line["detail"].get(key) == ref["detail"].get(key), key
+    if "--layout" in flags:
+        assert line["detail"]["layout"] == flags[flags.index("--layout") + 1]

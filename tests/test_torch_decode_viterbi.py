@@ -261,15 +261,23 @@ def test_epsilon_removed_graph_matches_jax(seed):
 
 
 def test_layouts_and_mesh():
+    """'auto' is the segment layout; 'ell' and 'tree' build theirs; mesh
+    takes a DataGroup on the decoder's device (its decodes:
+    tests/test_torch_decode_parallel.py); an unknown layout raises."""
+    from kaldi_fp16_tpu_torch.parallel.mesh import DataGroup
     _, pg = both_graphs(random_eps_free_graph(seed=7))
     for cls in (pv.SparseViterbiDecoder, pv.DeviceLatticeDecoder):
         for layout in ("auto", "segment"):
             assert cls(pg, layout=layout, device="cpu").layout == "segment"
-        for layout in ("ell", "tree"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                cls(pg, layout=layout, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        for layout, steps in (("ell", pv._Ell), ("tree", pv._Tree)):
+            dec = cls(pg, layout=layout, device="cpu")
+            assert dec.layout == layout and type(dec._g) is steps
+        group = DataGroup(0, 2, "cpu", "gloo")
+        assert cls(pg, mesh=group, device="cpu")._rows.group is group
+        with pytest.raises(TypeError, match="DataGroup"):
             cls(pg, mesh=object(), device="cpu")
+        with pytest.raises(ValueError, match="mesh"):
+            cls(pg, mesh=DataGroup(0, 2, "cuda:0", "nccl"), device="cpu")
         with pytest.raises(ValueError):
             cls(pg, layout="blocked", device="cpu")
 

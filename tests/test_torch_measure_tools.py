@@ -1,6 +1,7 @@
 """The port's measurement tools and the x-vector trainer against the JAX
 package's tools, on the CPU at tiny sizes: xvectortrain, trainbench,
-roofline, scalebench, profile_host, profile_latdecode and profile_den.
+roofline, scalebench, profile_host, profile_latdecode, profile_den,
+profile_tree and profile_lattice.
 
 * Each twin runs in this process with --device cpu (the card is their
   default) and prints the JAX tool's JSON keys: every key of the dict
@@ -9,6 +10,8 @@ roofline, scalebench, profile_host, profile_latdecode and profile_den.
 * xvectortrain passes as tests/test_tools.py:42 runs the JAX tool, and
   from the JAX init (convert.xvector_params_from_jax) on the same batches
   its 8-step loss path follows the JAX tool's loop within 2e-4 rel.
+* profile_tree and profile_lattice print the JAX tools' per-piece lines
+  at --states 2000.
 * scalebench's per-world function holds 1 and 2 gloo ranks against one
   process; trainbench exits 2 on the revoked --mode fast / --bn-lowp,
   profile_den on --impls split3.
@@ -29,8 +32,8 @@ from kaldi_fp16_tpu.models import xvector as jax_xv
 from kaldi_fp16_tpu.training import schedulers as jax_sched
 from kaldi_fp16_tpu_torch.convert import xvector_params_from_jax
 from kaldi_fp16_tpu_torch.tools import (
-    profile_den, profile_host, profile_latdecode, roofline, scalebench,
-    trainbench, xvectortrain,
+    profile_den, profile_host, profile_latdecode, profile_lattice,
+    profile_tree, roofline, scalebench, trainbench, xvectortrain,
 )
 from tests.test_torch_tool_help import two_threads  # noqa: F401
 
@@ -225,6 +228,43 @@ def test_profile_latdecode_phases_sum_to_the_decode(capsys):
     assert phases == pytest.approx(res["phases_sum_s"], rel=1e-9)
     assert res["transfer"] == "compact" and res["kept_bytes"] > 0
     assert res["kept_arcs"] == res["mean_arcs"] * 4
+
+
+# the JAX tools' per-piece line labels (each must be in the JAX tool's
+# source too)
+PROFILE_LABELS = {
+    "profile_tree": ["graph: S=", "tree build:", "level-1 buckets:",
+                     "reduce level ",
+                     "L1 gathers+max (no levels, no argmax)",
+                     "min_step (levels, no argmax)",
+                     "max_step (argmax+arc track, bp dropped)",
+                     "max_step + [T,S,B] bp stack"],
+    "profile_lattice": ["graph: S=", "min_step only",
+                        "keep-mask gathers (3xA rows) + cmp",
+                        "packbits [A, B] alone",
+                        "full bwd_frame (min+mask+packbits)",
+                        "FUSED bwd_frame (slot-order mask)"]}
+
+
+@pytest.mark.parametrize("tool", sorted(PROFILE_LABELS))
+def test_profile_tree_and_lattice_print_the_jax_lines(tool, two_threads,
+                                                      capsys):
+    """At --states 2000 each twin prints the JAX tool's lines, one timed
+    piece per line in ms per frame."""
+    mod = {"profile_tree": profile_tree,
+           "profile_lattice": profile_lattice}[tool]
+    jax_src = (ROOT / "tools" / f"{tool}.py").read_text()
+    res, out = run_twin(mod, ["--device", "cpu", "--states", "2000",
+                              "--pdfs", "64", "--batch", "2", "--frames",
+                              "3"], capsys)
+    lines = out.splitlines()[1:]
+    for label in PROFILE_LABELS[tool]:
+        assert label in jax_src, label
+        assert any(ln.startswith(label) for ln in lines), label
+    timed = [ln for ln in lines if ln.endswith(" ms/frame")]
+    assert len(timed) == len([k for k in res if k.endswith("_ms")])
+    assert all(float(ln.split()[-2]) > 0 for ln in timed)
+    assert res["states"] == 2000 and res["device"] == "cpu"
 
 
 def test_profile_den_cpu_smoke(capsys):

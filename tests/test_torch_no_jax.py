@@ -62,7 +62,8 @@ REQUIRED = [
 ] + [
     "kaldi_fp16_tpu_torch.tools." + m for m in (
         "xvectortrain", "trainbench", "roofline", "scalebench",
-        "profile_host", "profile_latdecode", "profile_den")
+        "profile_host", "profile_latdecode", "profile_den",
+        "profile_tree", "profile_lattice")
 ]
 
 SCRIPT = """

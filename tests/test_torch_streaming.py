@@ -300,15 +300,65 @@ class TestWindowedStreamingDecoder:
         assert_close_to_jax(p, jdec.partial(jst))
 
     def test_tree_layout_and_mesh_raise(self):
-        """The tree-ELL chunk step and `mesh` are not ported: they raise
-        (tests/test_streaming.py:229 pins tree = arc in the JAX package)."""
+        """'tree' builds the tree-ELL step and 'auto' the arc step; mesh
+        takes a DataGroup on the decoder's device, anything else raises
+        TypeError; 'ell' is no windowed layout and raises ValueError."""
+        from kaldi_fp16_tpu_torch.decode.device_viterbi import _Arcs, _Tree
+        from kaldi_fp16_tpu_torch.parallel.mesh import DataGroup
         _, pg = both_graphs(random_fst(seed=11))
-        with pytest.raises(NotImplementedError, match="2.4"):
-            ps.WindowedStreamingDecoder(pg, layout="tree", device="cpu")
-        with pytest.raises(NotImplementedError, match="mesh"):
+        dec = ps.WindowedStreamingDecoder(pg, layout="tree", device="cpu")
+        assert dec.layout == "tree" and type(dec._g) is _Tree
+        dec = ps.WindowedStreamingDecoder(pg, device="cpu")
+        assert dec.layout == "arc" and type(dec._g) is _Arcs
+        group = DataGroup(0, 2, "cpu", "gloo")
+        dec = ps.WindowedStreamingDecoder(pg, mesh=group, device="cpu")
+        with pytest.raises(ValueError, match="divisible"):
+            dec.init(3)
+        assert dec.init(4).score.shape == (pg.num_states, 2)
+        with pytest.raises(TypeError, match="DataGroup"):
             ps.WindowedStreamingDecoder(pg, mesh=object(), device="cpu")
         with pytest.raises(ValueError, match="unknown layout"):
             ps.WindowedStreamingDecoder(pg, layout="ell", device="cpu")
+
+    @pytest.mark.parametrize("width", [2, 4, 128])
+    def test_tree_stream_matches_offline_tree_and_arc_stream(self, width):
+        """tests/test_streaming.py:229: the tree step's stream, with
+        commits, equals the arc step's stream (commits included) and the
+        JAX tree stream; with the window over the whole stream it equals
+        the offline tree decode bit for bit."""
+        T, C, W = 64, 8, 16
+        jg, pg = both_graphs(random_fst(seed=11))
+        ll = loglikes(T=T, seed=12, peaky=4.0)
+        tree = ps.WindowedStreamingDecoder(pg, acoustic_scale=0.7, window=W,
+                                           layout="tree",
+                                           tree_max_width=width,
+                                           device="cpu")
+        arc, _, _, _ = self._pair(11, W)
+        jtree = js.WindowedStreamingDecoder(jg, acoustic_scale=0.7, window=W,
+                                            layout="tree",
+                                            tree_max_width=width)
+        st, jst = self._stream(tree, jtree, ll, C)
+        ast = arc.init(ll.shape[0])
+        for t0 in range(0, T, C):
+            ast = arc.feed(ast, ll[:, t0:t0 + C])
+        assert st.committed_frames == ast.committed_frames > 0
+        np.testing.assert_array_equal(np.concatenate(st.committed),
+                                      np.concatenate(ast.committed))
+        got = tree.finalize(st)
+        assert_bit_equal(got, arc.finalize(ast))
+        assert_close_to_jax(got, jtree.finalize(jst))
+        assert_bit_equal(tree.partial(st), arc.partial(ast))
+        whole = ps.WindowedStreamingDecoder(pg, acoustic_scale=0.7,
+                                            window=T, layout="tree",
+                                            tree_max_width=width,
+                                            device="cpu")
+        st = whole.init(ll.shape[0])
+        for t0 in range(0, T, C):
+            st = whole.feed(st, ll[:, t0:t0 + C])
+        assert st.committed == ()
+        offline = SparseViterbiDecoder(pg, acoustic_scale=0.7, layout="tree",
+                                       tree_max_width=width, device="cpu")
+        assert_bit_equal(whole.finalize(st), offline.decode_batch(ll))
 
 
 class TestStreamingPipeline:

@@ -66,7 +66,8 @@ def test_the_verification_twins_are_among_the_tools():
 
 def test_the_measurement_twins_are_among_the_tools():
     assert {"xvectortrain", "trainbench", "roofline", "scalebench",
-            "profile_host", "profile_latdecode", "profile_den"} <= set(TOOLS)
+            "profile_host", "profile_latdecode", "profile_den",
+            "profile_tree", "profile_lattice"} <= set(TOOLS)
 
 
 # each twin with a device, and the least argv it needs besides --device
@@ -76,7 +77,8 @@ DEVICE_TWINS = [("chainverify", []), ("denverify", []), ("chaintest", []),
                 ("abtest", ["--ab", "grid"]), ("xvectortrain", []),
                 ("trainbench", []), ("roofline", []),
                 ("scalebench", []), ("profile_host", ["--place"]),
-                ("profile_latdecode", []), ("profile_den", [])]
+                ("profile_latdecode", []), ("profile_den", []),
+                ("profile_tree", []), ("profile_lattice", [])]
 
 
 @pytest.mark.parametrize("tool,argv", DEVICE_TWINS,
