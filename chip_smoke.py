@@ -93,8 +93,25 @@ Phases, one line of numbers each:
                      must fail them); tools.mpworker as 2 processes on
                      the card against one process, 4 restoring their
                      checkpoint, a killed one failing its peer; and
-                     tools.dryrun_multichip as 2 ranks on the card
- 16. decode_hclg     WFST decoding at HCLG scale: tools.decodebench's
+                     tools.dryrun_multichip as 2 ranks on the card and
+                     as 8 (data 2 x seq 2 x model 2)
+ 16. model_seq_parallel  bench.py's step at B = 128 on two gloo ranks of
+                     the card split over the model axis (the 3080-pdf
+                     heads, prefinal and TDNN-F affines by columns) and
+                     over the seq axis (75 input frames and 25 grid
+                     frames each, halos per temporal op): fp32 without NG
+                     and bf16 with NG-SGD and loss scaling, 2 steps each,
+                     against one process (losses, the update and the BN
+                     statistics after step 1 at the data_parallel phase's
+                     bars and yardstick), the ranks' whole states bit-
+                     identical, 1 + 1 den_scan launches per rank per step;
+                     per rank ms per step (CUDA events), collectives and MB
+                     per step per axis, the collectives' share of an
+                     instrumented step, peak memory beside one process's;
+                     the CPU tests' narrow fp32 cases at (model 2) and
+                     (seq 2) at those tests' bars; the 8-rank dryrun's
+                     numbers from data_parallel
+ 17. decode_hclg     WFST decoding at HCLG scale: tools.decodebench's
                      synth_hclg_graph(100000, 3080) (390K arcs), random
                      loglikes made on the card, B = 16, T = 500: the Viterbi
                      decoder's checkpointed path, its plain path and a
@@ -105,7 +122,7 @@ Phases, one line of numbers each:
                      equal to the arc decoder at decodebench's defaults (S =
                      2048, P = 512, B = 32, T = 500); decode_audio_sec_per_s,
                      decode ms, launches per decode and peak memory
- 17. decode_layouts  decode_hclg's graph and loglikes through the ELL and
+ 18. decode_layouts  decode_hclg's graph and loglikes through the ELL and
                      tree-ELL layouts (width 128): the tree Viterbi
                      (checkpointed) and the ELL Viterbi (plain), and the
                      segment and tree plain paths, equal to the segment
@@ -127,19 +144,19 @@ Phases, one line of numbers each:
                      scatter, gather, reduce and other; the profile_tree
                      and profile_lattice twins' per-frame lines at their
                      defaults
- 18. decode_parallel two gloo ranks sharing the card, 8 rows each of
+ 19. decode_parallel two gloo ranks sharing the card, 8 rows each of
                      decode_hclg's batch (loglikes made from the same
                      seed): the segment and tree Viterbi decoders and the
                      tree lattice decoder with mesh=, each rank's results
                      for all 16 rows equal to one process's, one
                      all-reduce per decode
- 19. decode_tool     tools.decode's main --on-device, plainly and with
+ 20. decode_tool     tools.decode's main --on-device, plainly and with
                      --nbest 3, on one of the egs phase's cegs files (512
                      utterances) through the flagship model and a 20000-state
                      HCLG-shaped graph written as an OpenFst file: every
                      utterance final, the lattices' 1-best equal to the
                      Viterbi words; the utterance count and wall seconds
- 20. kaldi_model     the trainer phase's network (its step-8 checkpoint)
+ 21. kaldi_model     the trainer phase's network (its step-8 checkpoint)
                      exported to nnet3 text and a binary .raw by
                      models/kaldi_loader.py, each loaded into a network of
                      another seed: parameters and BN buffers (counts as
@@ -151,7 +168,7 @@ Phases, one line of numbers each:
                      decode_tool phase's cegs file and graph: the words of
                      the network in memory, utterance for utterance;
                      seconds of export, parse, binary write, loads, MB
- 21. stream_decode   streaming decoding at decode_hclg's HCLG scale and
+ 22. stream_decode   streaming decoding at decode_hclg's HCLG scale and
                      loglikes: the incremental decoder fed 16 frames at a
                      time and in a ragged 5, 7, 12 schedule, and the
                      windowed decoder at window >= T, equal to the offline
@@ -160,12 +177,12 @@ Phases, one line of numbers each:
                      every feed, utterances equal to offline counted, peak
                      memory over what the phase holds at T = 500 and 1000);
                      tools.streambench's decode-only rows
- 22. stream_encode   the streaming encoder on the flagship network (random
+ 23. stream_encode   the streaming encoder on the flagship network (random
                      weights, seed 0, 100-dim ivectors, B = 8) at chunk_out
                      6, 16 and 32: fp32 against its offline_reference and
                      across chunk sizes, bf16 against its own oracle;
                      tools.streambench's encoder and pipeline rows
- 23. attention       the flagship with attention1 (15 heads, value 80, key
+ 24. attention       the flagship with attention1 (15 heads, value 80, key
                      40, context 5 + 1 + 2 at time-stride 3) after tdnnf21,
                      16,271,624 parameters: bench.py's step with the
                      default den, 1 warm-up + 3 timed, twice, in turns
@@ -176,12 +193,12 @@ Phases, one line of numbers each:
                      against the CPU (rtol 2e-4 / atol 2e-5 scalars, 1e-4 /
                      1e-5 parameters); the streaming encoder (B = 8,
                      chunk_out 16, fp32) against its offline reference
- 24. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
+ 25. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
                      and rescoring run of the JAX evidence: ok, the WER
                      trajectory, den_matmul launches (its den has L = 1,
                      F = 81: loop scans), the first batch's den against
                      the same den through plain matmuls
- 25. verify_chain    the verification harness, on the egs phase's files:
+ 26. verify_chain    the verification harness, on the egs phase's files:
                      tools.chainverify at its defaults (a strict CPU pass,
                      then the card), then on the 7052-state den.fst and its
                      cegs (T = 50, 3080 pdfs) on the card once per den path,
@@ -193,21 +210,21 @@ Phases, one line of numbers each:
                      repeats bit for bit); tools.denverify on that den.fst;
                      tools.chaintest on the flagship; tools.chainbench
                      --topology phone-lm at production scale
- 26. verify_net      tools.fwdtest on the flagship (B = 8, T = 150, 20
+ 27. verify_net      tools.fwdtest on the flagship (B = 8, T = 150, 20
                      iterations) with and without --bn-identity;
                      tools.backtest and tools.sgdtest on the card, TF32 off
- 27. verify_train    tools.traintest on the flagship at B = 128 over the egs
+ 28. verify_train    tools.traintest on the flagship at B = 128 over the egs
                      phase's cegs, 9 steps at lr 1e-4 (fused route, the
                      first batch's loss falls by its second visit, the
                      loop's train_audio_sec_per_s_per_chip); tools.soak on the
                      flagship (SIGKILL after 25 steps, --resume, run 1's
                      objf reproduced exactly; cut to 2 epochs and a
                      checkpoint every 20 steps); tools.abtest --ab grid
- 28. verify_data     tools.gputest (pageable and pinned copies to the card),
+ 29. verify_data     tools.gputest (pageable and pinned copies to the card),
                      tools.dltest (in-line, --workers 2, --process-workers 2:
                      one bf16 error), egstools analyze / verify, nscheck and
                      csrdump on the egs phase's files
- 29. xvector         the x-vector family at XVectorConfig()'s widths with
+ 30. xvector         the x-vector family at XVectorConfig()'s widths with
                      1024 speakers: 30 fp32 Adam steps (warmup + StepLR) at
                      B = 64 x 300 frames, the loss on a fixed batch of 256
                      utterances must fall; ms per step,
@@ -217,13 +234,13 @@ Phases, one line of numbers each:
                      without weight decay, parameters and m / v held card
                      against CPU (rtol 1e-4); tools.xvectortrain at its
                      defaults (ok)
- 30. remat           bench.py's step (B = 128, T_in = 150, fused den) with
+ 31. remat           bench.py's step (B = 128, T_in = 150, fused den) with
                      TrainConfig.remat off and on, same weights, batch and
                      SpecAugment generator, 2 steps each: losses, grad
                      norms and parameters at the JAX bars (rel 1e-6, 1e-5;
                      rtol 1e-5 / atol 1e-7), the generator's state and the
                      BN buffers equal; peak memory and ms of each
- 31. measure         the measurement twins: tools.trainbench at B = 128
+ 32. measure         the measurement twins: tools.trainbench at B = 128
                      (plain, --remat, --natural-gradient) and --topology
                      random; tools.roofline at B = 128 on every stage (no
                      share over 100 %); tools.scalebench --worlds 1,2
@@ -234,7 +251,7 @@ Phases, one line of numbers each:
                      high,pallas,fused; one trainbench step inside
                      utils.profiling.trace, whose Chrome trace must name
                      the den_scan kernels
- 32. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 33. summary         the kernels' JSON line, then {"ok": true, "device": ...}
 
 The verify and measure phases run each tool's main in this process (soak
 and abtest start tools.train processes), its output in
@@ -306,9 +323,12 @@ from kaldi_fp16_tpu_torch.ops.den_matmul import (
     DenMatmul, den_matmul_split_plain,
 )
 from kaldi_fp16_tpu_torch.parallel.data_parallel import (
-    broadcast_train_state, shard_batch, shard_graph,
+    broadcast_train_state, full_state_dict, shard_batch, shard_graph,
+    shard_train_state,
 )
-from kaldi_fp16_tpu_torch.parallel.mesh import free_address, spawn_ranks
+from kaldi_fp16_tpu_torch.parallel.mesh import (
+    Mesh, MeshConfig, free_address, make_mesh, spawn_ranks,
+)
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
     segment_order, segment_order_plain, segment_reduce, segment_reduce_plain,
 )
@@ -436,6 +456,21 @@ NARROW_PARAMS = dict(rtol=2e-5, atol=1e-6)
 NARROW_BN_MEAN = dict(rtol=1e-5, atol=1e-7)
 NARROW_BN = dict(rtol=1e-5, atol=5e-7)
 NARROW_NG_V = dict(rtol=1e-4, atol=1e-5)
+# model and sequence parallel: bench.py's step at B = 128 on two gloo
+# ranks of the card, split over the model axis and over the seq axis, each
+# against one process at B = 128 with the data_parallel phase's bars and
+# yardstick (the same step with its rows permuted); fp32 without NG and
+# bf16 with NG-SGD and loss scaling (the recipe's), DP_BARS / DP_LOSS_RTOL
+# under the tags "fp32" and "ng".  The first loss (the forward alone) is
+# held at DP_LOSS_RTOL's first bar; a later loss follows a step-1 update
+# of this ill-conditioned step, so its bar is the larger of DP_LOSS_RTOL's
+# and DP_BARS' update multiple of the yardstick's loss difference (at
+# B = 128 fp32's yardstick moves loss 2 by 9.9e-5, ten times 1e-5: my chip
+# run 2, PR 13)
+MSP_B, MSP_STEPS = 128, 2
+MSP_MESHES = {"model2": MeshConfig(data=1, model=2),
+              "seq2": MeshConfig(data=1, seq=2)}
+MSP_RUNS = (("fp32", False, "float32"), ("ng", True, "bfloat16"))
 MP_FILES, MP_LOCAL_B, MP_STEPS = 4, 4, 2
 MP_HEARTBEAT_S, MP_TIMEOUT_S = 20, 300
 DP_JOIN_S = 600
@@ -1626,7 +1661,7 @@ def per_rank_bn():
     data_parallel.py:10-13)."""
     merged = network_module.batch_moments
 
-    def local(x, group):
+    def local(x, group, total=None):
         return (x.mean(dim=(0, 1)),
                 torch.clamp(x.var(dim=(0, 1), unbiased=False), min=0.0),
                 float(x.shape[0] * x.shape[1]))
@@ -1705,24 +1740,26 @@ def permute_rows(g, perm):
 
 
 def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
-                   dtype="bfloat16", steps=DP_STEPS, perm=None):
+                   dtype="bfloat16", steps=DP_STEPS, perm=None, b=DP_B):
     """bench.py's step (train_phase's batch, seeds and SpecAugment
-    generator) at global B = DP_B for `steps` steps in `dtype`, NG-SGD
-    and loss scaling on or off: in this process (group None) or as this
-    rank of `group` on its rows.  perm: this process's batch in another
-    row order, each sequence with its numerator graph and SpecAugment
-    masks (the same mathematics, summed in another order).  instrument:
-    one more step with every collective synchronised before and after,
-    for the collectives' share."""
+    generator) at global B = b for `steps` steps in `dtype`, NG-SGD and
+    loss scaling on or off: in this process (group None) or as this rank
+    of `group` (a DataGroup, or a Mesh: its rows, frames and columns) on
+    its share.  perm: this process's batch in another row order, each
+    sequence with its numerator graph and SpecAugment masks (the same
+    mathematics, summed in another order).  instrument: one more step
+    with every collective synchronised before and after, for the
+    collectives' share.  The states it returns are whole (gathered over
+    a model axis)."""
     rng = np.random.default_rng(0)
     model = build_model(str(ROOT / "configs" / "cnn_tdnn.xconfig"))
     dims = {layer.name: layer.output_dim for layer in model.inputs()}
-    num_graph = bench_num_graph(DP_B, T_OUT, AN, P, rng)
-    batch = {"features": rng.normal(size=(DP_B, T_IN, dims["input"]))
+    num_graph = bench_num_graph(b, T_OUT, AN, P, rng)
+    batch = {"features": rng.normal(size=(b, T_IN, dims["input"]))
              .astype(np.float32),
-             "ivectors": rng.normal(size=(DP_B, dims["ivector"]))
+             "ivectors": rng.normal(size=(b, dims["ivector"]))
              .astype(np.float32),
-             "weights": np.ones(DP_B, np.float32)}
+             "weights": np.ones(b, np.float32)}
     if group is not None:
         batch, num_graph = shard_batch(batch, group), shard_graph(num_graph,
                                                                   group)
@@ -1742,6 +1779,7 @@ def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
         broadcast_train_state(net, opt, scale, group)
     init = {k: v.detach().cpu().numpy().copy()
             for k, v in net.state_dict().items()}
+    opt = shard_train_state(net, opt, group)
     den = DenominatorComputation(graph, leaky=1e-5, device=dev)
     step = make_train_step(model, net, den, num_graph, ChainTrainingOpts(),
                            config, num_frames_out=T_OUT, group=group)
@@ -1753,15 +1791,25 @@ def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
     for c in counters.values():
         c.launches = 0
     losses, step_ms, launches, calls, mb = [], [], [], [], []
+    axes, event_ms = [], []
+    counts = group.counts if isinstance(group, Mesh) else dict
     with train_tool.deterministic_cudnn(), order:
         for i in range(steps):
             before = {k: c.launches for k, c in counters.items()}
             c0 = (group.calls, group.bytes) if group is not None else (0, 0)
+            a0 = counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
+            ev[0].record()
             opt, scale, out = step(opt, scale, batch, generator=spec_gen)
+            ev[1].record()
             loss = float(out.loss)
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(ev[0].elapsed_time(ev[1]))
+            axes.append({k: {"calls": v["calls"] - a0[k]["calls"],
+                             "mb": (v["bytes"] - a0[k]["bytes"]) / 1e6}
+                         for k, v in counts().items()})
             if not (np.isfinite(loss) and bool(out.ok)
                     and not bool(out.skipped)):
                 raise AssertionError(f"data-parallel step {i}: loss={loss} "
@@ -1775,14 +1823,18 @@ def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
                 mb.append((group.bytes - c0[1]) / 1e6)
             if i == 0:
                 first = {k: v.detach().cpu().numpy().copy()
-                         for k, v in net.state_dict().items()}
+                         for k, v in full_state_dict(net, group).items()}
+        whole = full_state_dict(net, group)
         res = {"losses": losses, "step_ms": step_ms,
+               "event_step_ms": event_ms, "axis_counts_per_step": axes,
                "launches_per_step": launches, "collectives_per_step": calls,
                "collective_mb_per_step": mb,
                "scan_used": den._structured.scan_used,
-               "digest": train_tool.state_digest(net.state_dict()),
+               "digest": train_tool.state_digest(whole),
+               "leaf_digests": {k: train_tool.state_digest({k: v})[:16]
+                                for k, v in whole.items()},
                "states": [first, {k: v.detach().cpu().numpy().copy()
-                                  for k, v in net.state_dict().items()}],
+                                  for k, v in whole.items()}],
                "init": init}
         if instrument and group is not None:
             res.update(timed_collectives(group, step, opt, scale, batch,
@@ -1793,19 +1845,23 @@ def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
 
 def timed_collectives(group, step, opt, scale, batch, spec_gen, dev):
     """One more step with the device synchronised around each of the
-    group's collectives: the step's ms and the ms inside collectives."""
-    run = group.all_reduce
-    spent = []
+    group's collectives (a Mesh: each axis group's): the step's ms and
+    the ms inside collectives, in all and per axis."""
+    groups = group.groups() if isinstance(group, Mesh) else {"data": group}
+    spent = {k: [] for k in groups}
 
-    def timed(t, *args, **kwargs):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        out = run(t, *args, **kwargs)
-        torch.cuda.synchronize(dev)
-        spent.append((time.perf_counter() - t0) * 1e3)
-        return out
+    def timed(run, axis):
+        def wrapper(t, *args, **kwargs):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = run(t, *args, **kwargs)
+            torch.cuda.synchronize(dev)
+            spent[axis].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
 
-    group.all_reduce = timed
+    for axis, g in groups.items():
+        g.all_reduce = timed(g.all_reduce, axis)
     try:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -1813,10 +1869,14 @@ def timed_collectives(group, step, opt, scale, batch, spec_gen, dev):
         torch.cuda.synchronize(dev)
         total = (time.perf_counter() - t0) * 1e3
     finally:
-        group.all_reduce = run
-    return {"instrumented_step_ms": total, "collective_ms": float(sum(spent)),
-            "collective_calls": len(spent), "collective_share":
-            float(sum(spent)) / total}
+        for g in groups.values():
+            del g.all_reduce            # the class's method again
+    ms = float(sum(sum(v) for v in spent.values()))
+    return {"instrumented_step_ms": total, "collective_ms": ms,
+            "collective_calls": sum(len(v) for v in spent.values()),
+            "collective_share": ms / total,
+            "axis_collective_ms": {k: float(sum(v))
+                                   for k, v in spent.items()}}
 
 
 def narrow_setups():
@@ -1824,8 +1884,9 @@ def narrow_setups():
     worker's MP_XCONFIG), B = 8, T_in = 12, fp32, linear supervision; 2
     steps plainly and with NG-SGD (ranks 4), 1 with SpecAugment."""
     base = dataclasses.replace(
-        dryrun_multichip.dryrun_setup(4), xconfig=mpworker.MP_XCONFIG,
-        config=dict(mpworker.TRAIN), steps=2)
+        dryrun_multichip.dryrun_setup(MeshConfig(data=4)),
+        xconfig=mpworker.MP_XCONFIG, config=dict(mpworker.TRAIN), steps=2,
+        mesh=None)
     spec = mpworker.MP_XCONFIG.replace(
         "linear-component name=linear1 dim=32",
         "spec-augment-layer name=spec freq-max-proportion=0.5 "
@@ -1902,6 +1963,18 @@ def _dp_rank(group, graph, narrow):
     return out
 
 
+def within_dp_bars(tag, yardstick, update, bn):
+    """The update and the BN statistics after step 1 within their bars
+    (DP_BARS[tag]: multiples of the yardstick's distances, or floors),
+    each of which must stay below a frozen model's 1."""
+    (y_update, _), (y_bn, _) = yardstick
+    (x_update, x_bn), (f_update, f_bn) = DP_BARS[tag]
+    bars = max(x_update * y_update, f_update), max(x_bn * y_bn, f_bn)
+    if max(bars) >= 1.0:
+        raise AssertionError(f"{tag}: bars {bars} pass no update at all")
+    return update[0] <= bars[0] and bn[0] <= bars[1]
+
+
 def rel_norm(a, b, keys):
     """||a - b|| / ||b|| over the tensors `keys` of two state dicts."""
     num = sum(float(((a[k].astype(np.float64) - b[k]) ** 2).sum())
@@ -1944,14 +2017,7 @@ def two_rank_run(dev, graph):
                             "den_matmul": 0}
 
     def passes(tag, update, bn):
-        """The update and the BN statistics after step 1 within their
-        bars, each of which must stay below a frozen model's 1."""
-        (y_update, _), (y_bn, _) = yard[tag]["distance"]
-        (x_update, x_bn), (f_update, f_bn) = DP_BARS[tag]
-        bars = max(x_update * y_update, f_update), max(x_bn * y_bn, f_bn)
-        if max(bars) >= 1.0:
-            raise AssertionError(f"{tag}: bars {bars} pass no update at all")
-        return update[0] <= bars[0] and bn[0] <= bars[1]
+        return within_dp_bars(tag, yard[tag]["distance"], update, bn)
 
     for tag, *_ in DP_RUNS:
         ref, got = single[tag], [r[tag] for r in ranks]
@@ -2160,6 +2226,10 @@ def multiprocess_run(dev):
                              f"\n{err0}")
     dry = dryrun_multichip.main(["--ranks", "2", "--backend", "gloo"])
     t5 = time.perf_counter()
+    dry8 = dryrun_multichip.main(["--ranks", "8", "--backend", "gloo"])
+    if dry8["mesh"] != {"data": 2, "seq": 2, "model": 2}:
+        raise AssertionError(f"8-rank dryrun mesh {dry8['mesh']}")
+    t6 = time.perf_counter()
     return {"two_workers_losses": two[0]["losses"],
             "one_process_losses": ref,
             "loss_rel_diff": loss_rel(two[0]["losses"], ref),
@@ -2168,16 +2238,18 @@ def multiprocess_run(dev):
             "resume_2_to_4_bit_identical": True,
             "survivor_rc": rc0,
             "survivor_error": (err0.strip().splitlines() or [""])[-1],
-            "dryrun": dry,
+            "dryrun": dry, "dryrun_8": dry8,
             "s": {"two": t1 - t0, "four": t3 - t2, "death": t4 - t3,
-                  "dryrun": t5 - t4}}
+                  "dryrun": t5 - t4, "dryrun_8": t6 - t5}}
 
 
 def data_parallel_phase(egs_dir, graph, trainer_ref, dev):
     """Data parallelism on the one card: tools.train --data-parallel 1
     over NCCL against the trainer phase, then two gloo ranks on the card
     against one process at bench.py's step, B = 256, and the
-    multi-process tools (mpworker, dryrun_multichip) on the card."""
+    multi-process tools (mpworker, dryrun_multichip at 2 and 8 ranks) on
+    the card.  Returns the phase's launches and the 8-rank dryrun's
+    result."""
     t0 = time.perf_counter()
     w1_launches, world1 = world1_run(egs_dir, trainer_ref)
     t1 = time.perf_counter()
@@ -2193,7 +2265,156 @@ def data_parallel_phase(egs_dir, graph, trainer_ref, dev):
                 "narrow": {"loss": NARROW_LOSS, "params": NARROW_PARAMS,
                            "bn": NARROW_BN, "ng_v": NARROW_NG_V}},
           launches_two_ranks=two_launches)
-    return {k: w1_launches[k] + two_launches[k] for k in two_launches}
+    return ({k: w1_launches[k] + two_launches[k] for k in two_launches},
+            mp["dryrun_8"])
+
+
+def _msp_rank(group, graph, narrow):
+    """A spawned rank of the model_seq_parallel phase: for each mesh of
+    MSP_MESHES, bench.py's step at B = MSP_B in fp32 and in bf16 with
+    NG-SGD (the latter with one instrumented step), then the narrow fp32
+    cases.  Rank 0 returns its states, the other rank its digests."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, cfg in MSP_MESHES.items():
+        mesh = make_mesh(cfg, group.device)
+        for tag, ng, dtype in MSP_RUNS:
+            res = dp_bench_steps(mesh, group.device, graph, ng,
+                                 instrument=tag == "ng", dtype=dtype,
+                                 steps=MSP_STEPS, b=MSP_B)
+            del res["init"]
+            if group.rank != 0:
+                del res["states"]
+            out[f"{name}/{tag}"] = res
+            torch.cuda.empty_cache()
+        out[f"{name}/narrow"] = {
+            k: run_setup(dataclasses.replace(s, mesh=cfg), group)
+            for k, s in narrow.items()}
+    return out
+
+
+def model_seq_parallel_phase(dev, graph, dryrun_8):
+    """Tensor and sequence parallelism on the one card: bench.py's step
+    at B = MSP_B on two gloo ranks, split over the model axis and over
+    the seq axis, against one process and its yardstick (rows permuted),
+    the narrow cases at the CPU tests' bars; the data_parallel phase's
+    8-rank dryrun (data 2 x seq 2 x model 2) reported beside them.
+    Returns the ranks' kernel launches."""
+    t0 = time.perf_counter()
+    perm = np.r_[MSP_B // 2:MSP_B, 0:MSP_B // 2]
+    single, yard = {}, {}
+    for tag, ng, dtype in MSP_RUNS:
+        single[tag] = dp_bench_steps(None, dev, graph, ng, dtype=dtype,
+                                     steps=MSP_STEPS, b=MSP_B)
+        other = dp_bench_steps(None, dev, graph, ng, dtype=dtype,
+                               steps=MSP_STEPS, b=MSP_B, perm=perm)
+        yard[tag] = {"losses": other["losses"],
+                     "distance": state_distance(other["states"], single[tag])}
+        del other
+        torch.cuda.empty_cache()
+    narrow = {k: v for k, v in narrow_setups().items() if k in ("plain",
+                                                                "ng")}
+    narrow_ref = {k: run_setup(s, device=dev) for k, s in narrow.items()}
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(_msp_rank, [dev, dev], args=(graph, narrow),
+                        backend="gloo", join_seconds=DP_JOIN_S)
+    t2 = time.perf_counter()
+    launches = {"den_scan_fwd": 0, "den_scan_bwd": 0, "den_matmul": 0,
+                "segment_reduce": 0}
+    report, failed = {}, []
+    for name, cfg in MSP_MESHES.items():
+        report[name] = {}
+        for tag, *_ in MSP_RUNS:
+            ref, got = single[tag], [r[f"{name}/{tag}"] for r in ranks]
+            for r in got:
+                if r["digest"] != got[0]["digest"]:
+                    failed.append(f"{name} {tag}: the ranks' whole states "
+                                  f"differ in " + ", ".join(
+                                      k for k, d in r["leaf_digests"].items()
+                                      if d != got[0]["leaf_digests"][k]))
+                if r["scan_used"] != "fused" or any(
+                        x != {"den_scan_fwd": 1, "den_scan_bwd": 1,
+                              "den_matmul": 0}
+                        for x in r["launches_per_step"]):
+                    failed.append(
+                        f"{name} {tag}: den route {r['scan_used']}, "
+                        f"launches {r['launches_per_step']}")
+                for x in r["launches_per_step"]:
+                    for k in x:
+                        launches[k] += x[k]
+            losses = got[0]["losses"]
+            rel = loss_rel(losses, ref["losses"])
+            y_rel = loss_rel(yard[tag]["losses"], ref["losses"])
+            bars = [DP_LOSS_RTOL[tag][0]] + [
+                max(DP_LOSS_RTOL[tag][1], DP_BARS[tag][0][0] * y)
+                for y in y_rel[1:]]
+            if any(x > bar for x, bar in zip(rel, bars)):
+                failed.append(f"{name} {tag}: losses {losses} against one "
+                              f"process's {ref['losses']} (rel {rel}, bars "
+                              f"{bars})")
+            update, bn = state_distance(got[0]["states"], ref)
+            if not within_dp_bars(tag, yard[tag]["distance"], update, bn):
+                failed.append(
+                    f"{name} {tag}: after step 1 the update differs from "
+                    f"one process's by {update[0]}, the BN statistics by "
+                    f"{bn[0]}; the yardstick by "
+                    f"{yard[tag]['distance'][0][0]} and "
+                    f"{yard[tag]['distance'][1][0]}")
+            report[name][tag] = {
+                "losses_two_ranks": losses,
+                "losses_one_process": ref["losses"],
+                "loss_rel_diff": rel,
+                "yardstick_loss_rel_diff": y_rel, "loss_bars": bars,
+                "update_rel_diff_steps_1_last": update,
+                "bn_rel_diff_steps_1_last": bn,
+                "yardstick_update_bn_rel_diff_step_1": [
+                    yard[tag]["distance"][0][0], yard[tag]["distance"][1][0]],
+                "leaves_step_1": leaf_distances(got[0]["states"][0], ref),
+                "event_step_ms_per_rank": [r["event_step_ms"] for r in got],
+                "event_step_ms_one_process": ref["event_step_ms"],
+                "axis_collectives_per_step_per_rank": [
+                    r["axis_counts_per_step"] for r in got],
+                "peak_bytes_per_rank": [r["peak_bytes"] for r in got],
+                "peak_bytes_one_process": ref["peak_bytes"],
+                "ranks_bit_identical": True}
+            if "collective_ms" in got[0]:
+                report[name][tag].update(
+                    instrumented_step_ms=[r["instrumented_step_ms"]
+                                          for r in got],
+                    collective_share=[r["collective_share"] for r in got],
+                    axis_collective_ms=[r["axis_collective_ms"]
+                                        for r in got])
+        for k, ref in narrow_ref.items():
+            for r in ranks:
+                try:
+                    narrow_check(r[f"{name}/narrow"][k], ref,
+                                 f"{name} narrow {k}")
+                except AssertionError as e:
+                    failed.append(str(e))
+        report[name]["narrow_loss_rel_diff"] = {
+            k: loss_rel([o["loss"] for o in
+                         ranks[0][f"{name}/narrow"][k]["outputs"]],
+                        [o["loss"] for o in ref["outputs"]])
+            for k, ref in narrow_ref.items()}
+    for k in launches:
+        launches[k] += dryrun_8["rank_launches"].get(k, 0)
+    phase("model_seq_parallel", card=card(), B=MSP_B, T_in=T_IN,
+          steps=MSP_STEPS, meshes={k: {"data": c.data, "seq": c.seq,
+                                       "model": c.model}
+                                   for k, c in MSP_MESHES.items()},
+          runs=report, dryrun_8_ranks=dryrun_8,
+          bars={"loss_rtol_first_later_floor": {t: DP_LOSS_RTOL[t]
+                                                for t, *_ in MSP_RUNS},
+                "step_1_update_bn_x_yardstick_and_floors":
+                    {t: DP_BARS[t] for t, *_ in MSP_RUNS},
+                "narrow": {"loss": NARROW_LOSS, "params": NARROW_PARAMS,
+                           "bn": NARROW_BN, "ng_v": NARROW_NG_V}},
+          launches=launches, one_process_s=t1 - t0, ranks_s=t2 - t1,
+          phase_s=time.perf_counter() - t0, failed=failed)
+    if failed:
+        raise AssertionError("model_seq_parallel: " + "; ".join(failed))
+    return launches
 
 
 def lattices_equal(a, b):
@@ -3854,7 +4075,9 @@ def main():
     del den_f
     egs_dir, egs_graph = egs_phase()
     _, den_check, trainer_ref = trainer_phase(egs_dir, egs_graph, dev)
-    dp_launches = data_parallel_phase(egs_dir, graph, trainer_ref, dev)
+    dp_launches, dryrun_8 = data_parallel_phase(egs_dir, graph, trainer_ref,
+                                                dev)
+    msp_launches = model_seq_parallel_phase(dev, graph, dryrun_8)
     hclg_graph, hclg_ll, hclg_offline = decode_hclg_phase(dev)
     layouts = decode_layouts_phase(dev, hclg_graph, hclg_ll, hclg_offline)
     decode_parallel_phase(dev, hclg_ll, hclg_offline, layouts)
@@ -3892,7 +4115,8 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("den_matmul", "den_matmul.cu", KERNEL_REPLACES,
-              launches["den_matmul"] + sw_launches + tools["den_matmul"],
+              launches["den_matmul"] + sw_launches + tools["den_matmul"]
+              + msp_launches["den_matmul"],
               max(k["kernel_max_abs_err_vs_plain"], sw_err),
               k["kernel_kernel_us"] / 1e3, k["kernel_plain_us"] / 1e3,
               mm_bound["kernel"], k["kernel_library_us"] / 1e3),
@@ -3903,7 +4127,8 @@ def main():
               k["pre_library_us"] / 1e3),
         entry("den_scan_fwd", "den_scan.cu", SCAN_REPLACES["fwd"],
               fused_launches["den_scan_fwd"] + dp_launches["den_scan_fwd"]
-              + att_launches["den_scan_fwd"] + tools["den_scan_fwd"],
+              + msp_launches["den_scan_fwd"] + att_launches["den_scan_fwd"]
+              + tools["den_scan_fwd"],
               max(v for errs in (scan["kernel_max_abs_err"],
                                  den_check["scan_max_abs_err"])
                   for n, v in errs.items() if n != "beta_hist"),
@@ -3911,13 +4136,15 @@ def main():
               scan["fwd_bound"], None),
         entry("den_scan_bwd", "den_scan.cu", SCAN_REPLACES["bwd"],
               fused_launches["den_scan_bwd"] + dp_launches["den_scan_bwd"]
-              + att_launches["den_scan_bwd"] + tools["den_scan_bwd"],
+              + msp_launches["den_scan_bwd"] + att_launches["den_scan_bwd"]
+              + tools["den_scan_bwd"],
               max(scan["kernel_max_abs_err"]["beta_hist"],
                   den_check["scan_max_abs_err"]["beta_hist"]),
               scan["kernel_bwd_ms"], scan["kernel_bwd_plain_ms"],
               scan["bwd_bound"], None),
         entry("segment_reduce", "segment_reduce.cu", REDUCE_REPLACES,
-              red_launches + tools["segment_reduce"], red["max_abs_err"],
+              red_launches + tools["segment_reduce"]
+              + msp_launches["segment_reduce"], red["max_abs_err"],
               red["sorted"]["ms"],
               red["sorted"]["plain_ms"], red["sorted"]["bound"],
               red["sorted"]["library_ms"]),

@@ -12,6 +12,11 @@ continues in the port.  The x-vector family's parameters
 (`xvector_params_from_jax` / `_to_numpy`) and an Adam state
 (`adam_state_from_jax` / `_to_numpy`) share the JAX layout and cross
 unchanged.
+
+On a mesh with a model axis (parallel/mesh.py) a rank holds its slices of
+the sharded layers: `train_state_from_jax(..., mesh=)` cuts a JAX state
+to them, and `params_to_numpy` / `train_state_to_numpy(..., mesh=)`
+gather them whole (an all-reduce over the model axis on every rank).
 """
 
 from __future__ import annotations
@@ -55,12 +60,19 @@ def params_from_jax(model: Model, params: dict, state: dict
     return sd
 
 
-def params_to_numpy(net: Network) -> Tuple[dict, dict]:
+def params_to_numpy(net: Network, mesh=None) -> Tuple[dict, dict]:
     """The port's parameters and BN statistics as JAX-layout (params,
-    state) trees of numpy arrays."""
+    state) trees of numpy arrays (whole: gathered over a mesh's model
+    axis)."""
+    from kaldi_fp16_tpu_torch.parallel.data_parallel import (
+        gather_params, param_shardings,
+    )
+    from kaldi_fp16_tpu_torch.parallel.mesh import mesh_axes
     model = net.model
     params = {}
-    for lname, p in net.params.items():
+    whole = gather_params(net.params, param_shardings(model, mesh, net.params),
+                          mesh_axes(mesh).model)
+    for lname, p in whole.items():
         params[lname] = {}
         for pname, w in p.items():
             w = w.detach()
@@ -81,7 +93,8 @@ def _tree(x):
 
 
 def train_state_from_jax(model: Model, params: dict, net_state: dict,
-                         opt_state: dict, scale_state, device=None):
+                         opt_state: dict, scale_state, device=None,
+                         mesh=None):
     """A JAX training state (the trees of the JAX `init_train_state` or of a
     restored JAX checkpoint, numpy or jax arrays) -> (the port's
     state_dict for `Network.load_state_dict`, opt_state, scale_state) on
@@ -90,13 +103,19 @@ def train_state_from_jax(model: Model, params: dict, net_state: dict,
     opt_state carries the SGD velocities (conv weights re-laid out to OIHW,
     as `params_from_jax` does), the step count and, when present, the NG
     states per site ({"in": NGState, "out": NGState}); scale_state becomes
-    the port's LossScaleState."""
+    the port's LossScaleState.  mesh: the state_dict and the velocities
+    are this rank's slices over the mesh's model axis."""
     from kaldi_fp16_tpu_torch.device import resolve_device
+    from kaldi_fp16_tpu_torch.parallel.data_parallel import (
+        param_shardings, shard_params, shard_state_dict,
+    )
+    from kaldi_fp16_tpu_torch.parallel.mesh import mesh_axes
     from kaldi_fp16_tpu_torch.training.loss_scale import LossScaleState
     from kaldi_fp16_tpu_torch.training.natural_gradient import NGState
 
     device = resolve_device(device)
-    sd = params_from_jax(model, params, net_state)
+    sd = shard_state_dict(params_from_jax(model, params, net_state), model,
+                          mesh)
 
     def tensor(a, dtype=None):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -109,6 +128,12 @@ def train_state_from_jax(model: Model, params: dict, net_state: dict,
             if _is_conv_weight(model, lname, pname):
                 t = conv_weight_to_oihw(t, model.layer_map[lname].spec)
             velocity[lname][pname] = t
+    tp = mesh_axes(mesh).model
+    if tp is not None:
+        velocity = {l: {k: v.clone() for k, v in p.items()} for l, p in
+                    shard_params(velocity, param_shardings(model, mesh,
+                                                           velocity),
+                                 tp.rank, tp.world).items()}
     out = {"velocity": velocity,
            "step": tensor(opt_state["step"], torch.int64)}
     if "ng" in opt_state:
@@ -122,15 +147,24 @@ def train_state_from_jax(model: Model, params: dict, net_state: dict,
     return sd, out, scale
 
 
-def train_state_to_numpy(net: Network, opt_state: dict, scale_state):
+def train_state_to_numpy(net: Network, opt_state: dict, scale_state,
+                         mesh=None):
     """The port's training state as JAX-layout numpy trees: (params,
     net_state, opt_state, scale_state dict), opt_state with "velocity"
     (conv weights in the JAX layout), "step" (int32) and, when present,
-    "ng" ({site: {"in"/"out": {v, d, rho, t}}})."""
+    "ng" ({site: {"in"/"out": {v, d, rho, t}}}); whole, gathered over a
+    mesh's model axis."""
+    from kaldi_fp16_tpu_torch.parallel.data_parallel import (
+        gather_params, param_shardings,
+    )
+    from kaldi_fp16_tpu_torch.parallel.mesh import mesh_axes
     model = net.model
-    params, state = params_to_numpy(net)
+    params, state = params_to_numpy(net, mesh)
+    vel = opt_state["velocity"]
+    vel = gather_params(vel, param_shardings(model, mesh, vel),
+                        mesh_axes(mesh).model)
     velocity = {}
-    for lname, p in opt_state["velocity"].items():
+    for lname, p in vel.items():
         velocity[lname] = {}
         for pname, v in p.items():
             v = v.detach()

@@ -22,7 +22,16 @@ commits them with `set_bn_state` (the train step keeps the old ones on a
 skipped, non-finite batch).  Under a data group (`forward(group=...)`,
 parallel/mesh.py) each rank holds its rows of the batch, and BatchNorm
 takes its statistics over every rank's rows (parallel/data_parallel.py
-`batch_moments`), as the JAX package's sharded step does.
+`batch_moments`), as the JAX package's sharded step does.  Under a mesh
+with a seq axis each rank holds its frames too: every temporal op (the
+splices, the conv's time offsets, attention's context, the frame grid and
+the cut conv's window) reads its neighbours' edge frames through a halo
+exchange (`TimeChunks.halo`), and the outputs are gathered along time
+before they are returned.  Under a model axis the TDNN-F affines, the
+prefinal layers and the output heads hold their columns
+(`param_shardings`): column-parallel matmuls whose outputs are gathered
+before relu / BatchNorm / log_softmax, and the prefinal small_w
+row-parallel on the rank's columns of the normalised big output.
 
 Natural gradient (NG-SGD): with an `NGContext`, the forward records each
 site's matmul input X and registers a hook on the site's fp32
@@ -51,8 +60,9 @@ from kaldi_fp16_tpu_torch.models.layers import (
 from kaldi_fp16_tpu_torch.models.model import Model
 from kaldi_fp16_tpu_torch.models.xconfig import InputType, LayerType
 from kaldi_fp16_tpu_torch.parallel.data_parallel import (
-    batch_moments, spec_rows,
+    TimeChunks, batch_moments, copy_to, gather_cols, reduce_from, spec_rows,
 )
+from kaldi_fp16_tpu_torch.parallel.mesh import mesh_axes
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 State = Dict[str, dict]
@@ -169,19 +179,22 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _batchnorm(x: torch.Tensor, st: dict, target_rms: float, epsilon: float,
-               train: bool, group=None) -> Tuple[torch.Tensor, dict]:
+               train: bool, tc: Optional[TimeChunks] = None
+               ) -> Tuple[torch.Tensor, dict]:
     """Kaldi BatchNormComponent: stats over (batch, time), target-rms scale.
     Returns (normalised x in x.dtype, new running statistics).  Under a
-    data group (parallel/mesh.py) the statistics, and the running ones,
-    are those of every rank's rows."""
+    mesh (tc: the frame rate's chunks, parallel/data_parallel.py) the
+    statistics, and the running ones, are those of every rank's rows and
+    frames."""
     xf = x.float()
     if train:
-        if group is None:
+        if tc is None or tc.dp is None:
             mean = xf.mean(dim=(0, 1))
             var = torch.clamp(xf.var(dim=(0, 1), unbiased=False), min=0.0)
             n = float(x.shape[0] * x.shape[1])
         else:
-            mean, var, n = batch_moments(xf, group)
+            mean, var, n = batch_moments(
+                xf, tc.dp, tc.total(x.shape[0] * x.shape[1]))
         with torch.no_grad():
             old_n = st["count"]
             count = old_n + n
@@ -217,9 +230,23 @@ def _shift_time(x: torch.Tensor, offset: int, mode: str) -> torch.Tensor:
                       x[:, :T + offset]], dim=1)
 
 
-def _splice(x: torch.Tensor, offsets, mode: str) -> torch.Tensor:
+def _shifted(x: torch.Tensor, offsets, mode: str,
+             tc: Optional[TimeChunks] = None) -> list:
+    """x shifted by each offset (_shift_time).  Under a seq axis x is this
+    rank's chunk: one halo exchange brings the neighbours' frames the
+    shifts read, and `mode` fills only the sequence's ends."""
+    if tc is None or tc.seq is None:
+        return [_shift_time(x, o, mode) for o in offsets]
+    left, right = max(0, -min(offsets)), max(0, max(offsets))
+    ext = tc.halo(x, left, right, mode)
+    n = x.shape[1]
+    return [ext[:, left + o:left + o + n] for o in offsets]
+
+
+def _splice(x: torch.Tensor, offsets, mode: str,
+            tc: Optional[TimeChunks] = None) -> torch.Tensor:
     """Concat time-shifted copies along the feature axis."""
-    return torch.cat([_shift_time(x, o, mode) for o in offsets], dim=-1)
+    return torch.cat(_shifted(x, offsets, mode, tc), dim=-1)
 
 
 def _even_spacing(offsets) -> Optional[int]:
@@ -256,20 +283,29 @@ class NGContext:
     def __init__(self):
         self.xs: Dict[str, torch.Tensor] = {}
         self.gs: Dict[str, torch.Tensor] = {}
+        self.counts: Dict[str, int] = {}
         self.frozen = False
 
-    def site(self, name: str, x: torch.Tensor,
-             out: torch.Tensor) -> torch.Tensor:
+    def site(self, name: str, x: torch.Tensor, out: torch.Tensor,
+             count: Optional[int] = None) -> torch.Tensor:
+        """count: every rank's samples of the site, when the forward runs
+        on a share of the batch (`fisher_update`'s N)."""
         if self.frozen:
             return out
         self.xs[name] = x.detach()
+        if count is not None:
+            self.counts[name] = count
         if out.requires_grad:
             out.register_hook(lambda g, name=name: self.gs.__setitem__(name, g))
         return out
 
 
-def _site(ng: Optional[NGContext], name: str, x, out):
-    return out if ng is None else ng.site(name, x, out)
+def _site(ng: Optional[NGContext], name: str, x, out,
+          tc: Optional[TimeChunks] = None):
+    if ng is None:
+        return out
+    return ng.site(name, x, out,
+                   None if tc is None else tc.total(x[..., 0].numel()))
 
 
 def ng_sites(model: Model):
@@ -320,7 +356,8 @@ def ng_sites(model: Model):
 
 def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
                       x: torch.Tensor, train: bool, dtype, ng=None, lname="",
-                      grid_cut=None, group=None) -> Tuple[torch.Tensor, dict]:
+                      grid_cut=None, tc=None, tc_out=None
+                      ) -> Tuple[torch.Tensor, dict]:
     """Convolution over (time, height).  x: [B, T, H_in * nf_in], filter
     fastest.  Two lowerings, the same math (network.py:321-426):
 
@@ -334,7 +371,11 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
         [B, T, H_out, k * nf_in] (offsets time-major, height fastest, the
         JAX weight layout's row order), then one matmul.  It serves
         irregular offset grids and NG-SGD, whose input Fisher factor taps
-        the patch."""
+        the patch.
+
+    tc: the input's chunks (the time offsets read a halo under seq);
+    tc_out: the output's (the grid's for a cut conv; default tc)."""
+    tc_out = tc if tc_out is None else tc_out
     B, T, _ = x.shape
     H_in, H_out = spec.height_in, spec.height_out
     nf_in, nf_out = spec.num_filters_in, spec.num_filters_out
@@ -346,8 +387,8 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
         if grid_cut is not None:
             raise ValueError("a cut conv needs the direct lowering")
         patches = []
-        for t_off in t_offs:
-            xt = _shift_time(x, t_off, "zero").reshape(B, T, H_in, nf_in)
+        for xt in _shifted(x, t_offs, "zero", tc):
+            xt = xt.reshape(B, T, H_in, nf_in)
             if pad_lo or pad_hi:
                 xt = F.pad(xt, (0, 0, pad_lo, pad_hi))
             for h_off in h_offs:
@@ -356,14 +397,19 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
         patch = torch.cat(patches, dim=-1)        # [B, T, H_out, k * nf_in]
         out = (_matmul(patch, conv_weight_from_oihw(p["w"], spec), dtype)
                + p["b"].float())
-        out = _site(ng, f"{lname}/w", patch, out)
+        out = _site(ng, f"{lname}/w", patch, out, tc)
         out = torch.relu(out).reshape(B, T, H_out * nf_out).to(dtype)
-        return _batchnorm(out, bn, spec.target_rms, 1e-3, train, group)
+        return _batchnorm(out, bn, spec.target_rms, 1e-3, train, tc_out)
     t_lo, t_hi = -min(t_offs), max(t_offs)
     dilation = (_even_spacing(t_offs), _even_spacing(h_offs))
 
-    xs = x.reshape(B, T, H_in, nf_in).to(dtype).permute(0, 3, 1, 2)  # NCHW
-    xpad = F.pad(xs, (pad_lo, pad_hi, t_lo, t_hi))
+    if tc is not None and tc.seq is not None:
+        xs = tc.halo(x, t_lo, t_hi, "zero")
+        xs = xs.reshape(B, -1, H_in, nf_in).to(dtype).permute(0, 3, 1, 2)
+        xpad = F.pad(xs, (pad_lo, pad_hi, 0, 0))
+    else:
+        xs = x.reshape(B, T, H_in, nf_in).to(dtype).permute(0, 3, 1, 2)
+        xpad = F.pad(xs, (pad_lo, pad_hi, t_lo, t_hi))            # NCHW
     w = p["w"].to(dtype)
     if grid_cut is not None:
         g_stride, g_offset, n_grid = grid_cut
@@ -376,23 +422,30 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict,
     out = out[:, :, :T, :H_out].float() + p["b"].float()[None, :, None, None]
     out = torch.relu(out).permute(0, 2, 3, 1)          # [B, T, H_out, nf_out]
     out = out.reshape(B, T, H_out * nf_out).to(dtype)  # filter fastest
-    return _batchnorm(out, bn, spec.target_rms, 1e-3, train, group)
+    return _batchnorm(out, bn, spec.target_rms, 1e-3, train, tc_out)
 
 
 def _fwd_tdnnf(spec: TDNNFSpec, p: dict, bn: dict, x: torch.Tensor,
-               train: bool, dtype, ng=None, lname="",
-               group=None) -> Tuple[torch.Tensor, dict]:
+               train: bool, dtype, ng=None, lname="", tc=None,
+               tp=None) -> Tuple[torch.Tensor, dict]:
     """splice[-s,0] -> linear -> splice[0,+s] -> affine -> relu -> bn ->
-    bypass (clamped edges)."""
+    bypass (clamped edges).  tp (the model axis's group): the affine holds
+    its columns; the output is gathered before relu / BatchNorm."""
     s = spec.time_stride
-    lin_in = _splice(x, (-s, 0), "clamp") if s > 0 else x
+    lin_in = _splice(x, (-s, 0), "clamp", tc) if s > 0 else x
     bottleneck = _matmul(lin_in, p["linear_w"], dtype)
-    bottleneck = _site(ng, f"{lname}/linear_w", lin_in, bottleneck).to(dtype)
-    aff_in = _splice(bottleneck, (0, s), "clamp") if s > 0 else bottleneck
-    out = _matmul(aff_in, p["affine_w"], dtype) + p["affine_b"].float()
-    out = _site(ng, f"{lname}/affine_w", aff_in, out)
+    bottleneck = _site(ng, f"{lname}/linear_w", lin_in, bottleneck,
+                       tc).to(dtype)
+    aff_in = _splice(bottleneck, (0, s), "clamp", tc) if s > 0 else bottleneck
+    if tp is None:
+        out = _matmul(aff_in, p["affine_w"], dtype) + p["affine_b"].float()
+        out = _site(ng, f"{lname}/affine_w", aff_in, out, tc)
+    else:
+        out = (_matmul(copy_to(aff_in, tp), p["affine_w"], dtype)
+               + p["affine_b"].float())
+        out = gather_cols(_site(ng, f"{lname}/affine_w", aff_in, out, tc), tp)
     out = torch.relu(out).to(dtype)
-    out, new_bn = _batchnorm(out, bn, spec.target_rms, 1e-3, train, group)
+    out, new_bn = _batchnorm(out, bn, spec.target_rms, 1e-3, train, tc)
     if spec.bypass_scale > 0 and spec.input_dim == spec.output_dim:
         # the scale is rounded to the compute dtype first, as in JAX
         out = out + x.new_tensor(spec.bypass_scale, dtype=out.dtype) * x
@@ -401,7 +454,7 @@ def _fwd_tdnnf(spec: TDNNFSpec, p: dict, bn: dict, x: torch.Tensor,
 
 def _fwd_attention(spec: AttentionSpec, p: dict, bn: dict, x: torch.Tensor,
                    train: bool, dtype, ng=None, lname="",
-                   group=None) -> Tuple[torch.Tensor, dict]:
+                   tc=None) -> Tuple[torch.Tensor, dict]:
     """Restricted per-head time attention (network.py:447-482): one
     projection into keys, values, query-keys and query-context scores per
     head; for each of the context_dim offsets o, the keys and values at
@@ -412,24 +465,25 @@ def _fwd_attention(spec: AttentionSpec, p: dict, bn: dict, x: torch.Tensor,
     H, kd, vd = spec.num_heads, spec.key_dim, spec.value_dim
     cd = spec.context_dim
     proj = _matmul(x, p["w"], dtype) + p["b"].float()      # [B, T, H * iph]
-    proj = _site(ng, f"{lname}/w", x, proj)
+    proj = _site(ng, f"{lname}/w", x, proj, tc)
     proj = proj.reshape(B, T, H, spec.input_dim_per_head)
     keys = proj[..., :kd]
     values = proj[..., kd:kd + vd]
     q_key = proj[..., kd + vd:kd + vd + kd]
     q_ctx = proj[..., kd + vd + kd:]
-    scores, vals = [], []
-    for o in range(cd):
-        delta = (o - spec.num_left_inputs) * spec.time_stride
-        dot = (q_key * _shift_time(keys, delta, "zero")).sum(-1)
+    deltas = [(o - spec.num_left_inputs) * spec.time_stride
+              for o in range(cd)]
+    scores = []
+    vals = _shifted(values, deltas, "zero", tc)
+    for o, k in enumerate(_shifted(keys, deltas, "zero", tc)):
+        dot = (q_key * k).sum(-1)
         scores.append(q_ctx[..., o] + spec.key_scale * dot)   # [B, T, H]
-        vals.append(_shift_time(values, delta, "zero"))
     attn = torch.softmax(torch.stack(scores, dim=-1), dim=-1)  # [B, T, H, cd]
     ctx_out = torch.einsum("bthc,bthcv->bthv", attn,
                            torch.stack(vals, dim=-2))
     out = torch.cat([ctx_out, attn], dim=-1).reshape(B, T, H * (vd + cd))
     out = torch.relu(out).to(dtype)
-    return _batchnorm(out, bn, spec.target_rms, 1e-3, train, group)
+    return _batchnorm(out, bn, spec.target_rms, 1e-3, train, tc)
 
 
 def spec_augment_masks(spec: SpecAugmentSpec, B: int, T: int,
@@ -470,10 +524,13 @@ def spec_augment_masks(spec: SpecAugmentSpec, B: int, T: int,
 def _draw_masks(spec: SpecAugmentSpec, B: int, T: int,
                 generator: torch.Generator, device, group=None):
     """One SpecAugment layer's masks as the forward draws them: for the
-    global batch under a data group, of which this rank keeps its rows."""
-    world = group.world if group is not None else 1
-    masks = spec_augment_masks(spec, B * world, T, generator, device)
-    return masks if group is None else spec_rows(masks, group)
+    global batch under a mesh, of which this rank keeps its rows and (seq
+    axis) its frames."""
+    if group is None:
+        return spec_augment_masks(spec, B, T, generator, device)
+    tc = TimeChunks.even(T, group)
+    masks = spec_augment_masks(spec, B * tc.data, tc.T, generator, device)
+    return spec_rows(masks, group, tc if tc.seq is not None else None)
 
 
 def draw_spec_masks(model: Model, B: int, T: int,
@@ -721,10 +778,14 @@ class Network(nn.Module):
         output gradients; the convs then take the patch lowering and none
         is cut, as in the JAX package.
 
-        group (a DataGroup, parallel/mesh.py): the batch is this rank's
-        rows of the global batch; BatchNorm takes its statistics over
-        every rank's rows, and masks drawn from `generator` are drawn for
-        the global batch, of which this rank keeps its rows.
+        group (a DataGroup or Mesh, parallel/mesh.py): the batch is this
+        rank's rows of the global batch (and, under a seq axis, its
+        frames: n_grid in time_subsample stays the sequence's); BatchNorm
+        takes its statistics over every rank's rows and frames, masks
+        drawn from `generator` are drawn for the global batch, of which
+        this rank keeps its share, and the outputs come back with every
+        frame.  Under a model axis the network holds its columns of the
+        sharded layers (parallel/data_parallel.py `shard_train_state`).
         """
         model = self.model
         params = self.params
@@ -734,6 +795,9 @@ class Network(nn.Module):
         acts: Dict[str, torch.Tensor] = {}
         new_state: State = dict(state)
         outputs: Dict[str, torch.Tensor] = {}
+        tp = mesh_axes(group).model
+        full_tc = None if group is None else TimeChunks.even(T, group)
+        grid_tc = None
 
         grid: frozenset = frozenset()
         cut: frozenset = frozenset()
@@ -745,10 +809,17 @@ class Network(nn.Module):
             if ng is None:
                 cut = conv_cut_layers(model, g_stride)
                 grid = grid | cut
+            # this rank's grid frames: those in its own chunk (all of them
+            # without a seq axis), from full-rate frame p0 on
+            k_lo, n_k, lo = 0, n_grid, 0
+            if full_tc is not None:
+                grid_tc = full_tc.grid(g_stride, g_offset, n_grid)
+                k_lo, n_k, lo = grid_tc.lo, grid_tc.n, full_tc.lo
+            p0 = g_offset + k_lo * g_stride - lo
 
         def to_grid(a):
             """Full-rate [B, T, ...] -> grid [B, n_grid, ...]."""
-            return a[:, g_offset:g_offset + (n_grid - 1) * g_stride + 1:g_stride]
+            return a[:, p0:p0 + (n_k - 1) * g_stride + 1:g_stride]
 
         def get_input(layer: Layer, prev_name: Optional[str]) -> torch.Tensor:
             # cut convs consume full-rate input (the stride lives in their
@@ -786,14 +857,17 @@ class Network(nn.Module):
             x = get_input(layer, prev_name)
             p = params.get(layer.name, {})
             st = state.get(layer.name)
+            tc = (grid_tc if layer.name in grid and layer.name not in cut
+                  else full_tc)
 
             if t == LayerType.IDCT:
                 out = _matmul(x, p["idct"], dtype)
             elif t == LayerType.LINEAR:
-                out = _site(ng, f"{layer.name}/w", x, _matmul(x, p["w"], dtype))
+                out = _site(ng, f"{layer.name}/w", x,
+                            _matmul(x, p["w"], dtype), tc)
             elif t == LayerType.BATCHNORM:
                 out, new_state[layer.name] = _batchnorm(
-                    x, st, s.target_rms, s.epsilon, train, group)
+                    x, st, s.target_rms, s.epsilon, train, tc)
             elif t == LayerType.SPEC_AUGMENT:
                 masks = None
                 if train and spec_masks is not None and layer.name in spec_masks:
@@ -805,40 +879,61 @@ class Network(nn.Module):
             elif t == LayerType.COMBINE_FEATURE_MAPS:
                 out = _fwd_combine_feature_maps(s, x)
             elif t == LayerType.CONV_RELU_BATCHNORM:
-                gc = (g_stride, g_offset, n_grid) if layer.name in cut else None
+                gc = (g_stride, p0, n_k) if layer.name in cut else None
                 out, new_state[layer.name] = _fwd_conv_relu_bn(
                     s, p, st, x, train, dtype, ng=ng, lname=layer.name,
-                    grid_cut=gc, group=group)
+                    grid_cut=gc, tc=tc, tc_out=grid_tc if gc else tc)
             elif t == LayerType.TDNNF:
                 out, new_state[layer.name] = _fwd_tdnnf(
                     s, p, st, x, train, dtype, ng=ng, lname=layer.name,
-                    group=group)
+                    tc=tc, tp=tp)
             elif t == LayerType.ATTENTION_RELU_BATCHNORM:
                 out, new_state[layer.name] = _fwd_attention(
                     s, p, st, x, train, dtype, ng=ng, lname=layer.name,
-                    group=group)
+                    tc=tc)
             elif t == LayerType.RELU_BATCHNORM:
                 out = _matmul(x, p["w"], dtype) + p["b"].float()
-                out = _site(ng, f"{layer.name}/w", x, out)
+                out = _site(ng, f"{layer.name}/w", x, out, tc)
                 out = torch.relu(out).to(dtype)
                 out, new_state[layer.name] = _batchnorm(
-                    out, st, s.target_rms, 1e-3, train, group)
+                    out, st, s.target_rms, 1e-3, train, tc)
             elif t == LayerType.PREFINAL:
-                big = _matmul(x, p["big_w"], dtype) + p["big_b"].float()
-                big = _site(ng, f"{layer.name}/big_w", x, big)
+                xin = x if tp is None else copy_to(x, tp)
+                big = _matmul(xin, p["big_w"], dtype) + p["big_b"].float()
+                big = _site(ng, f"{layer.name}/big_w", x, big, tc)
+                if tp is not None:
+                    big = gather_cols(big, tp)
                 big = torch.relu(big).to(dtype)
                 big, ns1 = _batchnorm(big, st["bn1"], s.target_rms, 1e-3,
-                                      train, group)
-                small = _matmul(big, p["small_w"], dtype)
-                small = _site(ng, f"{layer.name}/small_w", big, small).to(dtype)
+                                      train, tc)
+                if tp is None:
+                    small = _matmul(big, p["small_w"], dtype)
+                else:
+                    # row-parallel: this rank's columns of the whole,
+                    # normalised big output against its rows of small_w.
+                    # The partial products are summed in fp32 and rounded
+                    # to the compute dtype once, as one matmul's output is
+                    # (products of bf16 values are exact in fp32)
+                    w = big.shape[-1] // tp.world
+                    part = torch.matmul(
+                        big[..., tp.rank * w:(tp.rank + 1) * w].to(
+                            dtype).float(), p["small_w"].to(dtype).float())
+                    small = reduce_from(part, tp).to(dtype).float()
+                small = _site(ng, f"{layer.name}/small_w", big, small,
+                              tc).to(dtype)
                 out, ns2 = _batchnorm(small, st["bn2"], s.target_rms, 1e-3,
-                                      train, group)
+                                      train, tc)
                 new_state[layer.name] = {"bn1": ns1, "bn2": ns2}
             elif t == LayerType.OUTPUT:
-                out = _matmul(x, p["w"], dtype) + p["b"].float()
-                out = _site(ng, f"{layer.name}/w", x, out)
+                xin = x if tp is None else copy_to(x, tp)
+                out = _matmul(xin, p["w"], dtype) + p["b"].float()
+                out = _site(ng, f"{layer.name}/w", x, out, tc)
+                if tp is not None:
+                    out = gather_cols(out, tp)
                 if s.include_log_softmax:
                     out = torch.log_softmax(out, dim=-1)
+                if tc is not None and tc.seq is not None:
+                    out = tc.gather(out)
                 outputs[layer.name] = out   # outputs stay fp32
             else:                           # no-op-component
                 out = x

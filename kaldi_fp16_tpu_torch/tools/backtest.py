@@ -33,6 +33,7 @@ import sys
 import numpy as np
 import torch
 
+from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.convert import (
     _is_conv_weight, params_from_jax, params_to_numpy,
 )
@@ -89,14 +90,15 @@ output-layer name=output dim=6 include-log-softmax=false
 
 
 def gradcheck(cfg, params=None, state=None, proj=None, *, rng, eps=1e-3,
-              probes=6, device="cpu", B=2, T=8) -> dict:
-    """Autograd vs central differences on one xconfig.  params / state:
-    JAX-layout trees of numpy arrays (default: a seed-1 init); proj: the
-    [B, T, out_dim] projection (default: drawn from seed 7).  Draws the
-    inputs and the probed coordinates from `rng` as the JAX tool does.
-    Returns {"worst": max relative error, "grads": the autograd gradients
-    as a JAX-layout tree of numpy arrays}."""
-    device = torch.device(device)
+              probes=6, device=None, B=2, T=8) -> dict:
+    """Autograd vs central differences on one xconfig, on `device`
+    (default: the current CUDA device).  params / state: JAX-layout trees
+    of numpy arrays (default: a seed-1 init); proj: the [B, T, out_dim]
+    projection (default: drawn from seed 7).  Draws the inputs and the
+    probed coordinates from `rng` as the JAX tool does.  Returns
+    {"worst": max relative error, "grads": the autograd gradients as a
+    JAX-layout tree of numpy arrays}."""
+    device = resolve_device(device)
     model = build_model_from_string(cfg)
     net = Network(model, torch.Generator().manual_seed(1), device)
     if params is not None:

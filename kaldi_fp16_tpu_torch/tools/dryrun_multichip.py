@@ -1,24 +1,26 @@
-"""dryrun_multichip: a data-parallel train step on N gloo ranks against
-the same step in one process.
+"""dryrun_multichip: a train step on N gloo ranks of a data x seq x model
+mesh against the same step in one process.
 
     python -m kaldi_fp16_tpu_torch.tools.dryrun_multichip [--ranks 2] \\
         [--device cpu] [--backend gloo]
 
-The twin of __graft_entry__.dryrun_multichip (:34-132) over the data
-axis (the JAX dryrun's `model` and `seq` axes are not ported,
-parallel/mesh.py).  Its model is the JAX dryrun's grid-eligible one:
-cnn1 is a cut conv at the full->grid boundary and the TDNN-F, prefinal
-and output layers run on the stride-3 grid, so the step runs the
-production grid program (the strided cut-conv window, grid BatchNorm
-statistics) with every rank on its rows.  One step at 2 sequences per
-rank, bf16 compute: N spawned ranks and one process from the same
-weights must give the same loss (rtol 1e-5, tests/test_parallel.py's
-bar), and the ranks bit-identical parameters.  It runs on the card (one
-per rank over NCCL; with --backend gloo the ranks may share cards) unless
---device cpu asks for gloo ranks on the CPU.
+The twin of __graft_entry__.dryrun_multichip (:34-132), with its mesh
+(:64-71): 8k ranks are data 2k x seq 2 x model 2, other even counts from
+4 data n/2 x model 2, the rest data n.  Its model is the JAX dryrun's
+grid-eligible one: cnn1 is a cut conv at the full->grid boundary and the
+TDNN-F, prefinal and output layers run on the stride-3 grid, so the step
+runs the production grid program (the strided cut-conv window, grid
+BatchNorm statistics) with every rank on its rows, its frames (the halo
+of the cut conv's window and of the TDNN-F splices) and its columns of
+the heads.  One step at 2 sequences per data rank, bf16 compute: N
+spawned ranks and one process from the same weights must give the same
+loss (rtol 1e-5, tests/test_parallel.py's bar), and the ranks
+bit-identical parameters (the sharded ones gathered).  It runs on the
+card (one per rank over NCCL; with --backend gloo the ranks may share
+cards) unless --device cpu asks for gloo ranks on the CPU.
 
-`Setup`, `run_setup` and `run_on_ranks` drive any such case; the data-
-parallel tests (tests/test_torch_parallel.py) use them too.
+`Setup`, `run_setup` and `run_on_ranks` drive any such case; the
+parallel tests (tests/test_torch_parallel*.py) use them too.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from kaldi_fp16_tpu_torch.io.fst import Fst
+from kaldi_fp16_tpu_torch.parallel.mesh import MeshConfig
 
 LOSS_RTOL = 1e-5
 # the JAX dryrun's model (__graft_entry__.py:73-83)
@@ -46,11 +49,13 @@ output-layer name=output dim={NUM_PDFS} include-log-softmax=false
 
 @dataclasses.dataclass
 class Setup:
-    """One data-parallel case, all of it picklable: a model, a den FST,
-    the global batch and its numerator graphs, a TrainConfig's fields,
-    the steps to take.  state: (state_dict, opt_state, scale_state) to
-    start from (default: init_train_state from seed 0); spec_seed: the
-    SpecAugment generator's seed (None: no masks)."""
+    """One parallel case, all of it picklable: a model, a den FST, the
+    global batch and its numerator graphs, a TrainConfig's fields, the
+    steps to take.  state: (state_dict, opt_state, scale_state) to start
+    from (default: init_train_state from seed 0); spec_seed: the
+    SpecAugment generator's seed (None: no masks); mesh: the ranks' mesh
+    (None: data = every rank); restore_dir / save_dir: a checkpoint
+    directory to start from (its latest) / to save the last step in."""
     xconfig: str
     den_fst: Fst
     num_pdfs: int
@@ -61,6 +66,9 @@ class Setup:
     steps: int = 1
     state: Optional[tuple] = None
     spec_seed: Optional[int] = None
+    mesh: Optional[MeshConfig] = None
+    restore_dir: Optional[str] = None
+    save_dir: Optional[str] = None
 
 
 def _numpy(tree):
@@ -71,14 +79,18 @@ def _numpy(tree):
     return {k: _numpy(v) for k, v in tree.items()}
 
 
-def run_setup(setup: Setup, group=None, device=None) -> dict:
+def run_setup(setup: Setup, group=None, device=None,
+              meshes: Optional[dict] = None) -> dict:
     """Run `setup` on this process (group None) on `device` (default: the
-    current CUDA device), or as this rank of `group` on the group's
-    device.  Returns numpy results: each step's outputs and host
-    seconds (the step and the read of its outputs, which waits for the
-    device), the final state_dict and NG states, the SpecAugment masks
-    the forward used (this rank's rows) and the data group's collectives
-    per step."""
+    current CUDA device), or as this rank of `group` (the whole process
+    group's DataGroup) on the group's device, on the mesh `setup.mesh`
+    (made once per config when `meshes` caches them).  Returns numpy
+    results: each step's outputs and host seconds (the step and the read
+    of its outputs, which waits for the device), the final state_dict
+    (whole: gathered over a model axis) and NG states, the SpecAugment
+    masks the forward used (this rank's share), the collectives per step
+    and, on a mesh, per axis and step, and the CUDA kernels' launches
+    during the steps (the wrappers' counts; none on the CPU)."""
     import time
 
     from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
@@ -88,13 +100,22 @@ def run_setup(setup: Setup, group=None, device=None) -> dict:
     from kaldi_fp16_tpu_torch.models import network
     from kaldi_fp16_tpu_torch.models.model import build_model_from_string
     from kaldi_fp16_tpu_torch.parallel.data_parallel import (
-        broadcast_train_state, shard_batch, shard_graph,
+        broadcast_train_state, full_state_dict, shard_batch, shard_graph,
+        shard_train_state,
     )
+    from kaldi_fp16_tpu_torch.parallel.mesh import make_mesh
+    from kaldi_fp16_tpu_torch.training.checkpoint import CheckpointManager
     from kaldi_fp16_tpu_torch.training.train_step import (
         TrainConfig, init_train_state, make_train_step,
     )
 
     device = group.device if group is not None else resolve_device(device)
+    if group is not None and setup.mesh is not None and (
+            setup.mesh.seq > 1 or setup.mesh.model > 1):
+        meshes = {} if meshes is None else meshes
+        if setup.mesh not in meshes:
+            meshes[setup.mesh] = make_mesh(setup.mesh, device)
+        group = meshes[setup.mesh]
     model = build_model_from_string(setup.xconfig)
     config = TrainConfig(**setup.config)
     net, opt, scale = init_train_state(
@@ -106,7 +127,11 @@ def run_setup(setup: Setup, group=None, device=None) -> dict:
     batch, graph = setup.batch, setup.num_graph
     if group is not None:
         broadcast_train_state(net, opt, scale, group)
+        opt = shard_train_state(net, opt, group)
         batch, graph = shard_batch(batch, group), shard_graph(graph, group)
+    if setup.restore_dir is not None:
+        opt, scale, _, _ = CheckpointManager(
+            setup.restore_dir, group=group).restore(None, net, opt, scale)
     den = DenominatorComputation(
         DenominatorGraph.from_fst(setup.den_fst, setup.num_pdfs),
         leaky=1e-4, device=device)
@@ -128,23 +153,50 @@ def run_setup(setup: Setup, group=None, device=None) -> dict:
         return m
 
     setattr(network, drawn, record)
-    outputs, calls, seconds = [], [], []
+    outputs, calls, axes, seconds = [], [], [], []
+    counts = getattr(group, "counts", lambda: {})
+    launches0 = kernel_launches()
     try:
         for _ in range(setup.steps):
             before = group.calls if group is not None else 0
+            axes0 = counts()
             t0 = time.perf_counter()
             opt, scale, out = step(opt, scale, tensors, generator=gen)
             outputs.append({k: float(v) for k, v in out._asdict().items()})
             seconds.append(time.perf_counter() - t0)
             calls.append((group.calls if group is not None else 0) - before)
+            axes.append({k: {n: v[n] - axes0[k][n] for n in v}
+                         for k, v in counts().items()})
     finally:
         setattr(network, drawn, draw)
+    launches = {k: n - launches0[k] for k, n in kernel_launches().items()}
+    if setup.save_dir is not None:
+        CheckpointManager(setup.save_dir, group=group).save(
+            setup.steps, net, opt, scale)
     return {"outputs": outputs, "step_seconds": seconds,
-            "calls_per_step": calls, "masks": masks,
-            "device": str(device),
+            "calls_per_step": calls, "axis_counts_per_step": axes,
+            "launches": launches,
+            "masks": masks, "device": str(device),
             "backend": group.backend if group is not None else None,
-            "params": _numpy(net.state_dict()),
+            "mesh": getattr(group, "shape", None),
+            "mesh_axes": {k: None if g is None else [g.rank, g.world,
+                                                     list(g.ranks)]
+                          for k, g in group.axes._asdict().items()}
+            if hasattr(group, "axes") else None,
+            "params": _numpy(full_state_dict(net, group)),
             "ng": _numpy(opt["ng"]) if "ng" in opt else None}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The CUDA kernels' wrappers' launch counts, by kernel."""
+    from kaldi_fp16_tpu_torch.ops import den_scan
+    from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul
+    from kaldi_fp16_tpu_torch.ops.segment_reduce import segment_reduce
+    return {"den_matmul": DenMatmul.launches,
+            "den_matmul_pre": DenMatmul.launches_pre,
+            "den_scan_fwd": den_scan.fused_forward.launches,
+            "den_scan_bwd": den_scan.fused_backward.launches,
+            "segment_reduce": segment_reduce.launches}
 
 
 def _clone(tree, device):
@@ -157,32 +209,44 @@ def _clone(tree, device):
 
 
 def _run_setups(group, setups):
-    return [run_setup(s, group) for s in setups]
+    meshes: dict = {}
+    return [run_setup(s, group, meshes=meshes) for s in setups]
 
 
 def run_on_ranks(setups: List[Setup], ranks: int,
                  join_seconds: Optional[float] = None, device=None,
                  backend: Optional[str] = None,
                  rank0_here: bool = False) -> List[List[dict]]:
-    """Each setup on `ranks` ranks of one process group, on `device`'s
-    kind (default: the cards, parallel/mesh.py's `rank_devices`), spawned
-    but for rank 0 with rank0_here: results[rank][setup]."""
+    """Each setup on `ranks` ranks of one process group (on its mesh), on
+    `device`'s kind (default: the cards, parallel/mesh.py's
+    `rank_devices`), spawned but for rank 0 with rank0_here:
+    results[rank][setup]."""
     from kaldi_fp16_tpu_torch.parallel.mesh import rank_devices, spawn_ranks
     return spawn_ranks(_run_setups, rank_devices(device, ranks, backend),
                        args=(setups,), backend=backend,
                        join_seconds=join_seconds, rank0_here=rank0_here)
 
 
-def dryrun_setup(ranks: int) -> Setup:
-    """The JAX dryrun's case: 2 sequences per rank, random features and
-    linear supervision FSTs from seed 0, bf16 compute."""
+def mesh_config(ranks: int) -> MeshConfig:
+    """The JAX dryrun's mesh for `ranks` devices (__graft_entry__.py
+    :64-71)."""
+    if ranks >= 8 and ranks % 8 == 0:
+        return MeshConfig(data=ranks // 4, seq=2, model=2)
+    if ranks >= 4 and ranks % 2 == 0:
+        return MeshConfig(data=ranks // 2, model=2)
+    return MeshConfig(data=ranks)
+
+
+def dryrun_setup(mesh: MeshConfig) -> Setup:
+    """The JAX dryrun's case on `mesh`: 2 sequences per data rank, random
+    features and linear supervision FSTs from seed 0, bf16 compute."""
     from kaldi_fp16_tpu_torch.chain.graph import (
         build_numerator_batch_from_fsts, make_simple_den_fst,
     )
     from kaldi_fp16_tpu_torch.io.fst import FstArc, FstState
 
     rng = np.random.default_rng(0)
-    batch_size = 2 * ranks
+    batch_size = 2 * mesh.data
 
     def linear_sup_fst():
         states = [FstState() for _ in range(T_OUT + 1)]
@@ -205,7 +269,7 @@ def dryrun_setup(ranks: int) -> Setup:
         config=dict(learning_rate=0.01, momentum=0.5,
                     frame_subsampling_factor=STRIDE,
                     compute_dtype="bfloat16"),
-        num_frames_out=T_OUT)
+        num_frames_out=T_OUT, mesh=mesh)
 
 
 def main(argv=None) -> dict:
@@ -231,7 +295,7 @@ def main(argv=None) -> dict:
         raise AssertionError("dryrun model must exercise the cut-conv "
                              "boundary")
 
-    setup = dryrun_setup(args.ranks)
+    setup = dryrun_setup(mesh_config(args.ranks))
     single = run_setup(setup, device=args.device)
     ranks = [r[0] for r in run_on_ranks([setup], args.ranks,
                                         args.join_seconds, args.device,
@@ -248,13 +312,21 @@ def main(argv=None) -> dict:
         for k, v in r["params"].items():
             if not np.array_equal(v, ranks[0]["params"][k]):
                 raise AssertionError(f"{k} differs between the ranks")
-    print(f"dryrun_multichip OK: data={args.ranks} ranks on "
+    mesh = setup.mesh
+    shape = (f"data={mesh.data}" if mesh.seq == mesh.model == 1 else
+             f"data={mesh.data} x seq={mesh.seq} x model={mesh.model}")
+    print(f"dryrun_multichip OK: {shape} ranks on "
           f"{ranks[0]['device']} over {ranks[0]['backend']}, batch "
-          f"{2 * args.ranks}, loss {losses[0]:.6f} (one process "
+          f"{2 * mesh.data}, loss {losses[0]:.6f} (one process "
           f"{loss:.6f}), {ranks[0]['calls_per_step'][0]} collectives per "
           f"step, parameters bit-identical across ranks")
     return {"loss": loss, "rank_losses": losses,
-            "calls_per_step": ranks[0]["calls_per_step"][0]}
+            "mesh": {"data": mesh.data, "seq": mesh.seq,
+                     "model": mesh.model},
+            "calls_per_step": ranks[0]["calls_per_step"][0],
+            "axis_counts_per_step": ranks[0]["axis_counts_per_step"][0],
+            "rank_launches": {k: sum(r["launches"][k] for r in ranks)
+                              for k in ranks[0]["launches"]}}
 
 
 if __name__ == "__main__":

@@ -159,7 +159,7 @@ def record_ng_step(dev, den, batch=128, frames_in=164, frames_out=50,
     finally:
         ts.update_ng_states = real["update"]
         ts.apply_natural_gradient = real["apply"]
-    sites, states, xs, gs, counters, cfg_in, cfg_out, _ = seen["update"][0]
+    sites, states, xs, gs, counters, cfg_in, cfg_out = seen["update"][0][:7]
     if not all(update_due(c, cfg_in if side == "in" else cfg_out)
                for (_, side), c in counters.items()):
         raise AssertionError("not every NG counter was due in the first step")

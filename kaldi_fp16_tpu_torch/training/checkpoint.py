@@ -18,7 +18,11 @@ batches consumed, a resumed run replays the killed one.
 Under a data group (parallel/mesh.py) every rank holds the same state:
 rank 0 writes the file and prunes, and every rank waits at a barrier
 until it is in place; every rank restores the whole state onto its own
-device, so a checkpoint written under N ranks restores under M.
+device, so a checkpoint written under N ranks restores under M.  On a
+mesh with a model axis the sharded parameters and velocities are
+gathered whole before rank 0 writes, and cut to each rank's slices on
+restore: the file is the same whatever mesh wrote it, and restores on
+any other.
 """
 
 from __future__ import annotations
@@ -30,6 +34,11 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from kaldi_fp16_tpu_torch.parallel.data_parallel import (
+    full_train_state, param_shardings, shard_params, shard_state_dict,
+)
+from kaldi_fp16_tpu_torch.parallel.mesh import mesh_axes
 
 FORMAT = "kaldi_fp16_tpu_torch.checkpoint/1"
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -75,7 +84,8 @@ def _like(saved, template, device):
 
 class CheckpointManager:
     """Numbered checkpoints in one directory, the newest `max_to_keep`
-    retained (0: all)."""
+    retained (0: all).  group: the DataGroup or Mesh of the ranks that
+    save and restore together."""
 
     def __init__(self, directory: str, max_to_keep: int = 3, group=None):
         self.directory = os.path.abspath(directory)
@@ -89,13 +99,14 @@ class CheckpointManager:
     def save(self, step: int, net, opt_state, scale_state,
              data_pos: DataPosition = DataPosition()) -> None:
         """net: the Network (its parameters and BN statistics)."""
+        sd, opt_state = full_train_state(net, opt_state, self.group)
         if self.group is not None and self.group.rank != 0:
             self.group.barrier()
             return
         blob = {
             "format": FORMAT,
             "step": int(step),
-            "network": _to_cpu(dict(net.state_dict())),
+            "network": _to_cpu(sd),
             "opt_state": _to_cpu(opt_state),
             "scale_state": _to_cpu(scale_state),
             "data_position": {
@@ -151,9 +162,17 @@ class CheckpointManager:
         scale_state, step, DataPosition)."""
         blob = self.load(step)
         device = next(net.parameters()).device
-        net.load_state_dict(blob["network"], strict=True)
+        net.load_state_dict(shard_state_dict(blob["network"], net.model,
+                                             self.group), strict=True)
+        saved = blob["opt_state"]
+        model = mesh_axes(self.group).model
+        if model is not None:
+            saved = dict(saved, velocity=shard_params(
+                saved["velocity"],
+                param_shardings(net.model, self.group, saved["velocity"]),
+                model.rank, model.world))
         pos = blob["data_position"]
-        return (_like(blob["opt_state"], opt_state, device),
+        return (_like(saved, opt_state, device),
                 _like(blob["scale_state"], scale_state, device),
                 blob["step"],
                 DataPosition(epoch=pos["epoch"], file_index=pos["file_index"],

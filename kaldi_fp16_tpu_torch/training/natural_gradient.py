@@ -42,7 +42,7 @@ bars from the float64 ones, in the JAX package as here.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -102,30 +102,31 @@ def _orthonormalize(z: torch.Tensor) -> torch.Tensor:
     return (u * inv_sqrt[..., None, :]) @ u.mT @ z
 
 
-def _means(sums: Sequence[Sequence[torch.Tensor]], xs, group=None):
-    """Per state i, each sums[k][i] / N_i.  Under a data group the sums
-    are every rank's (one all-reduce) and N_i the global count, `world`
-    times this rank's (every rank holds rows of one shape); the division
+def _means(sums: Sequence[Sequence[torch.Tensor]], counts: Sequence[int],
+           group=None):
+    """Per state i, each sums[k][i] / counts[i], the global count.  Under
+    a data group the sums are every rank's (one all-reduce); the division
     is the single process's, so world 1 gives its bits."""
-    world = 1
     if group is not None:
         sums = all_reduce_sum([torch.stack(list(s)) for s in sums], group)
-        world = group.world
-    return [torch.stack([s_i / (x.shape[0] * world) for s_i, x in zip(s, xs)])
+    return [torch.stack([s_i / n for s_i, n in zip(s, counts)])
             for s in sums]
 
 
 def fisher_update(states: Sequence[NGState], xs: Sequence[torch.Tensor],
-                  cfg: NGConfig, group=None) -> List[NGState]:
+                  cfg: NGConfig, group=None,
+                  counts: Optional[Sequence[Optional[int]]] = None
+                  ) -> List[NGState]:
     """One online update of each state from its sample matrix xs[i]
     [N_i, D] (states of one shape [R, D]; N may differ).  The x-dependent
     products run per state, everything else batched over the states.
 
-    Under a data group (parallel/mesh.py) xs[i] are this rank's samples,
-    and the update is that of every rank's: N is the global count, and
-    the sample means (V C and tr C, then B C Bᵀ, which depends on V C)
-    are of every rank's sums, in two all-reduces; the samples never
-    leave their rank."""
+    Under a data group (parallel/mesh.py; the data x seq group of a mesh)
+    xs[i] are this rank's samples, and the update is that of every
+    rank's: N is the global count (counts[i], default `world` times this
+    rank's: every rank holding rows of one shape), and the sample means
+    (V C and tr C, then B C Bᵀ, which depends on V C) are of every rank's
+    sums, in two all-reduces; the samples never leave their rank."""
     v = torch.stack([s.v for s in states])                    # [S, R, D]
     d = torch.stack([s.d for s in states])                    # [S, R]
     rho = torch.stack([s.rho for s in states])                # [S]
@@ -134,12 +135,14 @@ def fisher_update(states: Sequence[NGState], xs: Sequence[torch.Tensor],
     dev = v.device
 
     world = 1 if group is None else group.world
-    n = torch.tensor([float(x.shape[0] * world) for x in xs],
-                     dtype=torch.float32, device=dev)
+    counts = [x.shape[0] * world if c is None else c
+              for x, c in zip(xs, counts or [None] * len(xs))]
+    n = torch.tensor([float(c) for c in counts], dtype=torch.float32,
+                     device=dev)
     # enrichment directions: V C [S, R, D] orthogonalized against V,
     # row-normalized; tr C beside it
     y1, tr_c = _means([[(x @ vi.mT).mT @ x for x, vi in zip(xs, v)],
-                       [torch.sum(x * x) for x in xs]], xs, group)
+                       [torch.sum(x * x) for x in xs]], counts, group)
     eta = torch.clamp(n / float(cfg.num_samples_history), 1e-3, 0.9)
     eta3 = eta[:, None, None]
     p = y1 - (y1 @ v.mT) @ v
@@ -151,7 +154,7 @@ def fisher_update(states: Sequence[NGState], xs: Sequence[torch.Tensor],
 
     (bcb,) = _means([[xb.mT @ xb for xb in (x @ bi.mT
                                             for x, bi in zip(xs, b))]],
-                    xs, group)
+                    counts, group)
     bvt = b @ v.mT                             # [S, 2R, R]
     bbt = b @ b.mT
     # F' = (1-eta) (Vᵀ d V + rho I) + eta C, projected onto B; d is the

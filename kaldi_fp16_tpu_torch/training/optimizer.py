@@ -8,6 +8,12 @@ nnet3 (nnet-utils.cc):
 L2 (xconfig l2-regularize) is learning-rate-scaled weight decay applied
 outside the clipped delta (Kaldi ApplyL2Regularization).  Parameters,
 gradients and velocities are nested dicts {layer: {name: tensor}}.
+
+Under a mesh's model axis a layer may mix replicated leaves (a TDNN-F
+layer's linear_w) with leaves of which each rank holds a slice
+(affine_w): the norms then add the sharded leaves' squares over the
+model ranks (one all-reduce), so every rank scales its replicated leaves
+by the same factor and they stay bit-identical across the ranks.
 """
 
 from __future__ import annotations
@@ -70,8 +76,13 @@ def sgd_update(params, grads, opt_state, config: SGDConfig,
                lr: Optional[float] = None,
                hyper: Optional[Dict[str, Dict[str, float]]] = None,
                trainable: Optional[dict] = None,
-               skip: Optional[torch.Tensor] = None):
+               skip: Optional[torch.Tensor] = None,
+               sharded: Optional[dict] = None, model_group=None):
     """One SGD step; grads are d loss / d w (descent).
+
+    sharded: {layer: {name: bool}}, the leaves of which this rank holds a
+    slice over `model_group` (a mesh's model axis); their squares in the
+    per-component and global norms are summed over its ranks.
 
     Returns (new_params, new_opt_state, stats) with new tensors; the
     inputs are not modified.  skip: optional bool tensor; where True
@@ -86,6 +97,8 @@ def sgd_update(params, grads, opt_state, config: SGDConfig,
     deltas: dict = {}
     sq_norms = []
     l2_decay = {}
+    # (layer, max_change, its deltas' squares: replicated, sharded)
+    layers = []
     for lname, lparams in params.items():
         new_vel[lname] = {}
         deltas[lname] = {}
@@ -95,7 +108,7 @@ def sgd_update(params, grads, opt_state, config: SGDConfig,
             max_change = config.default_max_change
         layer_lr = lr * h.get("lr_factor", 1.0)
         l2 = h.get("l2", 0.0)
-        layer_sq = []
+        layer_sq, layer_sh = [], []
         for pname, w in lparams.items():
             if trainable is not None and not trainable[lname][pname]:
                 new_vel[lname][pname] = vel[lname][pname]
@@ -105,9 +118,20 @@ def sgd_update(params, grads, opt_state, config: SGDConfig,
             new_vel[lname][pname] = v
             d = layer_lr * v
             deltas[lname][pname] = d
-            layer_sq.append(torch.sum(d * d))
+            (layer_sh if model_group is not None and sharded[lname][pname]
+             else layer_sq).append(torch.sum(d * d))
             if l2 > 0:
                 l2_decay[(lname, pname)] = layer_lr * l2 * w
+        layers.append((lname, max_change, layer_sq, layer_sh))
+    if model_group is not None:
+        # every layer's sharded squares, summed over the model ranks at once
+        sh = [i for i, (*_, shl) in enumerate(layers) if shl]
+        if sh:
+            tot = torch.stack([sum(layers[i][3]) for i in sh])
+            model_group.all_reduce(tot)
+            for j, i in enumerate(sh):
+                layers[i][2].append(tot[j])
+    for lname, max_change, layer_sq, _ in layers:
         if layer_sq and max_change > 0:
             comp_norm = torch.sqrt(sum(layer_sq))
             comp_scale = torch.clamp(

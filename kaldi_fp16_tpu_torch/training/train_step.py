@@ -50,6 +50,22 @@ NG's sample statistics.  The objective is a plain sum over sequences, so
 the summed gradient is the full batch's; every rank then holds the same
 bits and takes the same update, skip and loss scale.  group=None is the
 single-process step.
+
+On a mesh with seq and model axes (a parallel.mesh.Mesh) the batch is
+this rank's rows and frames, and the network its columns of the sharded
+layers.  The forward returns the outputs gathered over both axes, so
+every seq and model rank computes the loss of its rows whole; a seq
+rank's gradients are its frames' part, summed over data x seq with the
+data axis's, and the reported sums count the first seq rank's only.
+Over the model axis nothing is summed but what the sharded leaves add
+to the whole: the non-finite count, the norms of max-change and
+grad_norm (training/optimizer.py).  NG-SGD gathers a column-sharded
+site's output derivatives and its gradient over the model axis, and
+preconditions them whole, with states replicated on every rank.  Once a
+step, model rank 0's replicated values (the replicated leaves'
+gradients, BatchNorm's statistics, the NG states it updated, the
+reported sums) are broadcast over the model axis, so the ranks hold one
+replica whatever their kernels round (data_parallel.one_replica).
 """
 
 from __future__ import annotations
@@ -73,8 +89,10 @@ from kaldi_fp16_tpu_torch.models.network import (
 )
 from kaldi_fp16_tpu_torch.models.xconfig import LayerType
 from kaldi_fp16_tpu_torch.parallel.data_parallel import (
-    all_reduce_grads, all_reduce_sum,
+    COLS, TimeChunks, all_reduce_grads, all_reduce_sum, gather_over,
+    model_slice, one_replica, param_shardings, sharded_dim,
 )
+from kaldi_fp16_tpu_torch.parallel.mesh import mesh_axes
 from kaldi_fp16_tpu_torch.training.loss_scale import (
     grads_finite, init_loss_scale, tree_leaves, tree_map, unscale_grads,
     update_loss_scale,
@@ -160,9 +178,16 @@ def _frame_geometry(model: Model, config: TrainConfig, T_in: int,
     return grid, time_subsample, pick_frames
 
 
-def _batch_inputs(batch, config: TrainConfig, num_frames_out):
+def _batch_inputs(batch, config: TrainConfig, num_frames_out, group=None):
+    """(features, ivectors, weights, deriv_weights, n_out, T_in): under a
+    seq axis the features are this rank's frames, T_in the sequence's,
+    and the deriv_weights are gathered whole (the loss runs on every
+    frame)."""
     feats = batch["features"]
     B, T_in, _ = feats.shape
+    seq = mesh_axes(group).seq
+    if seq is not None:
+        T_in *= seq.world
     dev = feats.device
     stride = config.frame_subsampling_factor
     n_out = num_frames_out or (T_in - config.left_context + stride - 1) // stride
@@ -170,9 +195,23 @@ def _batch_inputs(batch, config: TrainConfig, num_frames_out):
     if weights is None:
         weights = torch.ones(B, dtype=torch.float32, device=dev)
     dws = batch.get("deriv_weights")
-    dws = (torch.ones((B, n_out), dtype=torch.float32, device=dev)
-           if dws is None else dws.float())
-    return feats, batch.get("ivectors"), weights, dws, n_out
+    if dws is None:
+        dws = torch.ones((B, n_out), dtype=torch.float32, device=dev)
+    else:
+        dws = dws.float()
+        if seq is not None:
+            with torch.no_grad():
+                dws = TimeChunks.even(dws.shape[1], group).gather(dws)
+    return feats, batch.get("ivectors"), weights, dws, n_out, T_in
+
+
+def _reported(stats, group):
+    """The sums every rank reports for its rows, counted once over the
+    seq axis (its ranks hold the same rows and computed the same sums)."""
+    seq = mesh_axes(group).seq
+    if seq is None or seq.rank == 0:
+        return stats
+    return [torch.zeros_like(t) for t in stats]
 
 
 def _site_samples(site, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -199,15 +238,20 @@ def _site_derivs(site, xs, gs, dtype) -> torch.Tensor:
 
 
 def update_ng_states(sites, ng_states, xs, gs, counters, cfg_in: NGConfig,
-                     cfg_out: NGConfig, group=None):
+                     cfg_out: NGConfig, group=None, counts=None,
+                     model_group=None, col_sites=frozenset()):
     """One NG update call of every site's two states from this batch's
     inputs xs and output derivatives gs.  counters[(site, side)] is the
     state's counter read on the host: due states fold in their samples,
     batched per state shape; the others only advance their counter.
     Under a data group the samples are this rank's, the statistics every
-    rank's (fisher_update)."""
+    rank's (fisher_update; counts: {site: every rank's samples}).  The
+    sites in col_sites hold their output columns over model_group: their
+    output derivatives are gathered whole first (one all-reduce)."""
     new = {nm: dict(st) for nm, st in ng_states.items()}
+    counts = counts or {}
     groups: Dict[tuple, list] = {}
+    gather = []
     for site in sites:
         nm = site["name"]
         for side, cfg in (("in", cfg_in), ("out", cfg_out)):
@@ -215,8 +259,14 @@ def update_ng_states(sites, ng_states, xs, gs, counters, cfg_in: NGConfig,
             if update_due(counters[nm, side], cfg):
                 groups.setdefault((tuple(st.v.shape), cfg), []).append(
                     (site, side))
+                if side == "out" and nm in col_sites and nm in gs:
+                    gather.append(nm)
             else:
                 new[nm][side] = advance(st)
+    if model_group is not None and gather:
+        gs = dict(gs)
+        gs.update(zip(gather, gather_over([gs[nm] for nm in gather],
+                                          [-1] * len(gather), model_group)))
     for (_, cfg), members in groups.items():
         # one group's sample matrices at a time (a patch-lowered conv's
         # are ~1-2 GB at flagship width)
@@ -226,37 +276,60 @@ def update_ng_states(sites, ng_states, xs, gs, counters, cfg_in: NGConfig,
                    if side == "in" else _site_derivs(site, xs, gs, dtype)
                    for site, side in members]
         for (site, side), st in zip(members,
-                                    fisher_update(states, samples, cfg,
-                                                  group)):
+                                    fisher_update(states, samples, cfg, group,
+                                                  [counts.get(site["name"])
+                                                   for site, _ in members])):
             new[site["name"]][side] = st
         del samples
     return new
 
 
 def apply_natural_gradient(model: Model, sites, ng_states, grads,
-                           cfg_in: NGConfig):
+                           cfg_in: NGConfig, specs=None, model_group=None):
     """Precondition each site's accumulated gradient on both sides,
     dW_ext <- gamma * P_in^-1 [dW; db] P_out^-1 (train_step.py:126-137).
     Conv weights are taken to the JAX layout [k * nf_in, nf_out] and back.
     The preconditioned grads come out in the NG states' dtype (fp32 in
-    training).  Returns new grads (the input dicts are not modified)."""
+    training).  Under a model axis (specs: param_shardings) a sharded
+    site's gradient is gathered whole (one all-reduce for every site),
+    preconditioned, and cut back to this rank's slice.  Returns new grads
+    (the input dicts are not modified)."""
     grads = {k: dict(v) for k, v in grads.items()}
+    keys = []
+    if model_group is not None:
+        keys = [(site["layer"], site[k]) for site in sites for k in ("w", "b")
+                if site[k] is not None and
+                sharded_dim(specs[site["layer"]][site[k]]) is not None]
+    whole = dict(zip(keys, gather_over(
+        [grads[l][k] for l, k in keys],
+        [sharded_dim(specs[l][k]) for l, k in keys], model_group)))
+
+    def put(lname, pname, t):
+        if (lname, pname) in whole:
+            t = model_slice(t, sharded_dim(specs[lname][pname]),
+                            model_group.rank, model_group.world,
+                            f"{lname}/{pname}")
+        grads[lname][pname] = t
+
     for site in sites:
-        layer = model.layer_map[site["layer"]]
+        lname = site["layer"]
+        layer = model.layer_map[lname]
         conv = layer.type == LayerType.CONV_RELU_BATCHNORM
-        g = grads[site["layer"]]
+        g = grads[lname]
         st = ng_states[site["name"]]
         dtype = st["in"].v.dtype
-        dw = g[site["w"]].to(dtype)
+        dw = whole.get((lname, site["w"]), g[site["w"]]).to(dtype)
         if conv:
             dw = conv_weight_from_oihw(dw, layer.spec)
         if site["b"] is not None:
-            dw = torch.cat([dw, g[site["b"]].to(dtype)[None, :]], dim=0)
+            db = whole.get((lname, site["b"]), g[site["b"]])
+            dw = torch.cat([dw, db.to(dtype)[None, :]], dim=0)
         dwe = precondition_grad(st["in"], st["out"], dw, cfg_in)
         if site["b"] is not None:
-            g[site["b"]] = dwe[-1]
+            put(lname, site["b"], dwe[-1])
             dwe = dwe[:-1]
-        g[site["w"]] = conv_weight_to_oihw(dwe, layer.spec) if conv else dwe
+        put(lname, site["w"],
+            conv_weight_to_oihw(dwe, layer.spec) if conv else dwe)
     return grads
 
 
@@ -295,6 +368,12 @@ def make_train_step(model: Model, net: Network,
     ng_cfg_out = NGConfig(rank=config.ng_rank_out)
     static_objf = (make_chain_objf_with_post(num_graph, den, chain_opts)
                    if num_graph is not None else None)
+    ax = mesh_axes(group)
+    specs = param_shardings(model, group, net.params)
+    sharded = {l: {k: sharded_dim(spec) is not None for k, spec in p.items()}
+               for l, p in specs.items()}
+    col_sites = frozenset(s["name"] for s in sites
+                          if specs[s["layer"]][s["w"]] == COLS)
 
     def step(opt_state, scale_state, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -310,11 +389,11 @@ def make_train_step(model: Model, net: Network,
                              "make_train_step or to the step")
         if left_context is None:
             left_context = config.left_context
-        feats, ivecs, weights, dws_arg, n_out = _batch_inputs(
-            batch, config, num_frames_out)
+        feats, ivecs, weights, dws_arg, n_out, T_in = _batch_inputs(
+            batch, config, num_frames_out, group)
         dev = feats.device
         grid, time_subsample, pick_frames = _frame_geometry(
-            model, config, feats.shape[1], n_out, left_context)
+            model, config, T_in, n_out, left_context)
 
         params = net.params
         old_state = net.bn_state()
@@ -368,22 +447,25 @@ def make_train_step(model: Model, net: Network,
         total_objf, total_weight = result.total_objf, result.total_weight
         num_lp, den_lp = result.num_logprob.mean(), result.den_logprob.mean()
         ok = result.ok.all()
-        if group is not None:
+        if ax.dp is not None:
             # the global batch's gradients and sums, in one all-reduce; the
-            # ranks hold equal rows, so the means are the ranks' means'
-            # mean (at world 1, the single process's bits)
-            w = 1.0 / group.world
-            grads, tot, nonfinite = all_reduce_grads(grads, [
+            # data ranks hold equal rows, so the means are the ranks'
+            # means' mean (at world 1, the single process's bits)
+            w = 1.0 / (ax.data.world if ax.data is not None else 1)
+            grads, tot, nonfinite = all_reduce_grads(grads, _reported([
                 loss, total_objf, total_weight, num_lp * w, den_lp * w,
-                xent_objf.detach(), (~result.ok).sum()], group)
+                xent_objf.detach(), (~result.ok).sum()], group), ax.dp)
             loss, total_objf, total_weight, num_lp, den_lp, xent_objf = \
                 tot[:6]
             ok = tot[6] == 0
 
-        # finiteness is judged on the raw grads
+        # finiteness is judged on the raw grads, the sharded leaves' too
         finite = grads_finite(grads)
-        if group is not None:
+        if ax.dp is not None:
             finite = finite & (nonfinite == 0)
+        if ax.model is not None:
+            bad = (~finite).to(torch.float32).reshape(1)
+            finite = ax.model.all_reduce(bad)[0] == 0
         if config.use_loss_scaling:
             new_scale_state, skip = update_loss_scale(scale_state, finite)
         else:
@@ -404,12 +486,44 @@ def make_train_step(model: Model, net: Network,
         if sites:
             new_ng = opt_state["ng"] if skip_host else update_ng_states(
                 sites, opt_state["ng"], ng.xs, gs,
-                dict(zip(keys, flags[2:])), ng_cfg_in, ng_cfg_out, group)
+                dict(zip(keys, flags[2:])), ng_cfg_in, ng_cfg_out, ax.dp,
+                ng.counts, ax.model, col_sites)
             del ng, gs
+        if ax.model is not None:
+            # model rank 0's replicated values on every model rank: the
+            # replicated leaves' gradients, BatchNorm's new statistics,
+            # the NG states updated now, the reported sums
+            # (a list in the sites' order: the buffer's layout must be
+            # every rank's, which a set's order is not)
+            due = list(dict.fromkeys(
+                nm for (nm, side), t in zip(keys, flags[2:])
+                if not skip_host and update_due(
+                    t, ng_cfg_in if side == "in" else ng_cfg_out)))
+            rep = one_replica(
+                ({l: {k: g for k, g in p.items() if not sharded[l][k]}
+                  for l, p in grads.items()}, new_state,
+                 {nm: new_ng[nm] for nm in due},
+                 [loss, total_objf, total_weight, num_lp, den_lp,
+                  xent_objf]), ax.model)
+            for l, p in rep[0].items():
+                grads[l].update(p)
+            new_state = rep[1]
+            if due:
+                new_ng = dict(new_ng, **rep[2])
+            loss, total_objf, total_weight, num_lp, den_lp, xent_objf = \
+                rep[3]
+        if sites:
             grads = apply_natural_gradient(model, sites, new_ng, grads,
-                                           ng_cfg_in)
-        grad_norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                   for g in tree_leaves(grads)))
+                                           ng_cfg_in, specs, ax.model)
+        if ax.model is None:
+            grad_norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                       for g in tree_leaves(grads)))
+        else:
+            sq = [(torch.sum(grads[l][k].float() ** 2), sharded[l][k])
+                  for l, p in grads.items() for k in p]
+            part = ax.model.all_reduce(torch.stack(
+                [sum(t for t, sh in sq if sh)]))[0]
+            grad_norm = torch.sqrt(sum(t for t, sh in sq if not sh) + part)
 
         # a skipped (non-finite) batch must not poison the BN statistics
         net.set_bn_state(tree_map(lambda new, old: torch.where(skip, old, new),
@@ -419,7 +533,7 @@ def make_train_step(model: Model, net: Network,
             params, grads,
             {k: v for k, v in opt_state.items() if k != "ng"}, sgd_cfg,
             lr=lr, hyper=hyper, trainable=trainable_mask(model, params),
-            skip=skip)
+            skip=skip, sharded=sharded, model_group=ax.model)
         if new_ng is not None:
             new_opt_state["ng"] = new_ng
         with torch.no_grad():
@@ -430,7 +544,16 @@ def make_train_step(model: Model, net: Network,
             if targets and orth_due and not skip_host:
                 for lname, pname, c in targets:
                     w = params[lname][pname]
-                    w.copy_(constrain_orthonormal(w, c))
+                    d = sharded_dim(specs[lname][pname])
+                    if d is None:
+                        w.copy_(constrain_orthonormal(w, c))
+                        continue
+                    # a sharded target (prefinal small_w): constrained
+                    # whole, then cut back to this rank's rows
+                    (whole,) = gather_over([w], [d], ax.model)
+                    w.copy_(model_slice(constrain_orthonormal(whole, c), d,
+                                        ax.model.rank, ax.model.world,
+                                        lname))
 
         return new_opt_state, new_scale_state, TrainStepOutput(
             loss=loss,
@@ -510,12 +633,12 @@ def make_eval_step(model: Model, net: Network, den: DenominatorComputation,
         if left_context is None:
             left_context = config.left_context
         objf_fn = make_chain_objf_with_post(num_graph, den, chain_opts)
-        feats, ivecs, weights, dws_arg, n_out = _batch_inputs(
-            batch, config, num_frames_out)
+        feats, ivecs, weights, dws_arg, n_out, T_in = _batch_inputs(
+            batch, config, num_frames_out, group)
         grid, time_subsample, pick_frames = _frame_geometry(
-            model, config, feats.shape[1], n_out, left_context)
+            model, config, T_in, n_out, left_context)
         outs, _ = net(feats, ivecs, train=False, compute_dtype=dtype,
-                      time_subsample=time_subsample)
+                      time_subsample=time_subsample, group=group)
         out = pick_frames(outs[chain_head_name].float(),
                           chain_head_name in grid)
         _, result, num_post = objf_fn(out, weights, dws_arg)
@@ -530,8 +653,9 @@ def make_eval_step(model: Model, net: Network, den: DenominatorComputation,
             torch.sum(weights * result.num_logprob),
             torch.sum(weights * result.den_logprob), xent_objf,
             (~result.ok).sum().float()]).float()
-        if group is not None:
-            (tot,) = all_reduce_sum([tot], group)
+        if mesh_axes(group).dp is not None:
+            (tot,) = all_reduce_sum(_reported([tot], group),
+                                    mesh_axes(group).dp)
         w_tot = torch.clamp(tot[2], min=1e-8)
         return EvalStepOutput(
             objf_per_frame=tot[0] / tot[1], num_logprob=tot[3] / w_tot,

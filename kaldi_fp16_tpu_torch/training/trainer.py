@@ -29,7 +29,10 @@ Trainer's `mesh`, trainer.py:67-140 there): the state starts as rank 0's
 (broadcast), each batch is the global batch and `place_batch` uploads
 only this rank's rows (shard_batches=False: each rank's batches are its
 own, e.g. read from its file shard), and the steps' outputs, the metrics
-and the eval pass are the global batch's.
+and the eval pass are the global batch's.  On a mesh with seq and model
+axes (the JAX Trainer's `place_states`, :117-140 there) the network and
+the SGD velocities then hold this rank's columns of the sharded layers,
+and `place_batch` uploads this rank's rows and frames.
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.io.batch import ChainBatch
 from kaldi_fp16_tpu_torch.models.model import Model
 from kaldi_fp16_tpu_torch.parallel.data_parallel import (
-    broadcast_train_state, shard_chain_batch,
+    broadcast_train_state, shard_chain_batch, shard_train_state,
 )
+from kaldi_fp16_tpu_torch.parallel.mesh import mesh_axes
 from kaldi_fp16_tpu_torch.training.train_step import (
     EvalStepOutput, TrainConfig, TrainStepOutput, init_train_state,
     make_eval_step, make_train_step,
@@ -155,6 +159,10 @@ class Trainer:
         if group is not None:
             broadcast_train_state(self.net, self.opt_state, self.scale_state,
                                   group)
+            self.opt_state = shard_train_state(self.net, self.opt_state,
+                                               group)
+        data = mesh_axes(group).data
+        self._data_world = data.world if data is not None else 1
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.global_step = 0
         self._copy_stream = (torch.cuda.Stream(device=self.device)
@@ -189,10 +197,10 @@ class Trainer:
                 f"(n_out={batch.frames_per_seq}-1)*stride={stride}+1 needs "
                 f"{need} input frames but features have T_in={T_in}")
         if (self.group is not None and self.shard_batches
-                and batch.batch_size % self.group.world):
+                and batch.batch_size % self._data_world):
             raise ValueError(
                 f"batch {batch.batch_size} not divisible by the data "
-                f"group's {self.group.world} ranks (drop the remainder)")
+                f"group's {self._data_world} ranks (drop the remainder)")
 
     def place_batch(self, batch: ChainBatch):
         """Upload a batch's arrays and numerator graph to the device
@@ -237,8 +245,7 @@ class Trainer:
         m = self._metrics
         m.steps += 1
         m.examples += batch.batch_size * (
-            self.group.world if self.group is not None
-            and not self.shard_batches else 1)
+            self._data_world if not self.shard_batches else 1)
         # chain objective only (out.loss also folds in the xent term);
         # the global batch's weighted frames
         self._pending.append(

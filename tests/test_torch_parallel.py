@@ -20,8 +20,8 @@ At tests/test_parallel.py's model (XCONFIG), B = 8, T_in = 12, fp32:
   tests/test_torch_train_step.py;
 * the collectives per step: two all-reduces per BatchNorm in the forward
   and two in the backward, one for the gradients;
-* `make_mesh` with a `model` or `seq` axis raises; `MultiPrefetchLoader`
-  yields the JAX one's batches; the dryrun twin passes.
+* `MultiPrefetchLoader` yields the JAX one's batches; the dryrun twin
+  passes (the `model` and `seq` axes: tests/test_torch_parallel_axes.py).
 
 All ranks of one world size run every case in one spawned process group
 (a module fixture), each wait bounded by JOIN_SECONDS.
@@ -48,7 +48,6 @@ from kaldi_fp16_tpu.training import train_step as jax_ts
 from kaldi_fp16_tpu_torch.chain import graph as port_graph
 from kaldi_fp16_tpu_torch.convert import train_state_from_jax
 from kaldi_fp16_tpu_torch.models.model import build_model_from_string
-from kaldi_fp16_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from kaldi_fp16_tpu_torch.tools import dryrun_multichip
 from kaldi_fp16_tpu_torch.tools.dryrun_multichip import (
     Setup, run_on_ranks, run_setup,
@@ -283,14 +282,6 @@ def test_matches_jax_sharded_step(ranks, jax_case):
         for k, v in want.items():
             np.testing.assert_allclose(got["params"][k], v.numpy(), **PARAM,
                                        err_msg=k)
-
-
-@pytest.mark.parametrize("config", [MeshConfig(data=2, model=2),
-                                    MeshConfig(data=2, seq=2),
-                                    MeshConfig(model=4)])
-def test_model_and_seq_axes_raise(config):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(config, "cpu")
 
 
 @pytest.mark.parametrize("workers", [1, 2, 3])

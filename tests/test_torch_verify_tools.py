@@ -164,6 +164,17 @@ def test_backtest_passes_on_the_cpu(capsys):
     assert capsys.readouterr().out.strip().endswith("PASS")
 
 
+def test_backtest_gradcheck_defaults_to_the_card():
+    """Without a device gradcheck runs on the card, as every entry point
+    of the port does: with none here it raises instead of running on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        backtest.gradcheck(backtest.CONFIGS[0][1],
+                           rng=np.random.default_rng(0))
+
+
 class _ScaledBackward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y):
