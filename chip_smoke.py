@@ -276,6 +276,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -3972,6 +3973,42 @@ def remat_phase(dev, graph, totals):
           launches=launches)
 
 
+# profile_step's variants that run the den (its fused scans: one forward
+# and one backward launch per step) and those that do not
+PROFILE_STEP_ITERS = 5
+DEN_VARIANTS = ("full", "no-num", "lean")
+
+
+def profile_step_run(tool, totals):
+    """tools.profile_step at bench.py's geometry (B = 128, T_in = 150,
+    P = 3080), --iters 5 --lean: 1 + 1 den_scan launches per step in
+    full, no-num and lean and none in no-den, no-chain and fwd-only, the
+    fused scans in full, and a finite loss (fwd-only: output sum) in every
+    variant.  Returns each variant's wall and device ms, launches and
+    value, and the attribution; no ordering of times is asserted (the step
+    is host-bound)."""
+    res, text, s, n = run_tool(tool, ["--iters", str(PROFILE_STEP_ITERS),
+                                      "--lean"], "profile_step", totals)
+    if set(res) != {"full", "no-den", "no-num", "no-chain", "fwd-only",
+                    "lean"}:
+        raise AssertionError(f"profile_step variants {sorted(res)}")
+    steps = PROFILE_STEP_ITERS + 1                  # with the warm-up
+    for name, r in res.items():
+        want = steps if name in DEN_VARIANTS else 0
+        got = (r["launches"]["den_scan_fwd"], r["launches"]["den_scan_bwd"])
+        if got != (want, want):
+            raise AssertionError(f"profile_step {name}: den_scan launches "
+                                 f"{got}, want {(want, want)}")
+        value = r["output_sum" if name == "fwd-only" else "loss"]
+        if not math.isfinite(value):
+            raise AssertionError(f"profile_step {name}: value {value}")
+    if res["full"]["scan_used"] != "fused":
+        raise AssertionError(f"profile_step full: {res['full']}")
+    line = json.loads(text.strip().splitlines()[-1])
+    return {"variants": res, "attribution": line["attribution"],
+            "seconds": s, "launches": n}
+
+
 def measure_phase(egs_dir, totals):
     """The measurement twins in this process: trainbench at B = 128
     (plain, --remat, --natural-gradient; 5 iterations) and with the random
@@ -3980,11 +4017,13 @@ def measure_phase(egs_dir, totals):
     scalebench at worlds 1 and 2 on the card (NCCL, then two gloo ranks
     sharing it); profile_host on the egs phase's files with --place;
     profile_latdecode at its defaults; profile_den --impls
-    high,pallas,fused; one trainbench step inside utils.profiling.trace,
-    whose Chrome trace must name the den_scan kernels."""
+    high,pallas,fused; profile_step, the in-context ablation of bench.py's
+    step, at the JAX tool's defaults with --iters 5 --lean; one trainbench
+    step inside utils.profiling.trace, whose Chrome trace must name the
+    den_scan kernels."""
     from kaldi_fp16_tpu_torch.tools import (
-        profile_den, profile_host, profile_latdecode, roofline, scalebench,
-        trainbench,
+        profile_den, profile_host, profile_latdecode, profile_step,
+        roofline, scalebench, trainbench,
     )
     out = {}
     for tag, extra in (("plain", []), ("remat", ["--remat"]),
@@ -4023,6 +4062,7 @@ def measure_phase(egs_dir, totals):
     res, _, s, n = run_tool(profile_den, ["--impls", "high,pallas,fused"],
                             "profile_den", totals)
     out["profile_den"] = {**res, "seconds": s, "launches": n}
+    out["profile_step"] = profile_step_run(profile_step, totals)
 
     logdir = MEASURE / "trace"
     with trace(str(logdir)):

@@ -29,7 +29,8 @@ Kaldi semantics (the JAX module docstring): x = exp(clip(nnet, -30, 30));
 leaky HMM alpha' = alpha + sum(alpha) * leaky * init; per-frame rescale by
 1/sum(alpha) with log corrections; all states final.  The JAX dst/src
 de-alias padding chunk (an XLA scheduling workaround) and `mode="fast"`
-are not ported.  No op uses float atomics, so repeats on one card are
+are not ported.  `denominator_forward_backward` is the JAX module's
+functional wrapper (:396-412), with its cache of computations.  No op uses float atomics, so repeats on one card are
 bit-identical.
 """
 
@@ -339,3 +340,32 @@ class DenominatorComputation:
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """nnet_output [N, T, P] -> (log_prob [N], posteriors [N, T, P])."""
         return self._forward_backward(nnet_output, compute_grad=True)
+
+
+# a DenominatorComputation per (graph, leaky, mode, device), as the JAX
+# module's functional wrapper memoizes one per (graph, leaky, mode): a
+# fresh one per call would redo the host-side layout work.  Keyed by
+# id(graph), each entry holding its graph so the id cannot be recycled;
+# the port's key adds the device, since a computation lives on one.
+_den_cache: dict = {}
+
+
+def denominator_forward_backward(graph: DenominatorGraph,
+                                 nnet_output: torch.Tensor,
+                                 leaky: float = 1e-5, mode: str = "exact"):
+    """Functional wrapper: nnet_output [N, T, P] -> (log_prob [N],
+    posteriors [N, T, P]), on nnet_output's device."""
+    if mode == "fast":
+        raise ValueError("den mode='fast' is not ported: it was revoked in "
+                         "the JAX package (ROADMAP.md queue 1 item 5)")
+    if mode != "exact":
+        raise ValueError(f"mode must be 'exact', got {mode!r}")
+    key = (id(graph), float(leaky), mode, nnet_output.device)
+    hit = _den_cache.get(key)
+    if hit is None or hit[0] is not graph:
+        hit = (graph, DenominatorComputation(graph, leaky,
+                                             device=nnet_output.device))
+        if len(_den_cache) > 16:
+            _den_cache.clear()
+        _den_cache[key] = hit
+    return hit[1].forward_backward(nnet_output)

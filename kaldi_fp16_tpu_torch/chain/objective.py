@@ -1,8 +1,10 @@
 """Chain objective + derivative (ComputeChainObjfAndDeriv) on PyTorch.
 
 Port of kaldi_fp16_tpu/chain/objective.py: `_penalize_out_of_range`
-(:59-71), `_chain_core` (:88-154) and `make_chain_objf_with_post`
-(:188-219).  Per batch:
+(:59-71), `_chain_core` (:88-154), `make_chain_objf_with_post`
+(:188-219) and the functional API, `chain_objf_and_deriv` (:74),
+`make_chain_objf` (:161), `chain_objf` (:222) and `chain_loss_and_grad`
+(:231).  Per batch:
 
   1. denominator forward-backward (probability domain, leaky HMM), first
   2. out-of-range penalty: +/-30 limit, scale 2*oor_reg, even frames only
@@ -79,6 +81,20 @@ def chain_core(num_graph: NumeratorGraphBatch,
     with fp32_matmuls():
         return _chain_core(num_graph, den, nnet_output.float(), weights,
                            deriv_weights, opts)
+
+
+def chain_objf_and_deriv(num_graph: NumeratorGraphBatch,
+                         den: DenominatorComputation,
+                         nnet_output: torch.Tensor,
+                         weights: Optional[torch.Tensor] = None,
+                         deriv_weights: Optional[torch.Tensor] = None,
+                         opts: ChainTrainingOpts = ChainTrainingOpts(),
+                         ) -> Tuple[ChainResult, torch.Tensor]:
+    """Kaldi's ComputeChainObjfAndDeriv: (result, deriv = d objf / d
+    nnet_output)."""
+    result, deriv, _ = chain_core(num_graph, den, nnet_output, weights,
+                                  deriv_weights, opts)
+    return result, deriv
 
 
 def _chain_core(num_graph, den, nnet_output, weights, deriv_weights, opts):
@@ -172,6 +188,48 @@ class ChainObjf(torch.autograd.Function):
         return g_objf * deriv, None, None, None, None, None
 
 
+def _result(objf, l2_term, total_weight, num_lp, den_lp, oor_count, ok):
+    return ChainResult(
+        total_objf=objf.detach(), l2_term=l2_term, total_weight=total_weight,
+        num_logprob=num_lp, den_logprob=den_lp,
+        objf_per_frame=objf.detach() / total_weight,
+        out_of_range_count=oor_count, ok=ok)
+
+
+def make_chain_objf(num_graph: NumeratorGraphBatch,
+                    den: DenominatorComputation,
+                    opts: ChainTrainingOpts = ChainTrainingOpts()):
+    """objf_fn(nnet_output, weights) -> (total_objf, ChainResult).
+
+    total_objf backpropagates the analytic derivative into nnet_output;
+    weights get no gradient (the JAX custom_vjp's None)."""
+
+    def objf_fn(nnet_output, weights):
+        objf, _, *rest = ChainObjf.apply(nnet_output, weights, None,
+                                         num_graph, den, opts)
+        return objf, _result(objf, *rest)
+
+    return objf_fn
+
+
+def chain_objf(num_graph, den, nnet_output, weights=None,
+               opts: ChainTrainingOpts = ChainTrainingOpts()):
+    """One-shot differentiable objective: (total_objf, ChainResult), with
+    weights of ones where none are given."""
+    if weights is None:
+        weights = torch.ones(nnet_output.shape[0], dtype=nnet_output.dtype,
+                             device=nnet_output.device)
+    return make_chain_objf(num_graph, den, opts)(nnet_output, weights)
+
+
+def chain_loss_and_grad(num_graph, den, nnet_output, weights=None,
+                        opts: ChainTrainingOpts = ChainTrainingOpts()):
+    """(loss, ChainResult, d loss / d nnet_output) with loss = -objf."""
+    result, deriv = chain_objf_and_deriv(num_graph, den, nnet_output,
+                                         weights, opts=opts)
+    return -result.total_objf, result, -deriv
+
+
 def make_chain_objf_with_post(num_graph: NumeratorGraphBatch,
                               den: DenominatorComputation,
                               opts: ChainTrainingOpts = ChainTrainingOpts()):
@@ -185,14 +243,8 @@ def make_chain_objf_with_post(num_graph: NumeratorGraphBatch,
     is unweighted, as in Kaldi."""
 
     def objf_fn(nnet_output, weights, deriv_weights):
-        (objf, num_post, l2_term, total_weight, num_lp, den_lp, oor_count,
-         ok) = ChainObjf.apply(nnet_output, weights, deriv_weights,
-                               num_graph, den, opts)
-        result = ChainResult(
-            total_objf=objf.detach(), l2_term=l2_term,
-            total_weight=total_weight, num_logprob=num_lp,
-            den_logprob=den_lp, objf_per_frame=objf.detach() / total_weight,
-            out_of_range_count=oor_count, ok=ok)
-        return objf, result, num_post
+        objf, num_post, *rest = ChainObjf.apply(
+            nnet_output, weights, deriv_weights, num_graph, den, opts)
+        return objf, _result(objf, *rest), num_post
 
     return objf_fn

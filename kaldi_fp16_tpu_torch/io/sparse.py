@@ -3,12 +3,15 @@ of what it uses of kaldi_fp16_tpu/io/sparse.py.  Arcs are flat numpy
 arrays; tropical weights are negated into log-probs on the arcs AND the
 final weights.  `fst_to_csr` reads any object with the `Fst` fields
 (`start`, `states`, `num_states`, optional `flat` arc arrays), so FSTs
-built by either package convert alike.
+built by either package convert alike.  `csr_to_coo` and `merge_coo`
+(sparse.py:134-167 there) turn a CSR back into arcs and concatenate
+per-example FSTs with state offsets.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List, Tuple
 
 import numpy as np
 
@@ -127,3 +130,37 @@ def coo_to_csr(coo: COO) -> CSR:
                final_states=coo.final_states,
                final_weights=coo.final_weights,
                start_state=coo.start_state)
+
+
+def csr_to_coo(csr: CSR) -> COO:
+    return COO(num_states=csr.num_states,
+               rows=csr.src_states(),
+               cols=csr.col_idx.copy(),
+               labels=csr.labels.copy(),
+               weights=csr.weights.copy(),
+               final_states=csr.final_states,
+               final_weights=csr.final_weights,
+               start_state=csr.start_state)
+
+
+def merge_coo(fsts: List[COO]) -> Tuple[COO, np.ndarray]:
+    """Concatenate per-example FSTs with state offsets (ref:
+    sparse.go:217-261).  Returns (merged, offsets), offsets[i] the state
+    offset of FST i."""
+    if not fsts:
+        raise ValueError("empty FST list")
+    sizes = np.array([f.num_states for f in fsts], dtype=np.int32)
+    offsets = np.zeros(len(fsts), dtype=np.int32)
+    np.cumsum(sizes[:-1], out=offsets[1:])
+    merged = COO(
+        num_states=int(sizes.sum()),
+        rows=np.concatenate([f.rows + o for f, o in zip(fsts, offsets)]),
+        cols=np.concatenate([f.cols + o for f, o in zip(fsts, offsets)]),
+        labels=np.concatenate([f.labels for f in fsts]),
+        weights=np.concatenate([f.weights for f in fsts]),
+        final_states=np.concatenate([f.final_states + o
+                                     for f, o in zip(fsts, offsets)]),
+        final_weights=np.concatenate([f.final_weights for f in fsts]),
+        start_state=0,
+    )
+    return merged, offsets

@@ -44,7 +44,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from kaldi_fp16_tpu_torch.models.xconfig import LayerType
 from kaldi_fp16_tpu_torch.parallel.mesh import (
     DataGroup, MeshConfig, mesh_axes,
 )
@@ -75,6 +74,8 @@ def param_shardings(model, mesh, params) -> Dict[str, Dict[str, tuple]]:
         tdnnf affine_w [2b, dim]   -> (None, "model");  affine_b -> ("model",)
 
     and () (replicated) for everything else."""
+    # models.network imports this module, and importing models runs it
+    from kaldi_fp16_tpu_torch.models.xconfig import LayerType
     tp = _model_ranks(mesh) > 1
     out = {}
     for lname, lparams in params.items():

@@ -1,6 +1,7 @@
 """What the verification and measurement tools share: the device they
-check, the card's name line, a timer, the bench tools' den graph, and
-the metrics file a killed training run leaves behind."""
+check, the card's name line, a timer, the kernels' launch counts, the
+bench tools' den graph, and the metrics file a killed training run
+leaves behind."""
 
 from __future__ import annotations
 
@@ -66,6 +67,18 @@ def time_ms(fn, iters, dev):
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def kernel_launches() -> dict:
+    """The CUDA kernels' wrappers' launch counts, by kernel."""
+    from kaldi_fp16_tpu_torch.ops import den_scan
+    from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul
+    from kaldi_fp16_tpu_torch.ops.segment_reduce import segment_reduce
+    return {"den_matmul": DenMatmul.launches,
+            "den_matmul_pre": DenMatmul.launches_pre,
+            "den_scan_fwd": den_scan.fused_forward.launches,
+            "den_scan_bwd": den_scan.fused_backward.launches,
+            "segment_reduce": segment_reduce.launches}
 
 
 def den_graph(topology, P, S=DEN_STATES, A=DEN_ARCS, rng=None):

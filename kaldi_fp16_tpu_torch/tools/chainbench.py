@@ -6,8 +6,17 @@ JSON line (less `vs_baseline`, which divided by another card's number):
 
     python -m kaldi_fp16_tpu_torch.tools.chainbench [--topology phone-lm]
         [--layout auto|structured|blocked] [--scan-impl auto|loop|fused]
+        [--matmul-impl auto|high|pallas]
         [--posterior-reduce auto|einsum|kernel] [--batch 8] [--frames 50]
         [--pdfs 3080] [--device cuda]
+
+`--matmul-impl` maps the JAX tool's lowerings as tools.profile_den's
+impls do: `high` is the loop scans with matmul_impl="plain" (torch.matmul
+at "highest" precision), `pallas` the loop scans on the den_matmul
+kernel, `auto` the port's default (the kernel, and the scans
+--scan-impl names).  `split3` was revoked in the JAX package and is not
+ported (ROADMAP.md queue 1 item 5): the tool exits 2.  `--num-states` is
+accepted and unused, as in the JAX tool.
 
 On a card (`--device cuda`, the default) each fn is timed with CUDA events
 over `--iters` back-to-back calls after one warm-up; the kernels are built
@@ -40,6 +49,8 @@ def parse_args(argv=None):
     ap.add_argument("--pdfs", type=int, default=3080)
     ap.add_argument("--den-states", type=int, default=DEN_STATES)
     ap.add_argument("--den-arcs", type=int, default=DEN_ARCS)
+    ap.add_argument("--num-states", type=int, default=200,
+                    help="accepted and unused, as in the JAX tool")
     ap.add_argument("--num-arcs", type=int, default=256)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--topology", default="random",
@@ -52,6 +63,12 @@ def parse_args(argv=None):
                     choices=["auto", "loop", "fused"],
                     help="structured den scans: den_matmul per frame "
                          "(loop) or the fused scan kernels")
+    ap.add_argument("--matmul-impl", default="auto",
+                    choices=["auto", "split3", "high", "pallas"],
+                    help="structured den matmul: high = loop scans with "
+                         "torch.matmul, pallas = loop scans on the "
+                         "den_matmul kernel, auto = the port's default; "
+                         "split3: revoked, not ported (exits 2)")
     ap.add_argument("--posterior-reduce", default="auto",
                     choices=["auto", "einsum", "kernel"],
                     help="blocked den per-pdf posterior reduce: one-hot "
@@ -84,8 +101,21 @@ def make_num_graph(B, T, P, num_arcs, rng):
         num_states=Sn, num_arcs=An)
 
 
+# --matmul-impl -> the den's options (profile_den.py's IMPLS)
+MATMUL_IMPLS = {"auto": {}, "high": dict(matmul_impl="plain",
+                                         scan_impl="loop"),
+                "pallas": dict(matmul_impl="kernel", scan_impl="loop")}
+
+
 def main(argv=None):
     args = parse_args(argv)
+    if args.matmul_impl not in MATMUL_IMPLS:
+        print(f"chainbench: --matmul-impl {args.matmul_impl} is not ported: "
+              f"it was revoked in the JAX package (ROADMAP.md queue 1 item "
+              f"5)", file=sys.stderr)
+        raise SystemExit(2)
+    den_kw = {"scan_impl": args.scan_impl,
+              **MATMUL_IMPLS[args.matmul_impl]}
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("chainbench: no CUDA device; pass --device cpu to "
                          "run the plain versions on the host")
@@ -96,9 +126,8 @@ def main(argv=None):
     B, T, P = args.batch, args.frames, args.pdfs
     graph = make_graph(args, rng)
     den = DenominatorComputation(graph, leaky=1e-5, layout=args.layout,
-                                 scan_impl=args.scan_impl,
                                  posterior_reduce=args.posterior_reduce,
-                                 device=dev)
+                                 device=dev, **den_kw)
     num_graph = make_num_graph(B, T, P, args.num_arcs, rng)
     out = torch.from_numpy(
         rng.normal(size=(B, T, P)).astype(np.float32) * 0.1).to(dev)
@@ -118,6 +147,7 @@ def main(argv=None):
         "unit": "ms/seq",
         "detail": {**results, "batch_total_ms": total,
                    "den_layout": den.layout_used,
+                   "matmul_impl": args.matmul_impl,
                    "scan_used": structured.scan_used if structured else None,
                    "posterior_reduce": (None if structured
                                         else den.posterior_reduce)},

@@ -104,6 +104,7 @@ def run_setup(setup: Setup, group=None, device=None,
         shard_train_state,
     )
     from kaldi_fp16_tpu_torch.parallel.mesh import make_mesh
+    from kaldi_fp16_tpu_torch.tools._common import kernel_launches
     from kaldi_fp16_tpu_torch.training.checkpoint import CheckpointManager
     from kaldi_fp16_tpu_torch.training.train_step import (
         TrainConfig, init_train_state, make_train_step,
@@ -185,18 +186,6 @@ def run_setup(setup: Setup, group=None, device=None,
             if hasattr(group, "axes") else None,
             "params": _numpy(full_state_dict(net, group)),
             "ng": _numpy(opt["ng"]) if "ng" in opt else None}
-
-
-def kernel_launches() -> Dict[str, int]:
-    """The CUDA kernels' wrappers' launch counts, by kernel."""
-    from kaldi_fp16_tpu_torch.ops import den_scan
-    from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul
-    from kaldi_fp16_tpu_torch.ops.segment_reduce import segment_reduce
-    return {"den_matmul": DenMatmul.launches,
-            "den_matmul_pre": DenMatmul.launches_pre,
-            "den_scan_fwd": den_scan.fused_forward.launches,
-            "den_scan_bwd": den_scan.fused_backward.launches,
-            "segment_reduce": segment_reduce.launches}
 
 
 def _clone(tree, device):

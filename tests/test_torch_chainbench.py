@@ -36,3 +36,18 @@ def test_chainbench_twin_on_cpu(capsys, argv, layout, scan, reduce):
             detail["posterior_reduce"]) == (layout, scan, reduce)
     assert detail["den_fwd_bwd"] > 0 and detail["num_fwd_bwd"] > 0
     assert line["value"] > 0
+
+
+@pytest.mark.parametrize("impl,scan", [("high", "loop"), ("pallas", "loop"),
+                                       ("auto", "fused")])
+def test_chainbench_matmul_impl_maps_to_the_den(capsys, impl, scan):
+    """--matmul-impl as profile_den's impls: high and pallas run the loop
+    scans (torch.matmul, the den_matmul kernel), auto the port's default
+    with --scan-impl; --num-states is accepted and unused."""
+    chainbench.main(["--topology", "phone-lm", "--pdfs", "24", "--batch",
+                     "128", "--frames", "4", "--scan-impl", "fused",
+                     "--matmul-impl", impl, "--num-states", "7",
+                     "--iters", "1", "--num-arcs", "8", "--device", "cpu"])
+    detail = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "detail"]
+    assert (detail["matmul_impl"], detail["scan_used"]) == (impl, scan)

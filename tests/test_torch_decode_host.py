@@ -21,16 +21,16 @@ from kaldi_fp16_tpu_torch.decode import graph as port_graph
 from kaldi_fp16_tpu_torch.decode import lattice as port_lattice
 from kaldi_fp16_tpu_torch.decode import lm as port_lm
 from kaldi_fp16_tpu_torch.decode import viterbi as port_viterbi
-from kaldi_fp16_tpu_torch.decode import wer as port_wer
 from kaldi_fp16_tpu_torch.io.fst import Fst, FstArc, FstState
 from tests.test_decoder import loglikes_for, two_word_graph
 from tests import test_lattice, test_tpu_viterbi
 from tests.test_lattice import ambiguous_loglikes
 from tests.test_tpu_viterbi import eps_free_graph, random_eps_free_graph
 
-# the JAX package's decode/__init__ re-exports the function `wer` over
-# its module of that name
+# both packages' decode/__init__ re-export the function `wer` over its
+# module of that name
 jax_wer = importlib.import_module("kaldi_fp16_tpu.decode.wer")
+port_wer = importlib.import_module("kaldi_fp16_tpu_torch.decode.wer")
 COST_ATOL = 1e-6
 # (module attributes, so that pytest does not collect the JAX test classes
 # a second time here)

@@ -14,10 +14,18 @@ profile_tree and profile_lattice.
   at --states 2000.
 * scalebench's per-world function holds 1 and 2 gloo ranks against one
   process; trainbench exits 2 on the revoked --mode fast / --bn-lowp,
-  profile_den on --impls split3.
+  profile_den on --impls split3, chainbench on --matmul-impl split3.
+* profile_step, the in-context ablation: every variant at a narrow
+  xconfig, the JAX tool's printed labels (read from its source) and
+  results keys, each stand-in removing its stage and the patched module
+  attributes restored after the run; from the JAX init on the same batch
+  the first step's loss of full, no-den, no-num and no-chain follows the
+  JAX tool's same variant within 2e-4 rel.  profile_kernels (the
+  recipe's per-kernel profile, formerly tools.profile_step) keeps its keys.
 """
 
 import ast
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -30,10 +38,18 @@ import pytest
 
 from kaldi_fp16_tpu.models import xvector as jax_xv
 from kaldi_fp16_tpu.training import schedulers as jax_sched
-from kaldi_fp16_tpu_torch.convert import xvector_params_from_jax
+import kaldi_fp16_tpu_torch.chain.objective as port_objective
+import kaldi_fp16_tpu_torch.training.train_step as port_train_step
+from kaldi_fp16_tpu_torch.chain import graph as port_graph
+from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
+from kaldi_fp16_tpu_torch.convert import (
+    params_from_jax, xvector_params_from_jax,
+)
+from kaldi_fp16_tpu_torch.models.model import build_model
 from kaldi_fp16_tpu_torch.tools import (
-    profile_den, profile_host, profile_latdecode, profile_lattice,
-    profile_tree, roofline, scalebench, trainbench, xvectortrain,
+    chainbench, profile_den, profile_host, profile_kernels,
+    profile_latdecode, profile_lattice, profile_step, profile_tree,
+    roofline, scalebench, trainbench, xvectortrain,
 )
 from tests.test_torch_tool_help import two_threads  # noqa: F401
 
@@ -346,3 +362,206 @@ def test_xvectortrain_loss_path_follows_jax_from_its_init(monkeypatch,
     for x, z in zip(xvectortrain.synth_batch(a, c, 4, 5, feat),
                     jtool.synth_batch(b, c, 4, 5, feat)):
         np.testing.assert_array_equal(x, z)
+
+
+def test_chainbench_split3_exits_2(capsys):
+    with pytest.raises(SystemExit) as e:
+        chainbench.main(["--matmul-impl", "split3", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "ROADMAP.md queue 1 item 5" in capsys.readouterr().err
+
+
+def test_profile_kernels_keeps_its_keys(xconfig, capsys):
+    """The per-kernel profile of the recipe's step, formerly
+    tools.profile_step: its three JSON lines and their keys."""
+    assert profile_kernels.main([
+        "--device", "cpu", "--batch", "2", "--frames-in", "30",
+        "--frames-out", "8", "--pdfs", "24", "--xconfig", xconfig]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["step"] for r in rows] == ["ng", "ng_update", "no_ng"]
+    for r in rows:
+        assert set(r) == {"step", "wall_ms", "timed_on", "kernels_ms",
+                          "busy_share", "by_category_ms", "kernels"}
+        assert r["timed_on"] == "cpu" and r["kernels"]
+
+
+# profile_step's geometry at a narrow size, on a small phone-LM den (the
+# tool's den is the production topology whatever --pdfs is)
+STEP_P = 24
+STEP_ARGV = ["--device", "cpu", "--batch", "2", "--frames-in", "30",
+             "--pdfs", str(STEP_P), "--iters", "1", "--lean"]
+STEP_DEN = dict(num_phones=12, states_per_phone=2, branching=3, seed=0)
+STEP_LOSS_RTOL = 2e-4
+NO_SPEC_XCONFIG = TINY_XCONFIG.replace(
+    "spec-augment-layer name=spec-augment freq-max-proportion=0.5 "
+    "time-zeroed-proportion=0.2 time-mask-max-frames=4\n", "").replace(
+    "Append(spec-augment,", "Append(idct-batchnorm,")
+
+
+def jax_printed_labels(tool):
+    """The text pieces of the JAX tool's print calls (f-string constants,
+    a leading "ms" dropped), those with a letter in them."""
+    labels = []
+    for node in ast.walk(ast.parse((ROOT / "tools" / f"{tool}.py")
+                                   .read_text())):
+        if not (isinstance(node, ast.Call) and getattr(node.func, "id", "")
+                == "print" and node.args):
+            continue
+        arg = node.args[0]
+        parts = arg.values if isinstance(arg, ast.JoinedStr) else [arg]
+        for part in parts:
+            if isinstance(part, ast.Constant) and isinstance(part.value,
+                                                             str):
+                text = part.value.strip()
+                text = text[2:].strip() if text.startswith("ms") else text
+                if any(c.isalpha() for c in text):
+                    labels.append(text)
+    return labels
+
+
+def small_step_den(monkeypatch):
+    monkeypatch.setattr(
+        profile_step, "make_phone_lm_den_fst",
+        lambda num_pdfs: port_graph.make_phone_lm_den_fst(
+            num_pdfs=num_pdfs, **STEP_DEN))
+
+
+def test_profile_step_ablates_each_stage(xconfig, monkeypatch, capsys):
+    """Every variant runs; the labels and the results keys are the JAX
+    tool's; the den's forward_backward never runs in no-den, no-chain or
+    fwd-only, the numerator never in no-num, no-chain or fwd-only; the
+    swapped module attributes are restored."""
+    small_step_den(monkeypatch)
+    calls = {"den": 0, "num": 0}
+    den_fb = DenominatorComputation.forward_backward
+    num_fb = port_objective.numerator_forward_backward
+    make_objf = port_train_step.make_chain_objf_with_post
+
+    def den_spy(self, x):
+        calls["den"] += 1
+        return den_fb(self, x)
+
+    def num_spy(graph, x):
+        calls["num"] += 1
+        return num_fb(graph, x)
+
+    monkeypatch.setattr(DenominatorComputation, "forward_backward", den_spy)
+    monkeypatch.setattr(port_objective, "numerator_forward_backward",
+                        num_spy)
+    per_variant = {}
+    measure = profile_step.measure
+
+    def counted(name, *a):
+        before = dict(calls)
+        res = measure(name, *a)
+        per_variant[name] = {k: calls[k] - before[k] for k in calls}
+        return res
+
+    monkeypatch.setattr(profile_step, "measure", counted)
+    res, out = run_twin(profile_step, STEP_ARGV + ["--xconfig", xconfig],
+                        capsys)
+    for label in jax_printed_labels("profile_step"):
+        assert label in out, label
+    assert set(res) == jax_output_keys("profile_step") == {
+        "full", "no-den", "no-num", "no-chain", "fwd-only", "lean"}
+    steps = 2                                  # one warm-up + --iters 1
+    assert per_variant == {
+        "full": {"den": steps, "num": steps},
+        "no-den": {"den": 0, "num": steps},
+        "no-num": {"den": steps, "num": 0},
+        "no-chain": {"den": 0, "num": 0},
+        "fwd-only": {"den": 0, "num": 0},
+        "lean": {"den": steps, "num": steps}}
+    assert port_objective.numerator_forward_backward is num_spy
+    assert port_train_step.make_chain_objf_with_post is make_objf
+    line = json.loads(out.splitlines()[-1])
+    assert line["variants"] == res and line["den_layout"] == "structured"
+    for name, r in res.items():
+        assert r["device_ms"] is None and r["wall_ms"] > 0
+        assert not any(r["launches"].values())   # the CPU runs no kernel
+        assert np.isfinite(r["output_sum" if name == "fwd-only"
+                             else "loss"])
+        assert r["scan_used"] == ("loop" if name in ("full", "no-num",
+                                                     "lean") else None)
+    assert res["lean"]["loss"] == res["full"]["loss"]   # same first step
+
+
+def test_profile_step_losses_follow_jax_from_its_init(monkeypatch,
+                                                      tmp_path, capsys):
+    """From the JAX init, on the same batch and graphs, the first step's
+    loss of each step variant equals the JAX tool's variant (built with
+    its own stand-ins) within 2e-4 rel.  No SpecAugment: the packages
+    draw their masks from different generators.  Both compute in fp32, as
+    tests/test_torch_train_step.py holds the steps: in bf16 the two
+    frameworks round intermediates at different points (no-num's loss
+    here lies 3.4e-4 rel apart)."""
+    from kaldi_fp16_tpu.chain import graph as jax_graph
+    from kaldi_fp16_tpu.chain import objective as jax_objective
+    from kaldi_fp16_tpu.chain.denominator import (
+        DenominatorComputation as JaxDen,
+    )
+    from kaldi_fp16_tpu.models.model import build_model as jax_build
+    from kaldi_fp16_tpu.training import train_step as jax_ts
+
+    monkeypatch.setenv("KALDI_TPU_NO_COMPILE_CACHE", "1")
+    jtool = load_jax_tool("profile_step", monkeypatch)
+    small_step_den(monkeypatch)
+    monkeypatch.setattr(profile_step, "TrainConfig", functools.partial(
+        profile_step.TrainConfig, compute_dtype="float32"))
+    xc = tmp_path / "no_spec.xconfig"
+    xc.write_text(NO_SPEC_XCONFIG)
+    args = profile_step.parse_args(STEP_ARGV + ["--xconfig", str(xc)])
+    B, T_in, P, left = args.batch, args.frames_in, args.pdfs, 3
+    T_out = (T_in - left + 2) // 3
+
+    model = jax_build(str(xc))
+    den = JaxDen(jax_graph.DenominatorGraph.from_fst(
+        jax_graph.make_phone_lm_den_fst(num_pdfs=P, **STEP_DEN), P),
+        leaky=1e-5, mode="exact")
+    rng = np.random.default_rng(0)
+    g = profile_step.supervision(B, T_out, max(256, T_out), P, rng)
+    num_graph = jax_graph.NumeratorGraphBatch(
+        **{f: getattr(g, f) for f in ("arc_src", "arc_dst", "arc_pdf",
+                                      "arc_logw", "arc_mask", "start",
+                                      "final_logw", "num_states",
+                                      "num_arcs")})
+    batch = {"features": jnp.asarray(rng.normal(size=(B, T_in, 40))
+                                     .astype(np.float32)),
+             "ivectors": jnp.asarray(rng.normal(size=(B, 100))
+                                     .astype(np.float32)),
+             "weights": jnp.ones(B, jnp.float32)}
+    config = jax_ts.TrainConfig(learning_rate=1e-3, momentum=0.9,
+                                frame_subsampling_factor=3, left_context=left,
+                                compute_dtype="float32")
+    params, net_state, _, _ = jax_ts.init_train_state(
+        model, jax.random.PRNGKey(0), config)
+
+    def first_loss(step_den, patch=None):
+        with monkeypatch.context() as m:
+            if patch is not None:
+                m.setattr(*patch)
+            step = jax_ts.make_train_step(
+                model, step_den, num_graph, jax_objective.ChainTrainingOpts(),
+                config, num_frames_out=T_out, donate=False)
+            p, ns, os_, ss = jax_ts.init_train_state(
+                model, jax.random.PRNGKey(0), config)
+            _, sub = jax.random.split(jax.random.PRNGKey(1))
+            return float(step(p, ns, os_, ss, batch, sub)[-1].loss)
+
+    jax_losses = {
+        "full": first_loss(den),
+        "no-den": first_loss(jtool._ZeroDen()),
+        "no-num": first_loss(den, (jax_objective,
+                                   "numerator_forward_backward",
+                                   jtool._zero_num)),
+        "no-chain": first_loss(den, (jax_ts, "make_chain_objf_with_post",
+                                     jtool._trivial_objf_factory))}
+    sd = params_from_jax(build_model(str(xc)),
+                         jax.tree_util.tree_map(np.asarray, params),
+                         jax.tree_util.tree_map(np.asarray, net_state))
+    res = profile_step.main(STEP_ARGV + ["--xconfig", str(xc)],
+                            state_dict=sd)
+    capsys.readouterr()
+    for name, want in jax_losses.items():
+        np.testing.assert_allclose(res[name]["loss"], want,
+                                   rtol=STEP_LOSS_RTOL, err_msg=name)

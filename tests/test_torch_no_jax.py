@@ -4,6 +4,9 @@ and without the JAX package.
 In a fresh interpreter where `import jax` and `import kaldi_fp16_tpu` both
 fail, every module of kaldi_fp16_tpu_torch and chip_smoke.py (imported,
 not run) must load: the port carries its own copies of what it needs.
+Each module must also load when it is the first of the port a program
+imports (the subpackages' __init__ files export the JAX package's public
+names, and must close no import cycle).
 """
 
 import pathlib
@@ -63,7 +66,7 @@ REQUIRED = [
     "kaldi_fp16_tpu_torch.tools." + m for m in (
         "xvectortrain", "trainbench", "roofline", "scalebench",
         "profile_host", "profile_latdecode", "profile_den",
-        "profile_tree", "profile_lattice")
+        "profile_tree", "profile_lattice", "profile_kernels")
 ]
 
 SCRIPT = """
@@ -92,6 +95,38 @@ def test_port_and_chip_smoke_import_without_jax():
                           cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # models x6, chain x7, ops x6, training x8, tools x37, io x9, utils x3,
+    # models x6, chain x7, ops x6, training x8, tools x38, io x9, utils x3,
     # decode x7, parallel x2, convert, device, the 9 subpackages
-    assert int(proc.stdout.strip()) >= 96
+    assert int(proc.stdout.strip()) >= 97
+
+
+# each module of the port imported first, into a module table that holds
+# no module of the port: the subpackages' exports must not close a cycle
+# (models.network -> parallel.data_parallel -> models, chain -> ops ->
+# training, ...) whichever module a program imports first
+FIRST_SCRIPT = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["kaldi_fp16_tpu"] = None
+import kaldi_fp16_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    kaldi_fp16_tpu_torch.__path__, "kaldi_fp16_tpu_torch.")]
+failed = []
+for name in names:
+    for k in [k for k in sys.modules if k.startswith("kaldi_fp16_tpu_torch")]:
+        del sys.modules[k]
+    try:
+        importlib.import_module(name)
+    except ImportError as e:
+        failed.append(f"{name}: {e}")
+assert not failed, failed
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_first():
+    proc = subprocess.run([sys.executable, "-c", FIRST_SCRIPT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 97

@@ -67,7 +67,8 @@ def test_the_verification_twins_are_among_the_tools():
 def test_the_measurement_twins_are_among_the_tools():
     assert {"xvectortrain", "trainbench", "roofline", "scalebench",
             "profile_host", "profile_latdecode", "profile_den",
-            "profile_tree", "profile_lattice"} <= set(TOOLS)
+            "profile_tree", "profile_lattice", "profile_step",
+            "profile_kernels"} <= set(TOOLS)
 
 
 # each twin with a device, and the least argv it needs besides --device
@@ -78,7 +79,8 @@ DEVICE_TWINS = [("chainverify", []), ("denverify", []), ("chaintest", []),
                 ("trainbench", []), ("roofline", []),
                 ("scalebench", []), ("profile_host", ["--place"]),
                 ("profile_latdecode", []), ("profile_den", []),
-                ("profile_tree", []), ("profile_lattice", [])]
+                ("profile_tree", []), ("profile_lattice", []),
+                ("profile_step", []), ("profile_kernels", [])]
 
 
 @pytest.mark.parametrize("tool,argv", DEVICE_TWINS,
