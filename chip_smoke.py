@@ -35,7 +35,11 @@ Phases, one line of numbers each:
                      timed with L2 warm and flushed beside torch.matmul
   4. scan_kernels    den_scan forward / backward at the production shape,
                      both splits, against their plain versions, timed
-  5. den             production-scale loop den forward-backward, kernel
+  5. den             the production den built with the JAX package's
+                     names (matmul_impl "auto", scan_impl "xla" and
+                     "auto", posterior_reduce "pallas"), each route
+                     asserted;
+                     production-scale loop den forward-backward, kernel
                      (both splits) vs plain path; a small den against the
                      float64 oracle
   6. den_fused       the default den (scan_impl="auto": the fused scans)
@@ -226,7 +230,9 @@ Phases, one line of numbers each:
                      loop's train_audio_sec_per_s_per_chip); tools.soak on the
                      flagship (SIGKILL after 25 steps, --resume, run 1's
                      objf reproduced exactly; cut to 2 epochs and a
-                     checkpoint every 20 steps); tools.abtest --ab grid
+                     checkpoint every 20 steps); tools.abtest --ab grid,
+                     den-mode and bn-lowp at the tool's defaults (each
+                     arm's wall seconds and objf drift)
  29. verify_data     tools.gputest (pageable and pinned copies to the card),
                      tools.dltest (in-line, --workers 2, --process-workers 2:
                      one bf16 error), egstools analyze / verify, nscheck and
@@ -824,10 +830,43 @@ def scan_bounds(terms):
                                  + T_OUT * LFN), flops))
 
 
+# (the den's options, the option whose route is read, the route on the
+# card): the JAX package's names, each built once on the production den
+JAX_NAME_ROUTES = (
+    (dict(matmul_impl="auto"), "matmul_impl", "kernel"),
+    (dict(scan_impl="xla"), "scan_impl", "loop"),
+    (dict(scan_impl="auto"), "scan_impl", "fused"),
+    (dict(layout="blocked", posterior_reduce="pallas"), "posterior_reduce",
+     "kernel"),
+)
+
+
+def den_routes(dev, graph):
+    """Build the production den with each of the JAX package's names and
+    assert the route each resolves to on the card.  Constructions only:
+    nothing runs."""
+    def route(den, option):
+        return (den.posterior_reduce if option == "posterior_reduce"
+                else getattr(den._structured, option))
+
+    routes = {}
+    for kw, option, want in JAX_NAME_ROUTES:
+        den = DenominatorComputation(graph, leaky=1e-5, device=dev, **kw)
+        got = routes[",".join(f"{k}={v}" for k, v in kw.items())] = \
+            route(den, option)
+        if got != want:
+            raise AssertionError(f"den {kw}: {option} route {got}, "
+                                 f"expected {want}")
+        del den
+    torch.cuda.empty_cache()
+    return routes
+
+
 def den_phase(dev, graph):
     """The loop den (scan_impl="loop") through den_matmul, split="kernel"
     and split="pre", against the torch.matmul path; the pre run is
-    den_matmul_pre's path."""
+    den_matmul_pre's path.  First the JAX names' routes (`den_routes`)."""
+    routes = den_routes(dev, graph)
     x = den_input(dev)
     den_k = DenominatorComputation(graph, leaky=1e-5, scan_impl="loop",
                                    device=dev)
@@ -877,7 +916,7 @@ def den_phase(dev, graph):
         np.testing.assert_allclose(lp_s[b].item(), rlp, rtol=LOGP_RTOL)
         np.testing.assert_allclose(post_s[b].cpu().numpy(), rpost,
                                    rtol=POST_RTOL, atol=POST_ATOL)
-    phase("den", B=B, T=T_OUT, P=P, launches=launches,
+    phase("den", B=B, T=T_OUT, P=P, routes=routes, launches=launches,
           pre_launches=pre_launches, bit_identical=True,
           logp_max_rel_vs_plain=float(((lp_k - lp_p).abs()
                                        / lp_p.abs()).max()),
@@ -3413,7 +3452,8 @@ def attention_phase(dev, graph, fused):
                           .astype(np.float32)).to(dev)
     enc = StreamingEncoder(net, chunk_out=16, compute_dtype=torch.float32,
                            device=dev)
-    got, ref = encode_stream(enc, x, iv), enc.offline_reference(x, iv)
+    got = encode_stream(enc, x, iv)
+    ref = enc.offline_reference(x, iv, compute_dtype=enc.compute_dtype)
     excess = float(((got - ref).abs() - ENC_FP32_TOL * ref.abs()).max())
     if got.shape != ref.shape or not torch.isfinite(got).all() or \
             not excess <= ENC_FP32_TOL:
@@ -3594,7 +3634,9 @@ def stream_encode_phase(dev):
         for co in STREAM_CHUNKS:
             enc = StreamingEncoder(net, chunk_out=co, compute_dtype=dtype,
                                    device=dev)
-            got, ref = encode_stream(enc, x, iv), enc.offline_reference(x, iv)
+            got = encode_stream(enc, x, iv)
+            ref = enc.offline_reference(x, iv,
+                                        compute_dtype=enc.compute_dtype)
             if got.shape != ref.shape or not torch.isfinite(got).all():
                 raise AssertionError(f"{name} chunk {co}: streamed output "
                                      f"{tuple(got.shape)} vs {tuple(ref.shape)}")
@@ -3899,12 +3941,17 @@ def verify_net_phase(totals):
     phase("verify_net", card=card(), **out)
 
 
+# tools.abtest's arms, at the tool's defaults (the egs it writes are made
+# once and shared)
+AB_ARMS = ("grid", "den-mode", "bn-lowp")
+
+
 def verify_train_phase(egs_dir, totals):
     """tools.traintest on the flagship at B = 128 over the egs phase's
     cegs (fused den route asserted, the first batch's loss must fall by its
     second visit), tools.soak on the
     flagship (SIGKILL and resume, run 1's objf reproduced exactly) and
-    tools.abtest --ab grid at its defaults."""
+    tools.abtest's grid, den-mode and bn-lowp arms at its defaults."""
     from kaldi_fp16_tpu_torch.tools import abtest, soak, traintest
     res, _, s, n = run_tool(traintest, [
         "--xconfig", FLAGSHIP, "--den-topology", "phone-lm", "--pdfs",
@@ -3935,10 +3982,12 @@ def verify_train_phase(egs_dir, totals):
                        "replay_exact", "no_restart", "continuity_ok",
                        "lr_schedule_preserved", "final_objf",
                        "total_steps")}}
-    res, text, s, _ = run_tool(abtest, ["--ab", "grid", "--workdir",
-                                        str(WORK / "abtest")], "abtest",
-                               totals)
-    out["abtest"] = {"seconds": s, **json.loads(text.strip().splitlines()[-1])}
+    for arm in AB_ARMS:
+        res, text, s, _ = run_tool(abtest, ["--ab", arm, "--workdir",
+                                            str(WORK / "abtest")],
+                                   f"abtest_{arm}", totals)
+        out[f"abtest_{arm}"] = {"seconds": s,
+                                **json.loads(text.strip().splitlines()[-1])}
     phase("verify_train", card=card(), **out)
 
 

@@ -32,12 +32,22 @@ Two scan implementations, as in the JAX package (`scan_impl`):
 (`resolve_scan_impl`): on the H100 the fused scans' tensor-core products
 take the den forward-backward from the loop's host-bound 27-39 ms to
 ~15 ms (PERF.md), while on the CPU the plain loop is what the tests
-compare with the JAX package's XLA scan.  Dispatch depends on
-shapes only: a build or launch failure raises
+compare with the JAX package's XLA scan.  (The JAX package's "auto" is
+its XLA loop on every device: its fused scans lost on the TPU.)
+Dispatch depends on shapes only: a build or launch failure raises
 and never switches the path.  The wide bulk-posterior product stays an
 fp32 torch.matmul, as the JAX package left it to XLA.  No op here uses
 float atomics (the per-pdf reduce is a product against a stored one-hot,
 not index_add_), so repeated runs on one card are bit-identical.
+
+Option names.  Each option takes the JAX package's names beside the
+port's, through one table each (`MATMUL_IMPLS`, `SCAN_IMPLS`,
+`POSTERIOR_REDUCES`: name -> the port's route); an unknown name raises
+ValueError.  matmul_impl "auto" is "kernel" (the JAX package's is
+"high", the TPU's fastest XLA lowering), scan_impl "auto" the device
+rule above.  The JAX package's KALDI_TPU_DEN_MATMUL / KALDI_TPU_DEN_SCAN
+variables, hooks for re-checking routes on new Mosaic toolchains, are
+not read: the port has no Mosaic, and the arguments name every route.
 
 Two modes, as in the JAX package (`mode`):
 
@@ -78,19 +88,41 @@ from kaldi_fp16_tpu_torch.ops.den_scan import (
 SB = 128   # pdf block width of the posterior one-hot reduce
 AC = 128   # slots per chunk of the posterior one-hot reduce
 KERNEL_MAX_N = 128   # widest vector the in-scan kernel path takes
-# matmul_impl -> the port's name: the JAX package's "pallas" and "high" are
-# the port's "kernel" and "plain" (tools.chainbench maps them so too)
-MATMUL_IMPLS = {"kernel": "kernel", "plain": "plain", "split3": "split3",
-                "pallas": "kernel", "high": "plain"}
+# option name -> the port's route, the JAX package's names beside the
+# port's; "auto" is resolved by the functions below
+MATMUL_IMPLS = {"auto": "auto", "kernel": "kernel", "plain": "plain",
+                "split3": "split3", "pallas": "kernel", "high": "plain"}
+SCAN_IMPLS = {"auto": "auto", "fused": "fused", "loop": "loop",
+              "xla": "loop"}
+POSTERIOR_REDUCES = {"auto": "auto", "einsum": "einsum", "kernel": "kernel",
+                     "pallas": "kernel"}
 MODES = ("exact", "fast")
 
 
+def route(table: dict, option: str, name: str) -> str:
+    """The port's route for `name`, an option's value: the table's entry.
+    ValueError for a name the table lacks."""
+    if name not in table:
+        raise ValueError(f"{option} must be one of {', '.join(table)}, "
+                         f"got {name!r}")
+    return table[name]
+
+
+def resolve_matmul_impl(matmul_impl: str) -> str:
+    """"auto" -> "kernel"; the JAX names -> the port's ("pallas" ->
+    "kernel", "high" -> "plain")."""
+    impl = route(MATMUL_IMPLS, "matmul_impl", matmul_impl)
+    return "kernel" if impl == "auto" else impl
+
+
 def resolve_scan_impl(scan_impl: str, device: torch.device) -> str:
-    """"auto" -> "fused" on a CUDA device, "loop" elsewhere; other values
-    unchanged.  "fused" still runs the loop where the layout or batch does
-    not fit the fused scans (`fused_scan_supported`)."""
-    if scan_impl != "auto":
-        return scan_impl
+    """"auto" -> "fused" on a CUDA device and "loop" elsewhere; "xla"
+    (the JAX name) -> "loop".  "fused"
+    still runs the loop where the layout or batch does not fit the fused
+    scans (`fused_scan_supported`)."""
+    impl = route(SCAN_IMPLS, "scan_impl", scan_impl)
+    if impl != "auto":
+        return impl
     return "fused" if torch.device(device).type == "cuda" else "loop"
 
 
@@ -118,13 +150,14 @@ class StructuredKernels:
     """Device-side forward/backward over a ChainLayout.
 
     mode: "exact" or "fast" (module docstring).
-    matmul_impl (exact mode): "kernel" (the JAX "pallas") sends every
-    in-scan M product (n <= 128) through `DenMatmul` (the CUDA kernel on a
-    card, its plain version on the CPU); "plain" (the JAX "high") sends
-    them to torch.matmul, for comparisons; "split3" sends every M product
-    through `_matmul_split3`.
-    scan_impl: "auto" ("fused" on a card, else "loop"), "loop" or
-    "fused" (module docstring).
+    matmul_impl (exact mode): "auto" ("kernel"); "kernel" (the JAX "pallas") sends every in-scan M product
+    (n <= 128) through `DenMatmul` (the CUDA kernel on a card, its plain
+    version on the CPU); "plain" (the JAX "high") sends them to
+    torch.matmul, for comparisons; "split3" sends every M product through
+    `_matmul_split3`.  `matmul_impl` holds the route.
+    scan_impl: "auto" ("fused" on a card and "loop" elsewhere, where the JAX "auto" is its XLA loop), "loop" (the
+    JAX "xla") or "fused" (module docstring).  `scan_impl` holds the
+    route.
     split: where the kernels split M into bf16 terms, "kernel" (in
     registers, from the fp32 M) or "pre" (once, into planes that every
     product streams); the loop's DenMatmul and the fused scans both use it.
@@ -133,19 +166,14 @@ class StructuredKernels:
 
     def __init__(self, layout: ChainLayout, leaky: float,
                  mode: str = "exact", hoist_bytes: int = 1 << 30,
-                 matmul_impl: str = "kernel", scan_impl: str = "auto",
+                 matmul_impl: str = "auto", scan_impl: str = "auto",
                  split: str = "kernel", device=None):
         if mode not in MODES:
             raise ValueError(f"mode must be 'exact' or 'fast', got {mode!r}")
-        if matmul_impl not in MATMUL_IMPLS:
-            raise ValueError(f"matmul_impl must be one of "
-                             f"{', '.join(MATMUL_IMPLS)}, got {matmul_impl!r}")
         if split not in ("kernel", "pre"):
             raise ValueError(f"split must be 'kernel' or 'pre', got {split!r}")
-        if scan_impl not in ("auto", "fused", "loop"):
-            raise ValueError(f"scan_impl must be 'auto', 'fused' or 'loop', "
-                             f"got {scan_impl!r}")
         dev = resolve_device(device)
+        matmul_impl = resolve_matmul_impl(matmul_impl)
         self.scan_impl = resolve_scan_impl(scan_impl, dev)
         # the fused scans need the chain axis padded to the row-tile width;
         # the inert fake chains change nothing on the loop path
@@ -158,8 +186,7 @@ class StructuredKernels:
         self.mode = mode
         self.hoist_bytes = hoist_bytes
         # as in the JAX package, fast mode has one product of its own
-        self.matmul_impl = (MATMUL_IMPLS[matmul_impl] if mode == "exact"
-                            else "fast")
+        self.matmul_impl = matmul_impl if mode == "exact" else "fast"
         L, F = layout.L, layout.F
 
         def t(a, dtype=torch.float32):

@@ -23,7 +23,8 @@ with both of its layouts and both of its modes:
               the kernel on a card, where its segmented row sum beats the
               one-hot product end to end (PERF.md), and to the product on
               the CPU, where the tests compare it with the JAX einsum
-              (`resolve_posterior_reduce`).
+              (`resolve_posterior_reduce`).  The JAX package's default is
+              "einsum": its Pallas reduce lost end to end on the TPU.
 
 Kaldi semantics (the JAX module docstring): x = exp(clip(nnet, -30, 30));
 leaky HMM alpha' = alpha + sum(alpha) * leaky * init; per-frame rescale by
@@ -50,7 +51,10 @@ import numpy as np
 import torch
 
 from kaldi_fp16_tpu_torch.chain.den_layout import analyze_chain_structure
-from kaldi_fp16_tpu_torch.chain.den_structured import MODES, StructuredKernels
+from kaldi_fp16_tpu_torch.chain.den_structured import (
+    MATMUL_IMPLS, MODES, POSTERIOR_REDUCES, SCAN_IMPLS, StructuredKernels,
+    route,
+)
 from kaldi_fp16_tpu_torch.chain.graph import DenominatorGraph
 from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.ops.den_matmul import bf16_product, fp32_matmuls
@@ -62,10 +66,11 @@ AC = 128   # arcs per chunk
 
 def resolve_posterior_reduce(posterior_reduce: str,
                              device: torch.device) -> str:
-    """"auto" -> "kernel" on a CUDA device, "einsum" elsewhere; other
-    values unchanged."""
-    if posterior_reduce != "auto":
-        return posterior_reduce
+    """"auto" -> "kernel" on a CUDA device, "einsum" elsewhere; "pallas"
+    (the JAX name) -> "kernel"; ValueError for an unknown name."""
+    reduce = route(POSTERIOR_REDUCES, "posterior_reduce", posterior_reduce)
+    if reduce != "auto":
+        return reduce
     return "kernel" if torch.device(device).type == "cuda" else "einsum"
 
 
@@ -132,19 +137,20 @@ class DenominatorComputation:
     "structured" (ValueError if it does not decompose) or "blocked".
     `layout_used` says which one runs.
     matmul_impl, scan_impl, split: the structured layout's options
-    (den_structured.py): "kernel" / "plain" / "split3" den matmul (the
-    JAX "pallas" / "high" / "split3"), "auto" ("fused" on a card, "loop"
-    on the CPU) / "loop" / "fused" scans, "kernel" / "pre" split of M.
+    (den_structured.py): "auto" ("kernel") / "kernel" / "plain" /
+    "split3" den matmul (the JAX "pallas" / "high" / "split3"), "auto"
+    ("fused" on a card and "loop" on the CPU) / "loop" (the JAX "xla") /
+    "fused" scans, "kernel" / "pre" split of M.
     device: default the current CUDA device; CPU runs pass "cpu".
     posterior_reduce: the blocked layout's per-pdf posterior reduce,
     "auto" ("kernel" on a card, else "einsum"), "einsum" (one-hot
-    product) or "kernel" (segment_reduce); `posterior_reduce` holds the
-    resolved value.
+    product) or "kernel" (segment_reduce; the JAX "pallas");
+    `posterior_reduce` holds the resolved value.
     """
 
     def __init__(self, graph: DenominatorGraph, leaky: float = 1e-5,
                  mode: str = "exact", hoist_bytes: int = 1 << 30,
-                 matmul_impl: str = "kernel",
+                 matmul_impl: str = "auto",
                  scan_impl: str = "auto", layout: str = "auto",
                  posterior_reduce: str = "auto", split: str = "kernel",
                  device=None):
@@ -153,9 +159,9 @@ class DenominatorComputation:
         if layout not in ("auto", "structured", "blocked"):
             raise ValueError(f"layout must be 'auto', 'structured' or "
                              f"'blocked', got {layout!r}")
-        if posterior_reduce not in ("auto", "einsum", "kernel"):
-            raise ValueError(f"posterior_reduce must be 'auto', 'einsum' or "
-                             f"'kernel', got {posterior_reduce!r}")
+        # the structured layout's names raise on either layout
+        route(MATMUL_IMPLS, "matmul_impl", matmul_impl)
+        route(SCAN_IMPLS, "scan_impl", scan_impl)
         dev = resolve_device(device)
         self.leaky = leaky
         self.mode = mode

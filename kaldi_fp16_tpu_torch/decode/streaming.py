@@ -137,12 +137,14 @@ class StreamingEncoder:
                else torch.zeros((st.buf.shape[0], 0, 1), device=self.device))
         return st, cat
 
-    def offline_reference(self, x_full, ivectors=None, compute_dtype=None,
+    def offline_reference(self, x_full, ivectors=None,
+                          compute_dtype=torch.bfloat16,
                           output: Optional[str] = None):
         """The contract oracle: offline forward of the edge-padded
         utterance, outputs at stride `subsample` from offset ctx_l.
         x_full [B, T, D] with T a multiple of chunk_in; compute_dtype
-        defaults to the encoder's."""
+        defaults to bfloat16, as in the JAX package, whatever the
+        encoder's (pass `compute_dtype=enc.compute_dtype` to match it)."""
         x = torch.as_tensor(x_full, dtype=torch.float32, device=self.device)
         if ivectors is not None:
             ivectors = torch.as_tensor(ivectors, dtype=torch.float32,
@@ -150,8 +152,7 @@ class StreamingEncoder:
         pad_l = x[:, :1].expand(-1, self.ctx_l, -1)
         pad_r = x[:, -1:].expand(-1, self.lag * self.cin, -1)
         padded = torch.cat([pad_l, x, pad_r], dim=1)
-        y = self._forward(padded, ivectors,
-                          compute_dtype or self.compute_dtype, output)
+        y = self._forward(padded, ivectors, compute_dtype, output)
         n_out = x.shape[1] // self.subsample
         lo = self.ctx_l
         hi = lo + (n_out - 1) * self.subsample + 1

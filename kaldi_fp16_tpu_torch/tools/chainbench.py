@@ -102,17 +102,19 @@ def make_num_graph(B, T, P, num_arcs, rng):
         num_states=Sn, num_arcs=An)
 
 
-# --matmul-impl -> the den's options (profile_den.py's IMPLS)
-MATMUL_IMPLS = {"auto": {}, "high": dict(matmul_impl="plain",
-                                         scan_impl="loop"),
-                "pallas": dict(matmul_impl="kernel", scan_impl="loop"),
-                "split3": dict(matmul_impl="split3", scan_impl="loop")}
+def den_options(matmul_impl: str, scan_impl: str) -> dict:
+    """--matmul-impl and --scan-impl -> the den's options: a JAX lowering
+    name runs the loop scans, as in the JAX tool, and the den maps it to
+    the port's route (den_structured.MATMUL_IMPLS); auto keeps the
+    port's default den on the scans --scan-impl names."""
+    if matmul_impl == "auto":
+        return {"scan_impl": scan_impl}
+    return {"matmul_impl": matmul_impl, "scan_impl": "loop"}
 
 
 def main(argv=None):
     args = parse_args(argv)
-    den_kw = {"scan_impl": args.scan_impl,
-              **MATMUL_IMPLS[args.matmul_impl]}
+    den_kw = den_options(args.matmul_impl, args.scan_impl)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("chainbench: no CUDA device; pass --device cpu to "
                          "run the plain versions on the host")
@@ -145,6 +147,8 @@ def main(argv=None):
         "detail": {**results, "batch_total_ms": total,
                    "den_layout": den.layout_used,
                    "matmul_impl": args.matmul_impl,
+                   "matmul_route": (structured.matmul_impl if structured
+                                    else None),
                    "scan_used": structured.scan_used if structured else None,
                    "posterior_reduce": (None if structured
                                         else den.posterior_reduce)},

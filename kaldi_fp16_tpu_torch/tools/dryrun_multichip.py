@@ -55,7 +55,12 @@ class Setup:
     from (default: init_train_state from seed 0); spec_seed: the
     SpecAugment generator's seed (None: no masks); mesh: the ranks' mesh
     (None: data = every rank); restore_dir / save_dir: a checkpoint
-    directory to start from (its latest) / to save the last step in."""
+    directory to start from (its latest) / to save the last step in;
+    nan_grad: (layer, parameter, model rank), a hook that makes that
+    parameter's gradient NaN on the ranks of that model coordinate only
+    (one process is model rank 0), a fault on one model rank's shard.  A
+    seam for the parallel tests: a field, since the spawned ranks receive
+    only the Setup's picklable fields; no run of the tool sets it."""
     xconfig: str
     den_fst: Fst
     num_pdfs: int
@@ -69,6 +74,7 @@ class Setup:
     mesh: Optional[MeshConfig] = None
     restore_dir: Optional[str] = None
     save_dir: Optional[str] = None
+    nan_grad: Optional[tuple] = None
 
 
 def _numpy(tree):
@@ -103,7 +109,7 @@ def run_setup(setup: Setup, group=None, device=None,
         broadcast_train_state, full_state_dict, shard_batch, shard_graph,
         shard_train_state,
     )
-    from kaldi_fp16_tpu_torch.parallel.mesh import make_mesh
+    from kaldi_fp16_tpu_torch.parallel.mesh import make_mesh, mesh_axes
     from kaldi_fp16_tpu_torch.tools._common import kernel_launches
     from kaldi_fp16_tpu_torch.training.checkpoint import CheckpointManager
     from kaldi_fp16_tpu_torch.training.train_step import (
@@ -133,6 +139,12 @@ def run_setup(setup: Setup, group=None, device=None,
     if setup.restore_dir is not None:
         opt, scale, _, _ = CheckpointManager(
             setup.restore_dir, group=group).restore(None, net, opt, scale)
+    if setup.nan_grad is not None:
+        lname, pname, rank = setup.nan_grad
+        model_axis = mesh_axes(group).model
+        if (0 if model_axis is None else model_axis.rank) == rank:
+            getattr(net.layers[network.module_key(lname)], pname) \
+                .register_hook(lambda g: torch.full_like(g, float("nan")))
     den = DenominatorComputation(
         DenominatorGraph.from_fst(setup.den_fst, setup.num_pdfs),
         leaky=1e-4, device=device)

@@ -58,9 +58,11 @@ from kaldi_fp16_tpu_torch.utils.profiling import (
     kernel_times, profile_fn, sync_device,
 )
 
-IMPLS = {"high": dict(matmul_impl="plain", scan_impl="loop"),
-         "pallas": dict(matmul_impl="kernel", scan_impl="loop"),
-         "split3": dict(matmul_impl="split3", scan_impl="loop"),
+# the JAX tool's impls: its matmul_impl names on the loop scans (the den
+# maps each to the port's route, den_structured.MATMUL_IMPLS), or the
+# fused scans
+IMPLS = {**{name: dict(matmul_impl=name, scan_impl="loop")
+            for name in ("high", "pallas", "split3")},
          "fused": dict(scan_impl="fused")}
 
 

@@ -512,6 +512,8 @@ def train(args, group=None, file_shards=False) -> dict:
                                   rng_state=trainer.rng_state))
             print_(f"averaged model saved as step {trainer.global_step + 1}")
 
+    if mgr:
+        mgr.close()
     if metrics:
         metrics.close()
     print_(f"done: {trainer.global_step} steps, "

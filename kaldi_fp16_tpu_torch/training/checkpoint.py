@@ -134,6 +134,11 @@ class CheckpointManager:
         if self.group is not None:
             self.group.barrier()
 
+    def close(self) -> None:
+        """The JAX manager's close (checkpoint.py:127 there), which waits
+        for its writer; `save` here writes synchronously, so nothing is
+        pending and a call, or a second one, does nothing."""
+
     def all_steps(self) -> list:
         """Retained checkpoint steps, ascending."""
         return sorted(int(m.group(1)) for m in

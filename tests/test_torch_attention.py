@@ -236,7 +236,8 @@ def test_streaming_encoder_matches_jax(stream_nets, chunk_out):
         size=(2, 12 * enc.subsample, 8)).astype(np.float32)
     got = tstr.run_encoder(enc, torch.from_numpy(x))
     assert got.shape[1] == 12
-    ref = enc.offline_reference(torch.from_numpy(x)).float().numpy()
+    ref = enc.offline_reference(
+        torch.from_numpy(x), compute_dtype=enc.compute_dtype).float().numpy()
     np.testing.assert_allclose(got, ref, **tstr.FP32)
     np.testing.assert_allclose(got, tstr.run_encoder(jenc, jnp.asarray(x)),
                                **tstr.VS_JAX)

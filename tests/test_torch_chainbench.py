@@ -52,3 +52,7 @@ def test_chainbench_matmul_impl_maps_to_the_den(capsys, impl, scan):
     detail = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
         "detail"]
     assert (detail["matmul_impl"], detail["scan_used"]) == (impl, scan)
+    # the den's own map gives the route (den_structured.MATMUL_IMPLS)
+    assert detail["matmul_route"] == {"high": "plain", "pallas": "kernel",
+                                      "split3": "split3",
+                                      "auto": "kernel"}[impl]

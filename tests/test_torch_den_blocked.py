@@ -150,8 +150,12 @@ def test_layouts_options_repeats_and_no_launch_on_cpu():
         port_den.DenominatorComputation(pg, layout="structured", device="cpu")
     with pytest.raises(ValueError):
         port_den.DenominatorComputation(pg, layout="dense", device="cpu")
+    # the JAX name "pallas" is the kernel; an unknown name raises
+    assert port_den.DenominatorComputation(
+        pg, posterior_reduce="pallas", device="cpu").posterior_reduce \
+        == "kernel"
     with pytest.raises(ValueError):
-        port_den.DenominatorComputation(pg, posterior_reduce="pallas",
+        port_den.DenominatorComputation(pg, posterior_reduce="segment",
                                         device="cpu")
     x = torch.from_numpy(np.random.default_rng(2).normal(
         size=(2, 5, 6)).astype(np.float32))

@@ -361,8 +361,11 @@ def test_scan_impl_options_and_padding():
     assert den_scan.fused_scan_supported(fused.lay, 128)
     assert not den_scan.fused_scan_supported(fused.lay, 64)
     assert not den_scan.fused_scan_supported(auto.lay, 128)
+    # the JAX name "xla" is the loop; an unknown name raises
+    assert DenominatorComputation(g, scan_impl="xla",
+                                  device="cpu")._structured.scan_impl == "loop"
     with pytest.raises(ValueError):
-        DenominatorComputation(g, scan_impl="xla", device="cpu")
+        DenominatorComputation(g, scan_impl="pallas", device="cpu")
     # a one-state-per-phone graph (L = 1) is never fused
     one = DenominatorGraph.from_fst(make_phone_lm_den_fst(16, 9, 1, 3,
                                                           seed=5), 16)

@@ -134,6 +134,7 @@ MESH_CASES = {
         "att_dp2_sp2": ("att", DP2_SP2),
         "ng_dp2_tp2": ("ng", DP2_TP2),
         "nonfinite_dp2_tp2": ("nonfinite", DP2_TP2),
+        "nangrad_dp2_tp2": ("nangrad", DP2_TP2),
         "ng_dp2_sp2": ("ng", DP2_SP2)},
     8: {"dp2_sp2_tp2": ("plain", DP2_SP2_TP2),
         "grid_dp2_sp2_tp2": ("grid", DP2_SP2_TP2),
@@ -157,6 +158,11 @@ SINGLE = {"plain": lambda: make_setup(steps=STEPS),
           # row 5 lies on data rank 1 of 2 (rows 4-7)
           "nonfinite": lambda: make_setup(steps=1, nan_row=5,
                                           use_loss_scaling=True),
+          # the output weight's gradient NaN on model rank 1's columns
+          # only (one process has no fault: it is model rank 0)
+          "nangrad": lambda: dataclasses.replace(
+              make_setup(steps=1, use_loss_scaling=True),
+              nan_grad=("output", "w", 1)),
           "steps6": lambda: make_setup(steps=6)}
 JAX_MESHES = {4: DP2_TP2, 8: DP2_SP2_TP2}
 
@@ -219,7 +225,8 @@ ALL_CASES = [(w, c) for w, cs in MESH_CASES.items() for c in cs]
 
 @pytest.mark.parametrize("world,case", [(w, c) for w, c in ALL_CASES
                                         if not c.startswith(("den", "steps",
-                                                             "nonfinite"))])
+                                                             "nonfinite",
+                                                             "nangrad"))])
 def test_mesh_equals_one_process(ranks, single, world, case):
     ref = single[MESH_CASES[world][case][0]]
     for got in ranks[world][case]:
@@ -353,6 +360,25 @@ def test_nonfinite_sequence_skips_every_rank(ranks, single):
     initial = run_setup(dataclasses.replace(SINGLE["nonfinite"](), steps=0),
                         device="cpu")["params"]
     for got in ranks[4]["nonfinite_dp2_tp2"]:
+        out = got["outputs"][0]
+        assert out["skipped"] and out["loss_scale"] == ref["loss_scale"]
+        for k, v in initial.items():
+            np.testing.assert_array_equal(got["params"][k], v, err_msg=k)
+
+
+def test_nonfinite_shard_gradient_skips_every_rank(ranks):
+    """A NaN gradient on model rank 1's shard of the output weight only
+    (the model axis's ranks see the same rows, so only the non-finite
+    flag's all-reduce over it tells model rank 0): every rank of (data 2,
+    model 2) skips the step and backs the loss scale off, as one process
+    with the fault does, and keeps its initial state."""
+    ref = run_setup(dataclasses.replace(SINGLE["nangrad"](),
+                                        nan_grad=("output", "w", 0)),
+                    device="cpu")["outputs"][0]
+    assert ref["skipped"]
+    initial = run_setup(dataclasses.replace(SINGLE["nangrad"](), steps=0),
+                        device="cpu")["params"]
+    for got in ranks[4]["nangrad_dp2_tp2"]:
         out = got["outputs"][0]
         assert out["skipped"] and out["loss_scale"] == ref["loss_scale"]
         for k, v in initial.items():

@@ -138,7 +138,8 @@ class TestStreamingEncoder:
             size=(B, T_out * enc.subsample, 8)).astype(np.float32)
         got = run_encoder(enc, x)
         assert got.shape[1] == T_out
-        ref = enc.offline_reference(x).float().numpy()
+        ref = enc.offline_reference(
+            x, compute_dtype=enc.compute_dtype).float().numpy()
         return got, ref, x
 
     def test_matches_padded_offline(self, nets):
@@ -150,6 +151,25 @@ class TestStreamingEncoder:
         got6, _, _ = self._run(nets, chunk_out=6)
         np.testing.assert_allclose(got2, ref, **FP32)
         np.testing.assert_allclose(got6, ref, **FP32)
+
+    def test_offline_reference_defaults_to_bf16_as_in_jax(self, nets):
+        """An fp32 encoder's oracle with compute_dtype left out runs in
+        bf16 in both packages (the JAX default), at the bf16 bar."""
+        (jm, params, state), net = nets
+        enc = ps.StreamingEncoder(net, chunk_out=4,
+                                  compute_dtype=torch.float32, device="cpu")
+        jenc = js.StreamingEncoder(jm, params, state, chunk_out=4,
+                                   compute_dtype=jnp.float32)
+        x = np.random.default_rng(1).normal(
+            size=(2, 12 * enc.subsample, 8)).astype(np.float32)
+        got = enc.offline_reference(x)
+        assert torch.equal(got, enc.offline_reference(
+            x, compute_dtype=torch.bfloat16))
+        assert not torch.equal(got, enc.offline_reference(
+            x, compute_dtype=torch.float32))
+        want = jenc.offline_reference(params, state, jnp.asarray(x))
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **BF16)
 
     def test_bf16_compute_close(self, nets):
         got, ref, _ = self._run(nets, chunk_out=4, dtype=torch.bfloat16)
@@ -384,7 +404,7 @@ class TestStreamingPipeline:
         # equals offline: the oracle's posteriors through the offline
         # decoder (tests/test_streaming.py:265-272's bar)
         offline = SparseViterbiDecoder(pg, device="cpu").decode_batch(
-            enc.offline_reference(x))
+            enc.offline_reference(x, compute_dtype=enc.compute_dtype))
         for a, b in zip(res, offline):
             assert a["words"] == b["words"]
             assert abs(a["total_cost"] - b["total_cost"]) < 1e-3

@@ -19,13 +19,36 @@ name of the JAX one, but for the intended differences in PARAMS, each
 with one line of reason; an entry the port no longer needs is stale and
 fails.  So a JAX option the port drops (`mode`, `terms`) cannot go
 unnoticed.
+
+Three more checks, each with its table of intended differences (one line
+of reason each; a stale entry fails): every public method and class
+attribute a JAX class's body binds is bound by the port's class of the
+same name (MEMBERS); every default of a callable found in both is the
+same source text, jnp / jax.numpy read as torch (DEFAULTS); and every
+literal a JAX callable accepts in an `assert x in (...)` or an `if x not
+in (...): raise` is taken by the port's counterpart, built with it on
+the CPU (ACCEPTS), or refused there and listed with the port's name for
+it (VALUES).
 """
 
 import ast
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
+
+from kaldi_fp16_tpu_torch.chain.den_layout import analyze_chain_structure
+from kaldi_fp16_tpu_torch.chain.den_structured import StructuredKernels
+from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
+from kaldi_fp16_tpu_torch.chain.graph import (
+    DenominatorGraph, make_phone_lm_den_fst, make_simple_den_fst,
+)
+from kaldi_fp16_tpu_torch.decode.device_viterbi import DeviceLatticeDecoder
+from kaldi_fp16_tpu_torch.decode.graph import remove_epsilons
+from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul
+from tests.test_decoder import two_word_graph
+from tests.test_torch_decode_host import both_graphs
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX, PORT = ROOT / "kaldi_fp16_tpu", ROOT / "kaldi_fp16_tpu_torch"
@@ -342,9 +365,9 @@ PARAMS = {
 }
 
 
-def callables(path):
-    """{name or Class.method: its parameter names} of a module's public
-    top-level functions and public classes' public methods and __init__."""
+def callable_defs(path):
+    """{name or Class.method: FunctionDef} of a module's public top-level
+    functions and public classes' public methods and __init__."""
     if not path.exists():
         return {}
     out = {}
@@ -356,9 +379,14 @@ def callables(path):
                 if isinstance(m, ast.FunctionDef) and (
                         not m.name.startswith("_") or m.name == "__init__"):
                     out[f"{n.name}.{m.name}"] = m
+    return out
+
+
+def callables(path):
+    """{name or Class.method: its parameter names}, of `callable_defs`."""
     return {k: [a.arg for a in f.args.posonlyargs + f.args.args
                 + f.args.kwonlyargs if a.arg not in ("self", "cls")]
-            for k, f in out.items()}
+            for k, f in callable_defs(path).items()}
 
 
 def params_missing(rel):
@@ -406,3 +434,324 @@ def test_den_modes_and_scan_terms_are_taken():
     assert "terms" in scans["fused_backward"]
     assert "exact" in callables(PORT / "ops/segment_reduce.py")[
         "segment_reduce"]
+
+
+# ---------------------------------------------------------------------------
+# methods and class attributes
+# ---------------------------------------------------------------------------
+
+# "<JAX module>:<Class>.<member>" -> one line of reason the port's class of
+# that name does without it
+MEMBERS = {
+    "training/trainer.py:Trainer.place_states": (
+        "the port places its state on the device at construction"),
+    "decode/tpu_viterbi.py:EllGraph.device_arrays": (
+        "the port's EllGraph.to(device) puts the tables on the device"),
+    "decode/tpu_viterbi.py:TreeEllGraph.device_arrays": (
+        "the port's TreeEllGraph.to(device) puts the tables on the device"),
+    "models/network.py:Network.apply": (
+        "flax's; the port's Network is an nn.Module, called as net(x)"),
+    "models/network.py:Network.init": (
+        "flax's; the port's Network builds its parameters in __init__"),
+    "models/network.py:Network.model": (
+        "a flax field; the port's Network takes the Model in __init__"),
+    "training/checkpoint.py:DataPosition.rng_key": (
+        "a jax.random key; the port keeps a torch.Generator's rng_state"),
+    "training/trainer.py:Trainer.rng_key": (
+        "a jax.random key; the port keeps a torch.Generator's rng_state"),
+    "utils/profiling.py:StepTimer.skip_first": (
+        "a dataclass field; an __init__ argument of the port's StepTimer"),
+    "decode/tpu_viterbi.py:SparseViterbiDecoder.AUTO_TREE_ARCS": (
+        "the port's layout 'auto' takes the segment layout at every scale"),
+    "decode/streaming.py:WindowedStreamingDecoder.AUTO_TREE_ARCS": (
+        "the port's layout 'auto' takes the segment layout at every scale"),
+}
+
+
+def class_defs(path):
+    """{name: ClassDef} of a module's top-level classes."""
+    if not path.exists():
+        return {}
+    return {n.name: n for n in parse(path).body
+            if isinstance(n, ast.ClassDef)}
+
+
+def class_members(cls, classes=None):
+    """The names a class body binds (methods, class attributes, dataclass
+    fields), and those of its bases among `classes`."""
+    names = set()
+    for m in cls.body:
+        if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(m.name)
+        elif isinstance(m, ast.Assign):
+            names |= {t.id for t in m.targets if isinstance(t, ast.Name)}
+        elif isinstance(m, ast.AnnAssign) and isinstance(m.target, ast.Name):
+            names.add(m.target.id)
+    for b in cls.bases:
+        if classes and isinstance(b, ast.Name) and b.id in classes:
+            names |= class_members(classes[b.id], classes)
+    return names
+
+
+def members_missing(rel):
+    """{"Class.member"} of a JAX module's public classes' public members
+    that the port's class of the same name lacks."""
+    port = {}
+    for m in counterpart_modules(rel):
+        port.update(class_defs(PORT / m))
+    jax = class_defs(JAX / rel)
+    return {f"{name}.{m}" for name, cls in jax.items()
+            if not name.startswith("_") and name in port
+            for m in class_members(cls, jax) - class_members(port[name], port)
+            if not m.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_classes_have_the_jax_members(rel):
+    unlisted = sorted(m for m in members_missing(rel)
+                      if f"{rel}:{m}" not in MEMBERS)
+    assert not unlisted, (f"kaldi_fp16_tpu/{rel}: the port's classes lack "
+                          f"{unlisted}")
+
+
+@pytest.mark.parametrize("key", sorted(MEMBERS))
+def test_members_entry_is_live(key):
+    rel, member = key.split(":")
+    assert member in members_missing(rel), f"stale entry: {key}"
+    assert MEMBERS[key] and "\n" not in MEMBERS[key]
+
+
+def test_checkpoint_manager_closes():
+    """The method the members check was added for (tools/train.py calls
+    it)."""
+    assert "close" in class_members(
+        class_defs(PORT / "training/checkpoint.py")["CheckpointManager"])
+
+
+# ---------------------------------------------------------------------------
+# defaults
+# ---------------------------------------------------------------------------
+
+# "<JAX module>:<function or Class.method>" -> {parameter whose default the
+# port's counterpart sets otherwise: one line of reason}
+DEFAULTS = {
+    "chain/denominator.py:DenominatorComputation.__init__": {
+        "posterior_reduce": "'auto' takes the reduce kernel on a card, "
+                            "where it beat the einsum end to end (PERF.md); "
+                            "JAX's Pallas reduce lost on the TPU"},
+}
+
+
+def default_texts(f):
+    """{parameter: its default as source text, jnp / jax.numpy read as
+    torch}; a parameter without a default is absent."""
+    a = f.args
+    pos = a.posonlyargs + a.args
+    pairs = list(zip(pos[len(pos) - len(a.defaults):], a.defaults))
+    pairs += [(k, d) for k, d in zip(a.kwonlyargs, a.kw_defaults)
+              if d is not None]
+    return {k.arg: re.sub(r"\b(jax\.numpy|jnp)\.", "torch.",
+                          ast.unparse(d)) for k, d in pairs}
+
+
+def defaults_differ(rel):
+    """{callable: {parameter: (JAX default, port default or None)}} for the
+    parameters both take whose defaults differ."""
+    port = {}
+    for m in counterpart_modules(rel):
+        port.update(callable_defs(PORT / m))
+    out = {}
+    for name, f in callable_defs(JAX / rel).items():
+        if name not in port:
+            continue
+        theirs = default_texts(port[name])
+        taken = {a.arg for a in port[name].args.posonlyargs
+                 + port[name].args.args + port[name].args.kwonlyargs}
+        diff = {p: (d, theirs.get(p)) for p, d in default_texts(f).items()
+                if p in taken and theirs.get(p) != d}
+        if diff:
+            out[name] = diff
+    return out
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_callables_keep_the_jax_defaults(rel):
+    for name, diff in defaults_differ(rel).items():
+        listed = DEFAULTS.get(f"{rel}:{name}", {})
+        unlisted = {p: d for p, d in diff.items() if p not in listed}
+        assert not unlisted, (f"kaldi_fp16_tpu/{rel}: {name}'s defaults "
+                              f"(JAX, port): {unlisted}")
+
+
+@pytest.mark.parametrize("key", sorted(DEFAULTS))
+def test_defaults_entry_is_live(key):
+    rel, name = key.split(":")
+    diff = defaults_differ(rel).get(name, {})
+    for param, reason in DEFAULTS[key].items():
+        assert param in diff, f"stale entry: {key} {param}"
+        assert reason and "\n" not in reason
+
+
+@pytest.mark.parametrize("rel,name,param,want", [
+    ("chain/den_structured.py", "StructuredKernels.__init__", "matmul_impl",
+     "'auto'"),
+    ("chain/denominator.py", "DenominatorComputation.__init__",
+     "matmul_impl", "'auto'"),
+    ("decode/streaming.py", "StreamingEncoder.offline_reference",
+     "compute_dtype", "torch.bfloat16"),
+])
+def test_the_defaults_that_differed_are_the_jax_ones(rel, name, param, want):
+    """The defaults this check was added for, read from the port."""
+    port = {}
+    for m in counterpart_modules(rel):
+        port.update(callable_defs(PORT / m))
+    assert default_texts(port[name])[param] == want
+
+
+# ---------------------------------------------------------------------------
+# option values
+# ---------------------------------------------------------------------------
+
+# "<JAX module>:<function or Class.method> <parameter> <literal>" -> (the
+# port's name for the value, one line of reason) for a value the JAX
+# callable accepts and the port's counterpart refuses
+VALUES = {}
+
+
+def literals(node):
+    """The constants of a tuple / list / set / dict-keys literal, else
+    None."""
+    if isinstance(node, (ast.Tuple, ast.List, ast.Set)):
+        elts = node.elts
+    elif isinstance(node, ast.Dict):
+        elts = node.keys
+    else:
+        return None
+    if not all(isinstance(e, ast.Constant) for e in elts):
+        return None
+    return {e.value for e in elts}
+
+
+def jax_options(path):
+    """{(callable, parameter): values} of a JAX module's public callables:
+    each `assert <parameter> in (<literals>)` and `if <parameter> not in
+    (<literals>): raise`."""
+    out = {}
+    for name, f in callable_defs(path).items():
+        params = {a.arg for a in f.args.args + f.args.kwonlyargs}
+        for node in ast.walk(f):
+            if isinstance(node, ast.Assert):
+                test, op = node.test, ast.In
+            elif (isinstance(node, ast.If) and node.body
+                  and isinstance(node.body[0], ast.Raise)):
+                test, op = node.test, ast.NotIn
+            else:
+                continue
+            if (isinstance(test, ast.Compare) and len(test.ops) == 1
+                    and isinstance(test.ops[0], op)
+                    and isinstance(test.left, ast.Name)
+                    and test.left.id in params):
+                vals = literals(test.comparators[0])
+                if vals is not None:
+                    out.setdefault((name, test.left.id), set()).update(vals)
+    return out
+
+
+def phone_lm_graph():
+    return DenominatorGraph.from_fst(
+        make_phone_lm_den_fst(24, 13, 2, 4, seed=3), 24)
+
+
+def structured_layout():
+    return analyze_chain_structure(phone_lm_graph())
+
+
+def decoding_graph():
+    return both_graphs(two_word_graph())[1]
+
+
+# (JAX module, callable, parameter) -> builds or calls the port's
+# counterpart with one value of the parameter (on the CPU, small graphs)
+ACCEPTS = {
+    ("chain/den_structured.py", "StructuredKernels.__init__", "scan_impl"):
+        lambda v: StructuredKernels(structured_layout(), 1e-5, scan_impl=v,
+                                    device="cpu"),
+    ("chain/den_structured.py", "StructuredKernels.__init__",
+     "matmul_impl"):
+        lambda v: StructuredKernels(structured_layout(), 1e-5,
+                                    matmul_impl=v, device="cpu"),
+    ("chain/denominator.py", "DenominatorComputation.__init__", "mode"):
+        lambda v: DenominatorComputation(phone_lm_graph(), mode=v,
+                                         device="cpu"),
+    ("chain/denominator.py", "DenominatorComputation.__init__",
+     "posterior_reduce"):
+        lambda v: DenominatorComputation(
+            DenominatorGraph.from_fst(make_simple_den_fst(
+                num_pdfs=6, num_states=5, seed=3), 6),
+            posterior_reduce=v, device="cpu"),
+    ("chain/denominator.py", "DenominatorComputation.__init__", "layout"):
+        lambda v: DenominatorComputation(phone_lm_graph(),
+                                         layout=v, device="cpu"),
+    ("ops/pallas_den_matmul.py", "PallasDenMatmul.__init__", "terms"):
+        lambda v: DenMatmul(np.eye(8, dtype=np.float32), terms=v,
+                            device="cpu"),
+    ("decode/tpu_viterbi.py", "DeviceLatticeDecoder.__init__", "transfer"):
+        lambda v: DeviceLatticeDecoder(remove_epsilons(decoding_graph()),
+                                       transfer=v, device="cpu"),
+    ("decode/graph.py", "remove_epsilons", "method"):
+        lambda v: remove_epsilons(decoding_graph(), method=v),
+}
+
+
+def option_values():
+    """(JAX module, callable, parameter, value) of every value a JAX
+    check accepts."""
+    return sorted(((rel, name, param, v) for rel in JAX_MODULES
+                   for (name, param), vals in jax_options(JAX / rel).items()
+                   for v in vals), key=repr)
+
+
+@pytest.mark.parametrize("rel,name,param,value", option_values())
+def test_port_accepts_the_jax_option_value(rel, name, param, value):
+    """The port's counterpart takes each value a JAX check accepts, or,
+    for a VALUES entry, refuses it and takes the port's name instead."""
+    build = ACCEPTS[(rel, name, param)]
+    listed = VALUES.get(f"{rel}:{name} {param} {value!r}")
+    if listed is None:
+        build(value)
+        return
+    port_name, reason = listed
+    assert reason and "\n" not in reason
+    with pytest.raises(ValueError):            # else the entry is stale
+        build(value)
+    build(port_name)
+
+
+def test_values_entries_are_live():
+    """Each entry names a value a JAX check accepts (that the port still
+    refuses it, test_port_accepts_the_jax_option_value holds)."""
+    keys = {f"{rel}:{name} {param} {v!r}"
+            for rel, name, param, v in option_values()}
+    assert set(VALUES) <= keys
+
+
+def test_option_checks_are_all_read():
+    """The JAX package's checks of option values are the ones listed
+    above: a new one shows here first."""
+    found = {(rel, name, param) for rel in JAX_MODULES
+             for name, param in jax_options(JAX / rel)}
+    assert found == set(ACCEPTS)
+    assert found == {
+        ("chain/den_structured.py", "StructuredKernels.__init__",
+         "scan_impl"),
+        ("chain/den_structured.py", "StructuredKernels.__init__",
+         "matmul_impl"),
+        ("chain/denominator.py", "DenominatorComputation.__init__", "mode"),
+        ("chain/denominator.py", "DenominatorComputation.__init__",
+         "posterior_reduce"),
+        ("chain/denominator.py", "DenominatorComputation.__init__",
+         "layout"),
+        ("ops/pallas_den_matmul.py", "PallasDenMatmul.__init__", "terms"),
+        ("decode/tpu_viterbi.py", "DeviceLatticeDecoder.__init__",
+         "transfer"),
+        ("decode/graph.py", "remove_epsilons", "method")}
