@@ -741,22 +741,29 @@ def kernel_phase(dev, layout):
     return result
 
 
-def check_scans(sk, x_tpn, tag, terms=6):
+def check_scans(sk, x_tpn, tag, terms=6, plane=None):
     """sk's fused forward and backward scans at `terms` on the emissions
-    of x_tpn [T, P, N], each run twice and beside its plain version at the
-    same terms: repeats bit-identical, the kernels within the HIST bars of
-    the plain versions.  Returns (max abs errors, the same relative to the
+    of x_tpn [T, P, N] (given `plane`, a ScanPlane, the one-plane route at
+    terms = 1), each run twice and beside its plain version at the same
+    terms: repeats bit-identical, the kernels within the HIST bars of the
+    plain versions.  Returns (max abs errors, the same relative to the
     largest entry, {"fwd": (plain, kernel), "bwd": (plain, kernel)} calls
-    to time)."""
+    to time, the kernels' outputs: hist, asum, logc, a_final, beta_hist)."""
     xs = sk._hoisted_emissions(x_tpn)
     kw = dict(L=sk.lay.L, T=x_tpn.shape[0], leaky=sk.leaky, terms=terms)
+    if plane is not None:
+        kw["plane"] = plane
+    planes = sk._planes if plane is None else None
 
     def fwd():
-        return den_scan.fused_forward(sk.M, *xs, sk.init, planes=sk._planes,
+        return den_scan.fused_forward(sk.M, *xs, sk.init, planes=planes,
                                       **kw)
 
+    plain_kw = {k: v for k, v in kw.items() if k != "plane"}
+
     def fwd_plain():
-        return den_scan.fused_forward_plain(sk.M.t(), *xs, sk.init, **kw)
+        return den_scan.fused_forward_plain(sk.M.t(), *xs, sk.init,
+                                            **plain_kw)
 
     out, again, ref = fwd(), fwd(), fwd_plain()
     torch.cuda.synchronize()
@@ -769,11 +776,11 @@ def check_scans(sk, x_tpn, tag, terms=6):
 
     def bwd():
         return den_scan.fused_backward(sk.M, *xs, out[1], sk.init, sk.real,
-                                       total, planes=sk._planes, **kw)
+                                       total, planes=planes, **kw)
 
     def bwd_plain():
         return den_scan.fused_backward_plain(sk.M, *xs, out[1], sk.init,
-                                             sk.real, total, **kw)
+                                             sk.real, total, **plain_kw)
 
     beta, beta_again, beta_ref = bwd(), bwd(), bwd_plain()
     torch.cuda.synchronize()
@@ -785,7 +792,8 @@ def check_scans(sk, x_tpn, tag, terms=6):
     rel = {k: float((a - r).abs().max() / r.abs().max())
            for k, a, r in (("adash_hist", out[0], ref[0]),
                            ("beta_hist", beta, beta_ref))}
-    return err, rel, {"fwd": (fwd_plain, fwd), "bwd": (bwd_plain, bwd)}
+    return (err, rel, {"fwd": (fwd_plain, fwd), "bwd": (bwd_plain, bwd)},
+            (*out, beta))
 
 
 def scan_kernels_phase(dev, graph):
@@ -802,7 +810,7 @@ def scan_kernels_phase(dev, graph):
                                  f"2, 3584")
         gen = torch.Generator(device=dev).manual_seed(4)
         x = torch.exp(torch.randn((T_OUT, P, B), generator=gen, device=dev))
-        err, rel, calls = check_scans(sk, x, split)
+        err, rel, calls, _ = check_scans(sk, x, split)
         result[f"{split}_max_abs_err"] = err
         result[f"{split}_max_err_rel_to_max"] = rel
         for tag, pair in calls.items():
@@ -1067,10 +1075,45 @@ FAST_LOGP_RTOL, FAST_POST_ATOL = 2e-2, 2e-2
 LOWP_STEPS = 5                   # timed trainbench steps, after a warm-up
 
 
+SCAN_OUTPUTS = ("adash_hist", "asum", "logc", "a_final", "beta_hist")
+
+
+def plane_scans(x_tpn, standing):
+    """The one-plane terms = 1 scans, the fast den's route, on the standing
+    terms = 1 routes' den and emissions (standing: split -> (sk, calls,
+    outputs) from check_scans): repeats bit-identical and within the plain
+    versions' terms = 1 bars (check_scans); every output equal bit for bit
+    to both standing routes' (split "kernel" and "pre", themselves equal).
+    Then ms of each scan in turns beside its plain version and beside the
+    standing split="kernel" route."""
+    sk, k_calls, k_outs = standing["kernel"]
+    for name, a, b in zip(SCAN_OUTPUTS, k_outs, standing["pre"][2]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"terms1 kernel and pre routes: {name} "
+                                 f"differs")
+    plane = den_scan.ScanPlane(sk.M.to(torch.bfloat16))
+    # equal forwards give the backward the standing routes' inputs
+    err, rel, calls, outs = check_scans(sk, x_tpn, "terms1 plane", 1,
+                                        plane=plane)
+    for split, (_, _, std) in standing.items():
+        for name, a, b in zip(SCAN_OUTPUTS, outs, std):
+            if not torch.equal(a, b):
+                raise AssertionError(f"terms1 plane {name} differs from "
+                                     f"split={split}'s")
+    row = {"max_abs_err": err, "max_err_rel_to_max": rel,
+           "bit_equal_to": sorted(standing)}
+    for tag, (plain, kernel) in calls.items():
+        row[f"{tag}_ms"], row[f"{tag}_plain_ms"] = alternate_ms(plain, kernel)
+        row[f"{tag}_ms_vs_kernel_route"], row[f"{tag}_kernel_route_ms"] = \
+            alternate_ms(k_calls[tag][1], kernel)
+    return row
+
+
 def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
     """The low-precision modes on the card.  The fused scans at terms 1
     and 3 (split "kernel" and "pre") against their plain versions at the
-    same terms; segment_reduce(exact=False) at the blocked den's shape
+    same terms, and at terms = 1 the one-plane route against them bit for
+    bit (`plane_scans`); segment_reduce(exact=False) at the blocked den's shape
     against its plain version and index_add_ on the rounded values; the
     fast den on the fused, loop and blocked paths against the exact dens of
     the earlier phases (drift, ms per forward-backward in turns, repeats
@@ -1081,25 +1124,29 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
     from kaldi_fp16_tpu_torch.tools import trainbench
     t0 = time.perf_counter()
     result = {"N": B, "T": T_OUT}
-    # 1. the scans at terms 1 and 3
+    # 1. the scans at terms 1 and 3, then terms = 1's one-plane route
     gen = torch.Generator(device=dev).manual_seed(4)
     x_tpn = torch.exp(torch.randn((T_OUT, P, B), generator=gen, device=dev))
-    scans = {}
+    scans, standing = {}, {}
     for terms, splits in ((1, ("kernel", "pre")), (3, ("kernel",))):
         for split in splits:
             sk = StructuredKernels(analyze_chain_structure(graph), 1e-5,
                                    scan_impl="fused", split=split,
                                    device=dev)
-            err, rel, calls = check_scans(sk, x_tpn, f"terms{terms} {split}",
-                                          terms)
+            err, rel, calls, outs = check_scans(
+                sk, x_tpn, f"terms{terms} {split}", terms)
             row = {"max_abs_err": err, "max_err_rel_to_max": rel}
             for tag, pair in calls.items():
                 row[f"{tag}_ms"], row[f"{tag}_plain_ms"] = alternate_ms(*pair)
             scans[f"terms{terms}_{split}"] = row
-            del sk, calls
+            if terms == 1:
+                standing[split] = (sk, calls, outs)
+            del sk, calls, outs
+    scans["terms1_plane"] = plane_scans(x_tpn, standing)
     result["scans"] = scans
     result["terms1_bounds"] = dict(zip(("fwd", "bwd"), scan_bounds(1)))
-    del x_tpn
+    del x_tpn, standing
+    torch.cuda.empty_cache()
 
     # 2. segment_reduce(exact=False) at the blocked den's pdf-order shape
     pdfo = den_blocked._pdf_o
@@ -1184,10 +1231,37 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
             "fast_ms": fast_ms, "exact_ms": exact_ms, "bit_identical": True}
         del lp_r, post_r, lp_e, post_e
     if fast["fused"]._structured.scan_used != "fused" or \
-            launches["fused"]["den_scan_fwd"] != 1 or \
-            launches["fused"]["den_scan_bwd"] != 1:
+            launches["fused"]["den_scan_fwd_plane"] != 1 or \
+            launches["fused"]["den_scan_bwd_plane"] != 1 or \
+            launches["fused"]["den_scan_fwd"] or \
+            launches["fused"]["den_scan_bwd"]:
         raise AssertionError(f"the fused fast den launched "
-                             f"{launches['fused']}")
+                             f"{launches['fused']}, not the one-plane scans")
+    # the fused fast den on the standing three-plane terms = 1 route (its
+    # ScanPlane taken away) gives the same bits; its ms in turns
+    sk_fast = fast["fused"]._structured
+    plane = sk_fast._plane
+
+    def fused_fast():
+        return fast["fused"].forward_backward(x)
+
+    def standing_route():
+        sk_fast._plane = None
+        try:
+            return fused_fast()
+        finally:
+            sk_fast._plane = plane
+
+    lp_s, post_s = standing_route()
+    torch.cuda.synchronize()
+    if not (torch.equal(lp_s, outs["fused"][0])
+            and torch.equal(post_s, outs["fused"][1])):
+        raise AssertionError("the fused fast den's one-plane and standing "
+                             "routes differ")
+    del lp_s, post_s
+    row = dens["fused"]
+    row["fast_ms_vs_standing_route"], row["fast_standing_route_ms"] = \
+        alternate_ms(standing_route, fused_fast)
     chunks = -(-T_OUT // fast["blocked"].frames_per_chunk(B, T_OUT))
     if launches["blocked"]["segment_reduce"] != chunks:
         raise AssertionError(f"the blocked fast den launched "
@@ -1233,8 +1307,11 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
                          str(P), "--iters", str(LOWP_STEPS)] + extra,
             f"lowp_trainbench_{tag}", {})
         d = res["detail"]
+        # the fast den's scans take the one-plane route, the exact den's not
+        route = "den_scan_fwd_plane" if "fast" in tag else "den_scan_fwd"
+        other = "den_scan_fwd" if "fast" in tag else "den_scan_fwd_plane"
         if not (np.isfinite(d["loss"]) and d["scan_used"] == "fused"
-                and n["den_scan_fwd"] == LOWP_STEPS + 1):
+                and n[route] == LOWP_STEPS + 1 and n[other] == 0):
             raise AssertionError(f"trainbench {tag}: {d}, {n}")
         if network_module._BN_LOWP_STATS:
             raise AssertionError("trainbench left the BatchNorm switch on")
@@ -1247,13 +1324,14 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
     result["trainbench_launches"] = step_launches
     result["phase_s"] = time.perf_counter() - t0
     phase("lowp", **result)
-    # launches of the terms = 1 scans and of the inexact reduce on the
-    # main path: the fast dens' runs and the fast trainbench runs
-    return {"den_scan_fwd_terms1": launches["fused"]["den_scan_fwd"]
-            + sum(step_launches[t]["den_scan_fwd"]
+    # launches of the terms = 1 scans (the one-plane route) and of the
+    # inexact reduce on the main path: the fast dens' runs and the fast
+    # trainbench runs
+    return {"den_scan_fwd_terms1": launches["fused"]["den_scan_fwd_plane"]
+            + sum(step_launches[t]["den_scan_fwd_plane"]
                   for t in ("fast", "fast_bn_lowp")),
-            "den_scan_bwd_terms1": launches["fused"]["den_scan_bwd"]
-            + sum(step_launches[t]["den_scan_bwd"]
+            "den_scan_bwd_terms1": launches["fused"]["den_scan_bwd_plane"]
+            + sum(step_launches[t]["den_scan_bwd_plane"]
                   for t in ("fast", "fast_bn_lowp")),
             "segment_reduce_inexact": launches["blocked"]["segment_reduce"],
             "numbers": result}
@@ -1755,7 +1833,7 @@ def trainer_den_check(den_t, graph, x_cpu, dev):
     torch.testing.assert_close(post, post_l, rtol=POST_RTOL, atol=POST_ATOL)
     x_tpn = torch.exp(torch.clamp(x.float(), -30.0, 30.0)) \
         .permute(1, 2, 0).contiguous()
-    err, rel, _ = check_scans(den_t._structured, x_tpn, "trainer")
+    err, rel, _, _ = check_scans(den_t._structured, x_tpn, "trainer")
     return {"input_shape": list(x.shape),
             "logp_max_rel_vs_loop": float(((lp - lp_l).abs()
                                            / lp_l.abs()).max()),
@@ -3764,8 +3842,6 @@ def synthwer_phase(dev):
 # ---- the verification harness (tools.chainverify ... tools.csrdump) -------
 
 VERIFY = WORK / "verify"
-KERNEL_COUNTERS = ("den_matmul", "den_matmul_pre", "den_scan_fwd",
-                   "den_scan_bwd", "segment_reduce")
 FLAGSHIP = str(ROOT / "configs" / "cnn_tdnn.xconfig")
 # chainverify's den paths on the egs phase's den.fst and cegs: (tag, flags,
 # the route the tool must report, the kernel each path must launch)
@@ -3811,12 +3887,15 @@ def kernel_launches():
             "den_matmul_pre": DenMatmul.launches_pre,
             "den_scan_fwd": den_scan.fused_forward.launches,
             "den_scan_bwd": den_scan.fused_backward.launches,
+            "den_scan_fwd_plane": den_scan.fused_forward.launches_plane,
+            "den_scan_bwd_plane": den_scan.fused_backward.launches_plane,
             "segment_reduce": segment_reduce.launches}
 
 
 def zero_launches():
     DenMatmul.launches = DenMatmul.launches_pre = 0
-    den_scan.fused_forward.launches = den_scan.fused_backward.launches = 0
+    for scan in (den_scan.fused_forward, den_scan.fused_backward):
+        scan.launches = scan.launches_plane = 0
     segment_reduce.launches = 0
 
 
@@ -4446,7 +4525,7 @@ def main():
     mm_flops = 6 * 2 * F * F * n              # six bf16 products
     mm_bound = {"kernel": bound(4 * F * F + mm_io, mm_flops),
                 "pre": bound(3 * 2 * F * F + mm_io, mm_flops)}
-    t1 = lowp["numbers"]["scans"]["terms1_kernel"]
+    t1 = lowp["numbers"]["scans"]["terms1_plane"]
     t1_bounds = lowp["numbers"]["terms1_bounds"]
     red_x = lowp["numbers"]["segment_reduce_inexact"]
 
@@ -4493,14 +4572,16 @@ def main():
               red["sorted"]["ms"],
               red["sorted"]["plain_ms"], red["sorted"]["bound"],
               red["sorted"]["library_ms"]),
-        # the fast den's configurations of the same kernels (lowp phase)
+        # the fast den's one-plane route of the same scans (lowp phase),
+        # and its reduce
         entry("den_scan_fwd_terms1", "den_scan.cu", SCAN_REPLACES["fwd"],
-              lowp["den_scan_fwd_terms1"],
+              lowp["den_scan_fwd_terms1"] + tools["den_scan_fwd_plane"],
               max(v for k, v in t1["max_abs_err"].items()
                   if k != "beta_hist"),
               t1["fwd_ms"], t1["fwd_plain_ms"], t1_bounds["fwd"], None),
         entry("den_scan_bwd_terms1", "den_scan.cu", SCAN_REPLACES["bwd"],
-              lowp["den_scan_bwd_terms1"], t1["max_abs_err"]["beta_hist"],
+              lowp["den_scan_bwd_terms1"] + tools["den_scan_bwd_plane"],
+              t1["max_abs_err"]["beta_hist"],
               t1["bwd_ms"], t1["bwd_plain_ms"], t1_bounds["bwd"], None),
         entry("segment_reduce_inexact", "segment_reduce.cu",
               REDUCE_REPLACES, lowp["segment_reduce_inexact"],

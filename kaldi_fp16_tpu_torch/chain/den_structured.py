@@ -60,7 +60,9 @@ Two modes, as in the JAX package (`mode`):
            the TPU's Precision.DEFAULT computes them (ops/den_matmul.py
            `bf16_product`; JAX's XLA on the CPU rounds only the operand
            stored in bf16, ROADMAP.md queue 3) -- and the fused scans at
-           terms = 1.  matmul_impl does not apply.
+           terms = 1, which on a card read M's one bf16 plane (the
+           `ScanPlane` made here once; ops/den_scan.py) on every `split`.
+           matmul_impl does not apply.
 
 `matmul_impl="split3"` (den_structured.py:48-100) is the exact den's
 stacked product: the [3F, F] rows of M's 3-term bf16 split against the
@@ -82,7 +84,7 @@ from kaldi_fp16_tpu_torch.ops.den_matmul import (
     DenMatmul, bf16_product, fp32_matmuls, split3, split_planes,
 )
 from kaldi_fp16_tpu_torch.ops.den_scan import (
-    fused_backward, fused_forward, fused_scan_supported,
+    ScanPlane, fused_backward, fused_forward, fused_scan_supported,
 )
 
 SB = 128   # pdf block width of the posterior one-hot reduce
@@ -161,6 +163,8 @@ class StructuredKernels:
     split: where the kernels split M into bf16 terms, "kernel" (in
     registers, from the fp32 M) or "pre" (once, into planes that every
     product streams); the loop's DenMatmul and the fused scans both use it.
+    The fast den's fused scans read M's one bf16 plane on a card instead,
+    whatever the split.
     device: default the current CUDA device.
     """
 
@@ -201,9 +205,13 @@ class StructuredKernels:
             self._MT3 = _split3_rows(self.M.t())
         # fast mode's M, stored in bf16 as the JAX package stores it
         self._M_bf16 = self.M.to(torch.bfloat16) if mode == "fast" else None
-        # the fused scans' split="pre" operand (the planes DenMatmul made)
-        self._planes = None
-        if self._fused_ready and split == "pre" and dev.type == "cuda":
+        # the fast den's fused scans read that plane, laid out once for the
+        # tensor cores; the exact den's take split="pre"'s planes (the ones
+        # DenMatmul made) or the fp32 M
+        self._plane = self._planes = None
+        if self._fused_ready and mode == "fast" and dev.type == "cuda":
+            self._plane = ScanPlane(self._M_bf16)
+        elif self._fused_ready and split == "pre" and dev.type == "cuda":
             self._planes = (self._kernel.A if self._kernel is not None
                             else split_planes(self.M, self.M.shape[0]))
         self.self_pdf = t(layout.self_pdf.reshape(-1), torch.long)  # [L*F]
@@ -427,7 +435,7 @@ class StructuredKernels:
         terms = 6 if self.mode == "exact" else 1
         adash_hist, asum_hist, logcs, a_fin = fused_forward(
             self.M, xs_self, xs_fwd, xs_res, self.init, L=L, T=T,
-            leaky=leaky, terms=terms, planes=self._planes)
+            leaky=leaky, terms=terms, planes=self._planes, plane=self._plane)
         total_prob = a_fin * (1.0 + leaky * self._init_sum)
         log_prob = torch.log(total_prob) + logcs.sum(dim=0)
         if not compute_grad:
@@ -435,7 +443,7 @@ class StructuredKernels:
         beta_hist = fused_backward(
             self.M, xs_self, xs_fwd, xs_res, asum_hist, self.init,
             self.real, total_prob, L=L, T=T, leaky=leaky, terms=terms,
-            planes=self._planes)
+            planes=self._planes, plane=self._plane)
         posteriors = self._bulk_posteriors(adash_hist, asum_hist, beta_hist,
                                            x_tpn, N, T, P)
         return log_prob, posteriors

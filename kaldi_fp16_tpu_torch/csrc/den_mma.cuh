@@ -14,8 +14,10 @@
 // m0b0 last, and each stage's partial is added into the running fp32
 // total by an ordinary (round-to-nearest) add, so the tensor core's own
 // accumulation rounding acts on a few products at a time and the error
-// grows with the stage count, not with F.  TERMS = 1 reads only plane 0
-// of A and B but still splits and loads all three (simple first).
+// grows with the stage count, not with F.  TERMS = 1 through
+// `product_block` reads only plane 0 of A and B but still loads and
+// splits all three; `plane_product_block` (below) is the TERMS = 1 route
+// that reads one bf16 plane of each, with the same arithmetic and bits.
 //
 // Layouts (all zero-padded, so no tile load is masked):
 //   A (PRE = false)  M itself, fp32 [Fp, Fp] row-major; each thread splits
@@ -29,6 +31,11 @@
 //                    one column tile is one contiguous 24 KB run; in shared
 //                    memory it is the K-major, no-swizzle layout that
 //                    `wgmma` reads through a matrix descriptor.
+//   one plane        (plane_product_block) B as above with plane 0 alone,
+//                    [np/128][Fp/8][16][8][8], and A = M's bf16 plane in
+//                    the same layout with row tiles for column tiles
+//                    (A[m][k] at [m/128][k/8][m%128/8][m%8][k%8]), made
+//                    once per matrix (ops/den_scan.py `ScanPlane`).
 // TRANS reads A = M^T from the one stored M (or planes): the tile loader
 // copies rows of M (k) and the fragment loads transpose, with no
 // transposed copy of M anywhere.
@@ -96,7 +103,8 @@ __host__ __device__ constexpr int smem_bytes() {
 
 
 struct Operands {
-  const void* A;       // fp32 M [Fp, Fp] or bf16 planes [3, Fp, Fp]
+  const void* A;       // fp32 M [Fp, Fp], bf16 planes [3, Fp, Fp], or
+                       // one bf16 plane in panels (plane_product_block)
   const bf16* B;       // panels of the [Fp, np] operand
   float* ws;           // out: [S, Fp, np] slice partials
   int Fp;              // padded size, a multiple of BM
@@ -126,15 +134,24 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
                :: "r"(smem_addr(bar)) : "memory");
 }
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
+// The one arrival of a stage's barrier phase, announcing the bytes that
+// the phase's bulk copies will write.
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  expect_bytes(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
 }
 // Wait until the barrier's phase of parity `parity` has completed.  A copy
 // that never lands traps (a launch error) instead of hanging the card.
@@ -148,6 +165,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
     if (spins > (1ll << 30)) __trap();
   }
+}
+
+// Wait until the launch before this one has finished and its writes are
+// visible.  The one-plane scans launch each frame kernel as a programmatic
+// dependent of the one before it (den_scan.cu `launch`): its blocks may
+// start while that one drains, and wait here before their first read.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
@@ -184,6 +209,22 @@ __device__ __forceinline__ void store_split8(bf16* __restrict__ panels,
   for (int p = 0; p < 3; ++p)
     *reinterpret_cast<uint4*>(panels + base + (size_t)p * PLANE_KB) =
         make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+}
+
+// Store x[0..7] = B(kb*8 + j, n) rounded to bf16 (to nearest even: plane 0
+// of `split3`) as one 16-byte core-matrix row of the one-plane panels
+// [Fp/BN][KB][16][8][8] that `plane_product_block` reads.
+__device__ __forceinline__ void store_plane8(bf16* __restrict__ panels,
+                                             int kb, int n, int KB,
+                                             const float (&x)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    w[j] = bits(__floats2bfloat162_rn(x[2 * j], x[2 * j + 1]));
+  const int ct = n / BN, nl = n % BN;
+  *reinterpret_cast<uint4*>(
+      panels + ((size_t)(ct * KB + kb) * (BN / 8) + nl / 8) * CORE
+      + (nl % 8) * 8) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p,
@@ -306,10 +347,13 @@ __device__ __forceinline__ void load_a(const char* st, int R, int kk,
 // No-swizzle K-major matrix descriptor of a B core-matrix block: start
 // address, leading-dimension byte offset (between core matrices along K)
 // and stride-dimension byte offset (along N), each in 16-byte units.
-__device__ __forceinline__ uint64_t b_desc(const char* p) {
+__device__ __forceinline__ uint64_t smem_desc(const char* p, int k_stride) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4)
-         | ((uint64_t)(B_K_STRIDE >> 4) << 16)
+         | ((uint64_t)(k_stride >> 4) << 16)
          | ((uint64_t)(B_N_STRIDE >> 4) << 32);
+}
+__device__ __forceinline__ uint64_t b_desc(const char* p) {
+  return smem_desc(p, B_K_STRIDE);
 }
 
 // d (+)= A (64 x 16, registers) @ B (16 x 128, shared memory).
@@ -402,6 +446,22 @@ __device__ __forceinline__ int frag_col(int i, int e) {
   return 8 * i + 2 * (threadIdx.x & 3) + e;
 }
 
+// The block's fp32 tile acc (row tile blockIdx.x, column tile blockIdx.y)
+// into its K slice's partial ws[blockIdx.z].
+__device__ __forceinline__ void store_partial(const Operands& op,
+                                              const float (&acc)[64]) {
+  const int np = gridDim.y * BN;
+  const int row0 = blockIdx.x * BM, ct = blockIdx.y;
+  float* mine = op.ws + (size_t)blockIdx.z * op.Fp * np;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(mine + (size_t)(row0 + frag_row(h)) * np +
+                                 ct * BN + frag_col(i, 0)) =
+          make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+}
+
 // The whole block: the product of row tile blockIdx.x, column tile
 // blockIdx.y over K slice blockIdx.z, written to ws[blockIdx.z].
 template <bool TRANS, bool PRE, int TERMS>
@@ -453,16 +513,102 @@ __device__ __forceinline__ void product_block(const Operands& op) {
     for (int i = 0; i < 64; ++i) acc[i] += part[i];
   }
   cp_wait<0>();
+  store_partial(op, acc);
+}
 
-  const int np = gridDim.y * BN;
-  float* mine = op.ws + (size_t)s * op.Fp * np;
+// ---- the one-plane product (TERMS = 1) ---------------------------------
+//
+// The fast den's product m0b0 reads one bf16 plane of each operand and
+// nothing else.  A is M's plane (M^T forward, M backward), laid out once
+// per matrix in B's K-major no-swizzle core-matrix panels,
+// [Fp/BM][Fp/8][16][8][8], so that a stage of A, like one of B, is one
+// contiguous 8 KB run: both arrive by bulk copies on the stage's mbarrier,
+// STAGES1 deep (16 KB a stage, 128 KB in all, against `product_block`'s
+// 4 x 40 KB at TERMS = 1; 4 and 12 stages timed the same on an H100, as
+// did two partials overlapping one stage's add with the next one's
+// wgmma; an L2 evict_last policy on A's copies did not keep the plane in
+// L2 -- tools/ablate_den_scan.py).  The A fragments come to registers by ldmatrix and each k16 step is the
+// same m64n128k16 wgmma, on the same register operands and the same B
+// values, as `product_block<.., .., 1>`: into the stage's fresh partial,
+// which is added into the fp32 total in stage order.  So this route and
+// the three-plane TERMS = 1 route give the same bits.
+constexpr int STAGES1 = 8;                       // ring depth
+constexpr int TILE1 = (BK / 8) * PLANE_KB * 2;   // bytes of A or B per stage
+constexpr int SMEM1 = STAGES1 * 2 * TILE1;       // 128 KB
+constexpr int B1_K_STRIDE = PLANE_KB * 2;        // next k-group, in bytes
+static_assert(BM == BN, "A and B stages share the panel layout");
+
+__device__ __forceinline__ void plane_product_block(const Operands& op) {
+  extern __shared__ __align__(128) char smem[];
+  __shared__ uint64_t bars[STAGES1];   // A and B of each buffer landed
+  const int s = blockIdx.z;
+  const int ksteps = op.Fp / BK, KB = op.Fp / 8;
+  const int ks0 = (int)((long long)s * ksteps / op.S);
+  const int nk = (int)((long long)(s + 1) * ksteps / op.S) - ks0;
+  // the slice's first stage of the block's A rows and B columns; stage i
+  // is TILE1 bytes on from stage i - 1 in both
+  const char* A = reinterpret_cast<const char*>(
+      static_cast<const bf16*>(op.A)
+      + ((size_t)blockIdx.x * KB + (size_t)ks0 * (BK / 8)) * PLANE_KB);
+  const char* B = reinterpret_cast<const char*>(
+      op.B + ((size_t)blockIdx.y * KB + (size_t)ks0 * (BK / 8)) * PLANE_KB);
+  // this lane's row address for ldmatrix matrix q = lane / 8 of the warp's
+  // k16 step: rows R + 8 (q & 1), the next k-group for q >= 2
+  const int lane = threadIdx.x & 31;
+  const int R = (threadIdx.x >> 7) * 64 + ((threadIdx.x >> 5) & 3) * 16;
+  const int a_off = ((((lane >> 4) & 1) * (BM / 8) + R / 8 + ((lane >> 3) & 1))
+                     * CORE + (lane & 7) * 8) * 2;
+
+  float acc[64], part[64];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(mine + (size_t)(row0 + frag_row(h)) * np +
-                                 ct * BN + frag_col(i, 0)) =
-          make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    for (int i = 0; i < STAGES1; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  wait_prior_grid();                  // the operand launch's panels
+  auto load = [&](int i) {            // stage i into buffer i % STAGES1
+    char* st = smem + (i % STAGES1) * 2 * TILE1;
+    uint64_t* bar = bars + i % STAGES1;
+    expect_bytes(bar, 2 * TILE1);
+    bulk_copy(st, A + (size_t)i * TILE1, TILE1, bar);
+    bulk_copy(st + TILE1, B + (size_t)i * TILE1, TILE1, bar);
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < STAGES1 && i < nk; ++i) load(i);
+  for (int it = 0; it < nk; ++it) {
+    mbar_wait(bars + it % STAGES1, (it / STAGES1) & 1);
+    const char* st = smem + (it % STAGES1) * 2 * TILE1;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)          // k16 step j: k-groups 2j, 2j + 1
+      ldmatrix_x4(a[j], st + a_off + j * 2 * PLANE_KB * 2, false);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wgmma_128(part, a[j],
+                smem_desc(st + TILE1 + j * 2 * PLANE_KB * 2, B1_K_STRIDE), j);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_reg(part[i]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fence_reg(a[j][q]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    // every warp is done with this buffer: refill it
+    __syncthreads();
+    if (threadIdx.x == 0 && it + STAGES1 < nk) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load(it + STAGES1);
+    }
+  }
+  store_partial(op, acc);
 }
 
 // The product for rows r, column c: sum of the S slice partials, in order.

@@ -18,13 +18,15 @@
 //   * Each frame is three launches.  The operand launch forms the product's
 //     operand once -- adash[L-1] = nxt[L-1] + a * leaky * init[L-1]
 //     forward, xs_res * (bd[0] + tot) backward -- from the fixed-order
-//     normaliser partials, and writes its three bf16 planes in the
-//     product's panel layout (den_mma.cuh); it also writes the frame's
-//     normaliser (asum and logc forward, tot backward).  The product is
-//     den_mma.cuh's tensor-core tile (M^T forward, M backward, TERMS = 6,
-//     3 or 1 bf16 cross products in fp32 -- the TPU kernels' `terms`: 6 in
-//     the exact den, 1 in the fast den -- split="kernel" or "pre" as
-//     den_matmul.cu), K split over the SMs into slice partials.  The update launch, one
+//     normaliser partials, and writes its three bf16 planes (one, on the
+//     one-plane route) in the product's panel layout (den_mma.cuh); it
+//     also writes the frame's normaliser (asum and logc forward, tot
+//     backward).  The product is den_mma.cuh's tensor-core tile (M^T
+//     forward, M backward, TERMS = 6, 3 or 1 bf16 cross products in fp32
+//     -- the TPU kernels' `terms`: 6 in the exact den, 1 in the fast den
+//     -- split="kernel" or "pre" as den_matmul.cu, or at TERMS = 1 the
+//     one-plane route, below), K split over the SMs into slice partials.
+//     The update launch, one
 //     thread per (chain, column) over the whole card, adds the slices in
 //     order and applies the elementwise update.  (Run by the product's own
 //     last block per tile instead, the update sat on 28 SMs and was
@@ -51,11 +53,25 @@
 // the 50 MB L2), plus (3L + 1) * Fp * N * 4 B = 12.8 MB of state, emissions
 // and history (>= 3.8 us).  So a 49-frame scan is bound at ~1 ms by the
 // tensor cores.  At TERMS = 1 a frame is 3.3 GFLOP (>= 3.3 us) and the
-// scan is bound by its bytes, ~0.17 ms with M read as one bf16 plane; this
-// kernel still reads the fp32 M (or three planes), so it cannot reach that.
+// scan is bound by its bytes, 0.169 ms with M read once as one bf16 plane.
+// The three-plane routes at TERMS = 1 stream the fp32 M (51.4 MB a frame,
+// more than the L2 beside the state) or three planes, and split them.
+// The one-plane route (pre = 2, the fast den's) reads M's one bf16 plane,
+// 25.7 MB, laid out once for wgmma (den_mma.cuh `plane_product_block`),
+// and the operand's one plane, 8 KB a stage each by bulk copy, with the
+// same arithmetic and so the same bits.  Once the product no longer
+// splits, the gaps between the frame's three launches weigh as much as a
+// launch, so each is a programmatic dependent of the one before it
+// (`launch`, `wait_prior_grid`): the same order, most of the gap gone.
+// Each frame still rereads the plane and writes and rereads the K-slice
+// partials, which keeps the route above the bound; L2 policies that keep
+// the plane (evict_last) and stream the emissions past it did not speed
+// the fast den up (tools/ablate_den_scan.py), so it has none.
 // PERF.md holds the measured times beside the plain PyTorch versions'.
 
 #include <cuda_runtime.h>
+
+#include <utility>
 
 #include "den_mma.cuh"
 
@@ -67,6 +83,16 @@ constexpr int CH = 16;  // rows of one normaliser chunk (one update block)
 constexpr int KG = 4;   // k-groups (8 rows each) per thread of an operand launch
 constexpr int RG = 8;   // row groups of an update block (CH / RG rows each)
 constexpr int UT = BN * RG;  // threads of an update block
+
+// The operand's x[0..7] = B(kb*8 + j, n) into its panels: three planes, or
+// plane 0 alone (ONE).
+template <bool ONE>
+__device__ __forceinline__ void store_operand(bf16* __restrict__ panels,
+                                              int kb, int n, int KB,
+                                              const float (&x)[8]) {
+  if constexpr (ONE) store_plane8(panels, kb, n, KB, x);
+  else store_split8(panels, kb, n, KB, x);
+}
 
 // out[c] = sum_k parts[k, c], in order of k.
 __device__ __forceinline__ float sum_parts(const float* __restrict__ parts,
@@ -120,6 +146,7 @@ __global__ void fwd_init_kernel(const float* __restrict__ init,
 // a = sum of the previous state's partials (-> asum[t], logc[t]); the
 // operand adash[L-1] = st_end + a * leaky * init_end, split into panels.
 // Grid (F / 8 / KG, N / BN), one thread per column and KG k-groups.
+template <bool ONE>
 __global__ void fwd_operand_kernel(const float* __restrict__ st_end,
                                    const float* __restrict__ init_end,
                                    const float* __restrict__ parts, int NCH,
@@ -128,6 +155,7 @@ __global__ void fwd_operand_kernel(const float* __restrict__ st_end,
                                    bf16* __restrict__ panels, int F, int N,
                                    float leaky) {
   const int c = blockIdx.y * BN + threadIdx.x;
+  if constexpr (ONE) wait_prior_grid();
   const float a = sum_parts(parts, NCH, N, c);
   if (blockIdx.x == 0) {
     asum[c] = a;
@@ -141,7 +169,7 @@ __global__ void fwd_operand_kernel(const float* __restrict__ st_end,
       const int k = kb * 8 + j;
       x[j] = st_end[(size_t)k * N + c] + a * leaky * init_end[k];
     }
-    store_split8(panels, kb, c, F / 8, x);
+    store_operand<ONE>(panels, kb, c, F / 8, x);
   }
 }
 
@@ -154,7 +182,8 @@ __global__ void __launch_bounds__(NT, 1) fwd_product_kernel(Operands op) {
 // the slice partials): adash[l] = st_in[l] + a*leaky*init[l] (-> hist);
 // st_out[l] = (adash[l] xs_self[l] + adash[l-1] xs_fwd[l-1]
 //              + [l=0] f xs_res) / a.
-// Grid (F / CH, N / BN), UT threads.
+// Grid (F / CH, N / BN), UT threads; PLANE: on the one-plane route.
+template <bool PLANE>
 __global__ void __launch_bounds__(UT) fwd_update_kernel(
     const float* __restrict__ ws, int S,
     const float* __restrict__ xs_self,   // [L, F, N]   frame t
@@ -168,6 +197,7 @@ __global__ void __launch_bounds__(UT) fwd_update_kernel(
     float* __restrict__ parts_out,       // [F / CH, N]
     int L, int F, int N, float leaky) {
   const int c = blockIdx.y * BN + threadIdx.x % BN;
+  if constexpr (PLANE) wait_prior_grid();
   const float aj = asum[c];
   const float inv = aj > 0.f ? 1.f / aj : 1.f;
   const size_t FN = (size_t)F * N;
@@ -219,6 +249,7 @@ __global__ void bwd_init_kernel(const float* __restrict__ real,
 
 // tot = leaky * sum of the partials (-> tot_out); the operand
 // xs_res * (bd[0] + tot), split into panels.  Grid as fwd_operand_kernel.
+template <bool ONE>
 __global__ void bwd_operand_kernel(const float* __restrict__ xs_res,
                                    const float* __restrict__ bd0,
                                    const float* __restrict__ parts, int NCH,
@@ -226,6 +257,7 @@ __global__ void bwd_operand_kernel(const float* __restrict__ xs_res,
                                    bf16* __restrict__ panels, int F, int N,
                                    float leaky) {
   const int c = blockIdx.y * BN + threadIdx.x;
+  if constexpr (ONE) wait_prior_grid();
   const float tot = leaky * sum_parts(parts, NCH, N, c);
   if (blockIdx.x == 0) tot_out[c] = tot;
   for (int g = 0; g < KG; ++g) {
@@ -236,7 +268,7 @@ __global__ void bwd_operand_kernel(const float* __restrict__ xs_res,
       const size_t o = (size_t)(kb * 8 + j) * N + c;
       x[j] = xs_res[o] * (bd0[o] + tot);
     }
-    store_split8(panels, kb, c, F / 8, x);
+    store_operand<ONE>(panels, kb, c, F / 8, x);
   }
 }
 
@@ -245,10 +277,17 @@ __global__ void __launch_bounds__(NT, 1) bwd_product_kernel(Operands op) {
   product_block<false, PRE, TERMS>(op);
 }
 
+// The one-plane TERMS = 1 product, both directions: A's panels hold M^T
+// (forward) or M (backward).
+__global__ void __launch_bounds__(NT, 1) plane_product_kernel(Operands op) {
+  plane_product_block(op);
+}
+
 // One beta frame's update, at h = (M @ (xs_res * beta[0]))[r, c]:
 // beta[l] = st_in[l] + tot (-> hist, beta at f+1); st_out[l] = (beta[l]
 // xs_self[l] + beta[l+1] xs_fwd[l] + [l=L-1] h) / asum[f].
-// Grid (F / CH, N / BN), UT threads.
+// Grid (F / CH, N / BN), UT threads; PLANE: on the one-plane route.
+template <bool PLANE>
 __global__ void __launch_bounds__(UT) bwd_update_kernel(
     const float* __restrict__ ws, int S,
     const float* __restrict__ xs_self,   // [L, F, N]   frame f
@@ -262,6 +301,7 @@ __global__ void __launch_bounds__(UT) bwd_update_kernel(
     float* __restrict__ parts_out,       // [F / CH, N]
     int L, int F, int N) {
   const int c = blockIdx.y * BN + threadIdx.x % BN;
+  if constexpr (PLANE) wait_prior_grid();
   const float tj = tot[c];
   const float as = asum[c];
   const float inv = as > 0.f ? 1.f / as : 0.f;
@@ -289,10 +329,11 @@ __global__ void __launch_bounds__(UT) bwd_update_kernel(
   chunk_col_sums(psum, parts_out + (size_t)blockIdx.x * N + blockIdx.y * BN);
 }
 
-bool bad_shape(int L, int F, int N, int T, int slices, int terms) {
+bool bad_shape(int pre, int L, int F, int N, int T, int slices, int terms) {
   return L < 1 || F <= 0 || N <= 0 || T <= 0 || F % BM || N % BN ||
          slices < 1 || slices > F / BK ||
-         (terms != 1 && terms != 3 && terms != 6);
+         (terms != 1 && terms != 3 && terms != 6) ||
+         pre < 0 || pre > 2 || (pre == 2 && terms != 1);
 }
 
 typedef void (*Product)(Operands);
@@ -311,26 +352,65 @@ Product pick_terms(int terms) {
   return product_kernel<TRANS, PRE, 6>();
 }
 
-// That kernel with its dynamic shared memory (*smem) allowed; *err holds
-// the attribute call's status.
+// A scan's route: its product kernel with the dynamic shared memory it
+// needs allowed (err: that call's status), and whether it is the one-plane
+// route.
+struct Route {
+  Product prod;
+  int smem;
+  bool one;
+  cudaError_t err;
+};
+
 template <bool TRANS>
-Product pick_product(int pre, int terms, int* smem, cudaError_t* err) {
-  *smem = pre ? smem_bytes<TRANS, true>() : smem_bytes<TRANS, false>();
-  const Product k = pre ? pick_terms<TRANS, true>(terms)
-                        : pick_terms<TRANS, false>(terms);
-  *err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-  return k;
+Route pick_route(int pre, int terms) {
+  Route r;
+  r.one = pre == 2;
+  if (r.one) {
+    r.prod = plane_product_kernel;
+    r.smem = SMEM1;
+  } else {
+    r.prod = pre ? pick_terms<TRANS, true>(terms)
+                 : pick_terms<TRANS, false>(terms);
+    r.smem = pre ? smem_bytes<TRANS, true>() : smem_bytes<TRANS, false>();
+  }
+  r.err = cudaFuncSetAttribute(
+      r.prod, cudaFuncAttributeMaxDynamicSharedMemorySize, r.smem);
+  return r;
+}
+
+// Launch k on `stream`; with pdl, as a programmatic dependent of the launch
+// before it (the one-plane route): its blocks may start while that one
+// drains and wait for it in wait_prior_grid(), so stream order holds and
+// the gap between the frame's launches shrinks.
+template <typename... Params, typename... Args>
+cudaError_t launch(bool pdl, void (*k)(Params...), dim3 grid, int threads,
+                   int smem, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, k, args...);
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes (kaldi_fp16_tpu_torch/ops/_build.py).
 // All pointers are device pointers to contiguous arrays; F and N are
-// multiples of 128.  A is the fp32 M [F, F] (pre = 0) or its bf16 planes
-// [3, F, F] (pre = 1).  Workspace: state [2, L, F, N] and parts
-// [2, F/16, N] fp32, panels [3 * F * N] bf16, ws [slices, F, N] fp32,
-// slices from den_mma_slices(F, N); terms = 1, 3 or 6 cross products.  Each call enqueues its launches on
+// multiples of 128.  A is the fp32 M [F, F] (pre = 0), its bf16 planes
+// [3, F, F] (pre = 1), or at terms = 1 its one bf16 plane in the panel
+// layout of den_mma.cuh's `plane_product_block` (pre = 2), of M^T for the
+// forward scan and of M for the backward one.  Workspace: state
+// [2, L, F, N] and parts
+// [2, F/16, N] fp32, panels [3 * F * N] bf16 ([F * N] at pre = 2), ws
+// [slices, F, N] fp32, slices from den_mma_slices(F, N); terms = 1, 3 or
+// 6 cross products.  Each call enqueues its launches on
 // `stream` and does not synchronise; it returns the first launch error,
 // or cudaSuccess.
 
@@ -345,31 +425,35 @@ extern "C" cudaError_t den_scan_forward(
     bf16* panels, float* ws, float* hist, float* asum, float* logc,
     float* a_final, int L, int F, int N, int T, int slices, int terms,
     float leaky, cudaStream_t stream) {
-  if (bad_shape(L, F, N, T, slices, terms)) return cudaErrorInvalidValue;
+  if (bad_shape(pre, L, F, N, T, slices, terms)) return cudaErrorInvalidValue;
   const int NCH = F / CH;
   const size_t LFN = (size_t)L * F * N, FN = (size_t)F * N;
-  int smem = 0;
-  cudaError_t err = cudaSuccess;
-  const Product prod = pick_product<true>(pre, terms, &smem, &err);
-  if (err != cudaSuccess) return err;
+  const Route r = pick_route<true>(pre, terms);
+  if (r.err != cudaSuccess) return r.err;
+  const auto operand_k = r.one ? fwd_operand_kernel<true>
+                               : fwd_operand_kernel<false>;
+  const auto update_k = r.one ? fwd_update_kernel<true>
+                              : fwd_update_kernel<false>;
   const dim3 chunks(NCH, N / BN), product(F / BM, N / BN, slices);
   const dim3 operand(F / 8 / KG, N / BN);
   const Operands op{A, panels, ws, F, slices};
   fwd_init_kernel<<<chunks, BN, 0, stream>>>(init, state, parts, L, F, N);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   for (int t = 0; t < T && err == cudaSuccess; ++t) {
     const int cur = t % 2, nxt = 1 - cur;
     const float* st_in = state + cur * LFN;
-    fwd_operand_kernel<<<operand, BN, 0, stream>>>(
-        st_in + (L - 1) * FN, init + (size_t)(L - 1) * F,
-        parts + (size_t)cur * NCH * N, NCH, asum + (size_t)t * N,
-        logc + (size_t)t * N, panels, F, N, leaky);
-    prod<<<product, NT, smem, stream>>>(op);
-    fwd_update_kernel<<<chunks, UT, 0, stream>>>(
-        ws, slices, xs_self + t * LFN, xs_fwd + t * (LFN - FN),
-        xs_res + t * FN, init, st_in, state + nxt * LFN, hist + t * LFN,
-        asum + (size_t)t * N, parts + (size_t)nxt * NCH * N, L, F, N, leaky);
-    err = cudaGetLastError();
+    err = launch(r.one, operand_k, operand, BN, 0, stream,
+                 st_in + (L - 1) * FN, init + (size_t)(L - 1) * F,
+                 parts + (size_t)cur * NCH * N, NCH, asum + (size_t)t * N,
+                 logc + (size_t)t * N, panels, F, N, leaky);
+    if (err == cudaSuccess)
+      err = launch(r.one, r.prod, product, NT, r.smem, stream, op);
+    if (err == cudaSuccess)
+      err = launch(r.one, update_k, chunks, UT, 0, stream, ws, slices,
+                   xs_self + t * LFN, xs_fwd + t * (LFN - FN),
+                   xs_res + t * FN, init, st_in, state + nxt * LFN,
+                   hist + t * LFN, asum + (size_t)t * N,
+                   parts + (size_t)nxt * NCH * N, L, F, N, leaky);
   }
   if (err != cudaSuccess) return err;
   sum_parts_kernel<<<(N + 255) / 256, 256, 0, stream>>>(
@@ -386,32 +470,36 @@ extern "C" cudaError_t den_scan_backward(
     const float* real, const float* total, float* state, float* parts,
     bf16* panels, float* ws, float* tot, float* hist, int L, int F, int N,
     int T, int slices, int terms, float leaky, cudaStream_t stream) {
-  if (bad_shape(L, F, N, T, slices, terms)) return cudaErrorInvalidValue;
+  if (bad_shape(pre, L, F, N, T, slices, terms)) return cudaErrorInvalidValue;
   const int NCH = F / CH;
   const size_t LFN = (size_t)L * F * N, FN = (size_t)F * N;
-  int smem = 0;
-  cudaError_t err = cudaSuccess;
-  const Product prod = pick_product<false>(pre, terms, &smem, &err);
-  if (err != cudaSuccess) return err;
+  const Route r = pick_route<false>(pre, terms);
+  if (r.err != cudaSuccess) return r.err;
+  const auto operand_k = r.one ? bwd_operand_kernel<true>
+                               : bwd_operand_kernel<false>;
+  const auto update_k = r.one ? bwd_update_kernel<true>
+                              : bwd_update_kernel<false>;
   const dim3 chunks(NCH, N / BN), product(F / BM, N / BN, slices);
   const dim3 operand(F / 8 / KG, N / BN);
   const Operands op{A, panels, ws, F, slices};
   bwd_init_kernel<<<chunks, BN, 0, stream>>>(real, init, total, state, parts,
                                              L, F, N);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   for (int i = 0; i < T && err == cudaSuccess; ++i) {
     const int f = T - 1 - i;
     const int cur = i % 2, nxt = 1 - cur;
     const float* st_in = state + cur * LFN;
-    bwd_operand_kernel<<<operand, BN, 0, stream>>>(
-        xs_res + f * FN, st_in, parts + (size_t)cur * NCH * N, NCH, tot,
-        panels, F, N, leaky);
-    prod<<<product, NT, smem, stream>>>(op);
-    bwd_update_kernel<<<chunks, UT, 0, stream>>>(
-        ws, slices, xs_self + f * LFN, xs_fwd + f * (LFN - FN),
-        asum + (size_t)f * N, init, st_in, state + nxt * LFN, hist + f * LFN,
-        tot, parts + (size_t)nxt * NCH * N, L, F, N);
-    err = cudaGetLastError();
+    err = launch(r.one, operand_k, operand, BN, 0, stream, xs_res + f * FN,
+                 st_in, parts + (size_t)cur * NCH * N, NCH, tot, panels, F, N,
+                 leaky);
+    if (err == cudaSuccess)
+      err = launch(r.one, r.prod, product, NT, r.smem, stream, op);
+    if (err == cudaSuccess)
+      err = launch(r.one, update_k, chunks, UT, 0, stream, ws, slices,
+                   xs_self + f * LFN, xs_fwd + f * (LFN - FN),
+                   asum + (size_t)f * N, init, st_in, state + nxt * LFN,
+                   hist + f * LFN, tot, parts + (size_t)nxt * NCH * N, L, F,
+                   N);
   }
   return err;
 }

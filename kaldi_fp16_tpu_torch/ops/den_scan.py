@@ -32,12 +32,18 @@ products of the 3-term splits: 6 in the exact den, 1 -- one bf16 pass,
 M and the operand rounded to bf16 -- in the fast den) for CUDA tensors;
 given `planes` (M split into bf16 planes by ops/den_matmul.py
 `split_planes`) the product streams them instead of splitting the fp32 M
-in registers (split="pre").  For CPU tensors they compute the plain
+in registers (split="pre").  At terms = 1, given `plane` (a `ScanPlane`:
+M's one bf16 plane, laid out once for the tensor cores), the product reads
+that plane and the operand's one plane, and nothing else: the fast den's
+route, bit for bit the three-plane terms = 1 route's numbers, with fewer
+bytes.  For CPU tensors they compute the plain
 versions below, which the tests compare against: the products in fp32 at
 terms = 6 (the 6-term split is within ~3e-7 of it), else in the split
 arithmetic itself (ops/den_matmul.py `split_product`).  A CUDA tensor never falls back to a plain
 version: if the kernel cannot be built or launched, the call raises.
-Each wrapper's `launches` counts its kernel calls (one per scan).
+Each wrapper's `launches` counts its kernel calls (one per scan) on the
+fp32-M and three-plane routes, `launches_plane` those on the one-plane
+route.
 """
 
 from __future__ import annotations
@@ -159,8 +165,65 @@ def _check(M, xs_self, xs_fwd, xs_res, init, L, T):
     return Fp, N
 
 
-def _operand(M, planes, Fp):
-    """The product's A operand: the fp32 M, or its bf16 planes."""
+def core_panels(X: torch.Tensor) -> torch.Tensor:
+    """[R, K] -> the K-major no-swizzle core-matrix panels that the
+    tensor-core product reads (csrc/den_mma.cuh, "Layouts"): X[r, k] at
+    [r / 128][k / 8][r % 128 / 8][r % 8][k % 8], contiguous."""
+    R, K = X.shape
+    return X.reshape(R // TK, TK // 8, 8, K // 8, 8).permute(0, 3, 1, 2, 4) \
+        .contiguous()
+
+
+class ScanPlane:
+    """M's one bf16 plane, for the scans at terms = 1.
+
+    `plane` is M rounded to bf16 to nearest even ([Fp, Fp], Fp a multiple
+    of 128), which is plane 0 of `split3(M)`.  On a card the two layouts
+    the product reads are made here, once per matrix: `fwd`, the
+    core-matrix panels of M^T (the alpha scan's A), and `bwd`, those of M
+    (the beta scan's); 2 x 25.7 MB at Fp = 3584.  On the CPU the plain
+    versions read `plane` itself."""
+
+    def __init__(self, plane: torch.Tensor):
+        if (plane.dtype != torch.bfloat16 or plane.ndim != 2
+                or plane.shape[0] != plane.shape[1] or plane.shape[0] % TK):
+            raise ValueError(f"the one plane must be bfloat16 (Fp, Fp) with "
+                             f"Fp % {TK} == 0 for terms=1, got {plane.dtype} "
+                             f"{tuple(plane.shape)}")
+        self.plane = plane.contiguous()
+        self.Fp = int(plane.shape[0])
+        self.device = plane.device
+        self.fwd = self.bwd = None
+        if self.device.type == "cuda":
+            self.fwd = core_panels(self.plane.t())
+            self.bwd = core_panels(self.plane)
+
+
+def _plane_operand(plane, planes, terms, M):
+    """Check the one-plane operand against M and terms."""
+    Fp = M.shape[0]
+    if not isinstance(plane, ScanPlane):
+        raise ValueError(f"plane must be a ScanPlane (M's one bf16 plane, "
+                         f"({Fp}, {Fp})) for terms=1, got {type(plane)}")
+    if terms != 1:
+        raise ValueError(f"the one plane ({plane.Fp}, {plane.Fp}) is the "
+                         f"operand of terms=1 alone, got terms={terms}")
+    if planes is not None:
+        raise ValueError(f"give the one plane ({plane.Fp}, {plane.Fp}) or "
+                         f"the planes {tuple(planes.shape)} at terms={terms}, "
+                         f"not both")
+    if plane.Fp != Fp or plane.device != M.device:
+        raise ValueError(f"the one plane is ({plane.Fp}, {plane.Fp}) on "
+                         f"{plane.device} at terms={terms}; M is "
+                         f"{tuple(M.shape)} on {M.device}")
+
+
+def _operand(M, planes, plane, Fp, forward):
+    """(the product's A operand, its C code `pre`): the fp32 M (0), its
+    bf16 planes (1), or the one plane's panels for the scan's direction
+    (2)."""
+    if plane is not None:
+        return (plane.fwd if forward else plane.bwd), 2
     if planes is None:
         return M, 0
     if (tuple(planes.shape) != (3, Fp, Fp) or planes.dtype != torch.bfloat16
@@ -171,14 +234,16 @@ def _operand(M, planes, Fp):
     return planes, 1
 
 
-def _workspace(L, Fp, N, dev):
-    """(state [2, L, Fp, N], parts [2, Fp / chunk, N], panels, slice
-    partials, K slices)."""
+def _workspace(L, Fp, N, dev, pre):
+    """(state [2, L, Fp, N], parts [2, Fp / chunk, N], the operand's
+    panels: one bf16 plane on the one-plane route (pre 2), else three;
+    slice partials, K slices)."""
+    n_planes = 1 if pre == 2 else 3
     nch = Fp // library().den_scan_row_block()
     S = slices(Fp, N, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     return (torch.empty((2, L, Fp, N), **f32), torch.empty((2, nch, N), **f32),
-            torch.empty(3 * Fp * N, dtype=torch.bfloat16, device=dev),
+            torch.empty(n_planes * Fp * N, dtype=torch.bfloat16, device=dev),
             torch.empty((S, Fp, N), **f32), S)
 
 
@@ -191,37 +256,46 @@ def _check_cuda(dev, Fp, N):
 
 
 def fused_forward(M, xs_self, xs_fwd, xs_res, init, *, L, T, leaky,
-                  terms=6, planes=None):
+                  terms=6, planes=None, plane=None):
     """Alpha scan (see `fused_forward_plain`, which takes M^T).  M is the
     untransposed [Fp, Fp] matrix: the kernel reads M^T from it (or from
     its bf16 `planes`, if given).  terms: 6, 3 or 1 bf16 cross products
-    per product (pallas_den_scan.py:164)."""
+    per product (pallas_den_scan.py:164).  plane: at terms = 1 only, M's
+    one bf16 plane (`ScanPlane`), read instead of M."""
     Fp, N = _check(M, xs_self, xs_fwd, xs_res, init, L, T)
     _check_terms(terms)
+    if plane is not None:
+        _plane_operand(plane, planes, terms, M)
     dev = xs_res.device
     if dev.type == "cpu":
-        return fused_forward_plain(M.t(), xs_self, xs_fwd, xs_res, init,
+        A = M if plane is None else plane.plane
+        return fused_forward_plain(A.t(), xs_self, xs_fwd, xs_res, init,
                                    L=L, T=T, leaky=leaky, terms=terms)
     _check_cuda(dev, Fp, N)
-    A, pre = _operand(M, planes, Fp)
+    A, pre = _operand(M, planes, plane, Fp, forward=True)
     hist = torch.empty((T, L, Fp, N), dtype=torch.float32, device=dev)
     asum = torch.empty((T, N), dtype=torch.float32, device=dev)
     logc = torch.empty((T, N), dtype=torch.float32, device=dev)
     a_final = torch.empty((N,), dtype=torch.float32, device=dev)
-    state, parts, panels, ws, S = _workspace(L, Fp, N, dev)
+    state, parts, panels, ws, S = _workspace(L, Fp, N, dev, pre)
     launch("den_scan_forward", dev, A, pre, xs_self, xs_fwd, xs_res, init,
-            state, parts, panels, ws, hist, asum, logc, a_final, L, Fp, N, T,
-            S, terms, float(leaky))
-    fused_forward.launches += 1
+           state, parts, panels, ws, hist, asum, logc, a_final, L, Fp, N, T,
+           S, terms, float(leaky))
+    if pre == 2:
+        fused_forward.launches_plane += 1
+    else:
+        fused_forward.launches += 1
     return hist, asum, logc, a_final
 
 
 def fused_backward(M, xs_self, xs_fwd, xs_res, asum, init, real, total_prob,
-                   *, L, T, leaky, terms=6, planes=None):
-    """Beta scan (see `fused_backward_plain`); `terms` and `planes` as
-    `fused_forward`."""
+                   *, L, T, leaky, terms=6, planes=None, plane=None):
+    """Beta scan (see `fused_backward_plain`); `terms`, `planes` and
+    `plane` as `fused_forward`."""
     Fp, N = _check(M, xs_self, xs_fwd, xs_res, init, L, T)
     _check_terms(terms)
+    if plane is not None:
+        _plane_operand(plane, planes, terms, M)
     dev = xs_res.device
     real = real.to(torch.float32)
     for name, x, shape in (("asum", asum, (T, N)), ("real", real, (L, Fp)),
@@ -231,20 +305,24 @@ def fused_backward(M, xs_self, xs_fwd, xs_res, asum, init, real, total_prob,
             raise ValueError(f"{name} must be float32 {shape} on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     if dev.type == "cpu":
-        return fused_backward_plain(M, xs_self, xs_fwd, xs_res, asum, init,
+        return fused_backward_plain(M if plane is None else plane.plane,
+                                    xs_self, xs_fwd, xs_res, asum, init,
                                     real, total_prob, L=L, T=T, leaky=leaky,
                                     terms=terms)
     _check_cuda(dev, Fp, N)
-    A, pre = _operand(M, planes, Fp)
+    A, pre = _operand(M, planes, plane, Fp, forward=False)
     hist = torch.empty((T, L, Fp, N), dtype=torch.float32, device=dev)
-    state, parts, panels, ws, S = _workspace(L, Fp, N, dev)
+    state, parts, panels, ws, S = _workspace(L, Fp, N, dev, pre)
     tot = torch.empty((N,), dtype=torch.float32, device=dev)
     launch("den_scan_backward", dev, A, pre, xs_self, xs_fwd, xs_res, asum,
-            init, real.contiguous(), total_prob, state, parts, panels, ws,
-            tot, hist, L, Fp, N, T, S, terms, float(leaky))
-    fused_backward.launches += 1
+           init, real.contiguous(), total_prob, state, parts, panels, ws,
+           tot, hist, L, Fp, N, T, S, terms, float(leaky))
+    if pre == 2:
+        fused_backward.launches_plane += 1
+    else:
+        fused_backward.launches += 1
     return hist
 
 
-fused_forward.launches = 0
-fused_backward.launches = 0
+fused_forward.launches = fused_forward.launches_plane = 0
+fused_backward.launches = fused_backward.launches_plane = 0

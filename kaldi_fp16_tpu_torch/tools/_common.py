@@ -93,6 +93,8 @@ def kernel_launches() -> dict:
             "den_matmul_pre": DenMatmul.launches_pre,
             "den_scan_fwd": den_scan.fused_forward.launches,
             "den_scan_bwd": den_scan.fused_backward.launches,
+            "den_scan_fwd_plane": den_scan.fused_forward.launches_plane,
+            "den_scan_bwd_plane": den_scan.fused_backward.launches_plane,
             "segment_reduce": segment_reduce.launches}
 
 
