@@ -14,6 +14,9 @@ Port of kaldi_fp16_tpu/chain/objective.py: `_penalize_out_of_range`
   6. objf = weight * (num_logprob - den_logprob)
   7. NaN/Inf containment per sequence: zero deriv, objf := -10 * weight * T
 
+Steps 1 and 3 run inside the host spans `chain.den` and
+`chain.numerator` (utils/spans.py).
+
 The analytic posteriors are the derivative, so the objective is a
 `torch.autograd.Function` whose backward returns g * deriv.  Sign
 convention: it returns the OBJECTIVE (higher is better); training
@@ -31,6 +34,7 @@ from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
 from kaldi_fp16_tpu_torch.chain.graph import LOG_ZERO, NumeratorGraphBatch
 from kaldi_fp16_tpu_torch.chain.numerator import numerator_forward_backward
 from kaldi_fp16_tpu_torch.ops.den_matmul import fp32_matmuls
+from kaldi_fp16_tpu_torch.utils.spans import span
 
 
 @dataclass(frozen=True)
@@ -103,7 +107,8 @@ def _chain_core(num_graph, den, nnet_output, weights, deriv_weights, opts):
          if weights is None else weights.float())
 
     # 1. denominator first (ref: "Kaldi does denominator FIRST", backward.go)
-    den_logprob, den_post = den.forward_backward(nnet_output)
+    with span("chain.den"):
+        den_logprob, den_post = den.forward_backward(nnet_output)
 
     # 2. out-of-range penalty
     if opts.out_of_range_regularize > 0:
@@ -115,7 +120,9 @@ def _chain_core(num_graph, den, nnet_output, weights, deriv_weights, opts):
                                 device=nnet_output.device)
 
     # 3. numerator
-    num_logprob, num_post = numerator_forward_backward(num_graph, nnet_output)
+    with span("chain.numerator"):
+        num_logprob, num_post = numerator_forward_backward(num_graph,
+                                                           nnet_output)
 
     # 4. combine
     deriv = oor_grad + w[:, None, None] * (num_post - den_post)

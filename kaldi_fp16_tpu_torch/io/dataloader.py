@@ -21,7 +21,6 @@ import glob as globlib
 import queue
 import random
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -29,6 +28,7 @@ import numpy as np
 
 from kaldi_fp16_tpu_torch.io.batch import ChainBatch, bucket_key, make_batch
 from kaldi_fp16_tpu_torch.io.egs import EgsReader, Example
+from kaldi_fp16_tpu_torch.utils.spans import span
 
 
 @dataclass
@@ -189,21 +189,31 @@ class DataLoader:
     # -- batching -----------------------------------------------------------
 
     def __iter__(self) -> Iterator[ChainBatch]:
+        """The batches, each made inside the host span `loader.batch`
+        (utils/spans.py), from the previous batch's hand-off through this
+        one's assembly; the epoch's end takes one more.  The spans' time
+        is `stats.read_seconds`."""
+        batches = self._batches()
+        while True:
+            with span("loader.batch") as s:
+                batch = next(batches, None)
+            self.stats.read_seconds += s.ns * 1e-9
+            if batch is None:
+                return
+            yield batch
+
+    def _batches(self) -> Iterator[ChainBatch]:
         cfg = self.config
-        t0 = time.perf_counter()
         for ex in self._shuffled():
             key = bucket_key(ex)
             bucket = self._pending.setdefault(key, [])
             bucket.append(ex)
             if len(bucket) >= cfg.batch_size:
-                self.stats.read_seconds += time.perf_counter() - t0
                 yield self._emit(key)
-                t0 = time.perf_counter()
         if not cfg.drop_remainder:
             for key in list(self._pending):
                 if self._pending[key]:
                     yield self._emit(key)
-        self.stats.read_seconds += time.perf_counter() - t0
         self.stats.files_done = self.iterator.files_done
 
     @property

@@ -40,6 +40,15 @@ sites' update counters, in one transfer.  NG's eigensolves run only on
 the steps where a counter is due (every 4th), batched over the sites of
 one shape (training/natural_gradient.py).
 
+Host spans (utils/spans.py) tile the step's body in code order:
+`train_step.forward` (inputs, frame geometry, the network forward, the
+chain head's frames), the objective (its `chain.den` and
+`chain.numerator`, chain/objective.py), `train_step.backward` (xent,
+backward, grads, unscale, all-reduce, finiteness, loss scale),
+`train_step.read`, `ng.fisher_update` (only on the steps that fold in
+statistics), `ng.precondition` and `train_step.update`, all inside
+`train_step`.
+
 Data parallel (`group`, a DataGroup of parallel/mesh.py): the batch is
 this rank's rows of the global batch, and each global reduction of the
 JAX package's sharded step is a collective here (parallel/
@@ -108,6 +117,7 @@ from kaldi_fp16_tpu_torch.training.optimizer import (
 from kaldi_fp16_tpu_torch.training.orthonormal import (
     constrain_orthonormal, orthonormal_targets,
 )
+from kaldi_fp16_tpu_torch.utils.spans import span
 
 
 @dataclass(frozen=True)
@@ -264,24 +274,28 @@ def update_ng_states(sites, ng_states, xs, gs, counters, cfg_in: NGConfig,
                     gather.append(nm)
             else:
                 new[nm][side] = advance(st)
-    if model_group is not None and gather:
-        gs = dict(gs)
-        gs.update(zip(gather, gather_over([gs[nm] for nm in gather],
-                                          [-1] * len(gather), model_group)))
-    for (_, cfg), members in groups.items():
-        # one group's sample matrices at a time (a patch-lowered conv's
-        # are ~1-2 GB at flagship width)
-        states = [ng_states[site["name"]][side] for site, side in members]
-        dtype = states[0].v.dtype
-        samples = [_site_samples(site, xs[site["name"]], dtype)
-                   if side == "in" else _site_derivs(site, xs, gs, dtype)
-                   for site, side in members]
-        for (site, side), st in zip(members,
-                                    fisher_update(states, samples, cfg, group,
-                                                  [counts.get(site["name"])
-                                                   for site, _ in members])):
-            new[site["name"]][side] = st
-        del samples
+    if not groups:
+        return new
+    with span("ng.fisher_update"):
+        if model_group is not None and gather:
+            gs = dict(gs)
+            gs.update(zip(gather, gather_over([gs[nm] for nm in gather],
+                                              [-1] * len(gather),
+                                              model_group)))
+        for (_, cfg), members in groups.items():
+            # one group's sample matrices at a time (a patch-lowered conv's
+            # are ~1-2 GB at flagship width)
+            states = [ng_states[site["name"]][side] for site, side in members]
+            dtype = states[0].v.dtype
+            samples = [_site_samples(site, xs[site["name"]], dtype)
+                       if side == "in" else _site_derivs(site, xs, gs, dtype)
+                       for site, side in members]
+            for (site, side), st in zip(
+                    members, fisher_update(states, samples, cfg, group,
+                                           [counts.get(site["name"])
+                                            for site, _ in members])):
+                new[site["name"]][side] = st
+            del samples
     return new
 
 
@@ -381,112 +395,122 @@ def make_train_step(model: Model, net: Network,
              spec_masks: Optional[dict] = None, lr: Optional[float] = None,
              num_graph: Optional[NumeratorGraphBatch] = None,
              left_context: Optional[int] = None):
-        if num_graph is not None:
-            objf_fn = make_chain_objf_with_post(num_graph, den, chain_opts)
-        elif static_objf is not None:
-            objf_fn = static_objf
-        else:
-            raise ValueError("no numerator graph: pass num_graph to "
-                             "make_train_step or to the step")
-        if left_context is None:
-            left_context = config.left_context
-        feats, ivecs, weights, dws_arg, n_out, T_in = _batch_inputs(
-            batch, config, num_frames_out, group)
-        dev = feats.device
-        grid, time_subsample, pick_frames = _frame_geometry(
-            model, config, T_in, n_out, left_context)
+        with span("train_step"):
+            return _step(opt_state, scale_state, batch, generator,
+                         spec_masks, lr, num_graph, left_context)
 
-        params = net.params
-        old_state = net.bn_state()
-        net.zero_grad(set_to_none=True)
-        ng = NGContext() if sites else None
-        if config.remat and generator is not None and spec_masks is None:
-            spec_masks = draw_spec_masks(model, feats.shape[0],
-                                         feats.shape[1], generator, dev,
-                                         group)
+    def _step(opt_state, scale_state, batch, generator, spec_masks, lr,
+              num_graph, left_context):
+        with span("train_step.forward"):
+            if num_graph is not None:
+                objf_fn = make_chain_objf_with_post(num_graph, den, chain_opts)
+            elif static_objf is not None:
+                objf_fn = static_objf
+            else:
+                raise ValueError("no numerator graph: pass num_graph to "
+                                 "make_train_step or to the step")
+            if left_context is None:
+                left_context = config.left_context
+            feats, ivecs, weights, dws_arg, n_out, T_in = _batch_inputs(
+                batch, config, num_frames_out, group)
+            dev = feats.device
+            grid, time_subsample, pick_frames = _frame_geometry(
+                model, config, T_in, n_out, left_context)
 
-        # the BatchNorm switch as the step starts: remat's recompute in the
-        # backward runs the same BatchNorm
-        bn_lowp = network_module._BN_LOWP_STATS
+            params = net.params
+            old_state = net.bn_state()
+            net.zero_grad(set_to_none=True)
+            ng = NGContext() if sites else None
+            if config.remat and generator is not None and spec_masks is None:
+                spec_masks = draw_spec_masks(model, feats.shape[0],
+                                             feats.shape[1], generator, dev,
+                                             group)
 
-        def forward():
-            return net(feats, ivecs, train=True, compute_dtype=dtype,
-                       time_subsample=time_subsample, spec_masks=spec_masks,
-                       generator=generator, ng=ng, group=group,
-                       bn_lowp=bn_lowp)
+            # the BatchNorm switch as the step starts: remat's recompute in
+            # the backward runs the same BatchNorm
+            bn_lowp = network_module._BN_LOWP_STATS
 
-        if config.remat:
-            outs, new_state = torch.utils.checkpoint.checkpoint(
-                forward, use_reentrant=False)
-            if ng is not None:
-                ng.frozen = True
-        else:
-            outs, new_state = forward()
-        out = pick_frames(outs[chain_head_name].float(),
-                          chain_head_name in grid)
+            def forward():
+                return net(feats, ivecs, train=True, compute_dtype=dtype,
+                           time_subsample=time_subsample,
+                           spec_masks=spec_masks, generator=generator, ng=ng,
+                           group=group, bn_lowp=bn_lowp)
+
+            if config.remat:
+                outs, new_state = torch.utils.checkpoint.checkpoint(
+                    forward, use_reentrant=False)
+                if ng is not None:
+                    ng.frozen = True
+            else:
+                outs, new_state = forward()
+            out = pick_frames(outs[chain_head_name].float(),
+                              chain_head_name in grid)
         objf, result, num_post = objf_fn(out, weights, dws_arg)
-        loss = -objf
-        xent_objf = torch.zeros((), dtype=torch.float32, device=dev)
-        if xent_regularize > 0 and xent_layer is not None:
-            xent = pick_frames(outs[xent_layer.name].float(),
-                               xent_layer.name in grid)
-            xent = xent * dws_arg[:, :, None]
-            xent_objf = torch.sum(weights[:, None, None] * num_post * xent)
-            loss = loss - xent_regularize * xent_objf
-        if config.use_loss_scaling:
-            loss = loss * scale_state.scale
-        loss.backward()
-        del outs, out
-        loss = loss.detach()
-        # a parameter with no path to the loss (e.g. the xent head when
-        # xent_regularize is 0) has a zero gradient, as under jax.grad
-        grads = {l: {k: (w.grad if w.grad is not None
-                         else torch.zeros_like(w)) for k, w in p.items()}
-                 for l, p in params.items()}
+        with span("train_step.backward"):
+            loss = -objf
+            xent_objf = torch.zeros((), dtype=torch.float32, device=dev)
+            if xent_regularize > 0 and xent_layer is not None:
+                xent = pick_frames(outs[xent_layer.name].float(),
+                                   xent_layer.name in grid)
+                xent = xent * dws_arg[:, :, None]
+                xent_objf = torch.sum(weights[:, None, None] * num_post * xent)
+                loss = loss - xent_regularize * xent_objf
+            if config.use_loss_scaling:
+                loss = loss * scale_state.scale
+            loss.backward()
+            del outs, out
+            loss = loss.detach()
+            # a parameter with no path to the loss (e.g. the xent head when
+            # xent_regularize is 0) has a zero gradient, as under jax.grad
+            grads = {l: {k: (w.grad if w.grad is not None
+                             else torch.zeros_like(w)) for k, w in p.items()}
+                     for l, p in params.items()}
 
-        gs = ng.gs if ng is not None else {}
-        if config.use_loss_scaling:
-            loss = loss / scale_state.scale
-            grads = unscale_grads(grads, scale_state)
-            gs = unscale_grads(gs, scale_state)
+            gs = ng.gs if ng is not None else {}
+            if config.use_loss_scaling:
+                loss = loss / scale_state.scale
+                grads = unscale_grads(grads, scale_state)
+                gs = unscale_grads(gs, scale_state)
 
-        total_objf, total_weight = result.total_objf, result.total_weight
-        num_lp, den_lp = result.num_logprob.mean(), result.den_logprob.mean()
-        ok = result.ok.all()
-        if ax.dp is not None:
-            # the global batch's gradients and sums, in one all-reduce; the
-            # data ranks hold equal rows, so the means are the ranks'
-            # means' mean (at world 1, the single process's bits)
-            w = 1.0 / (ax.data.world if ax.data is not None else 1)
-            grads, tot, nonfinite = all_reduce_grads(grads, _reported([
-                loss, total_objf, total_weight, num_lp * w, den_lp * w,
-                xent_objf.detach(), (~result.ok).sum()], group), ax.dp)
-            loss, total_objf, total_weight, num_lp, den_lp, xent_objf = \
-                tot[:6]
-            ok = tot[6] == 0
+            total_objf, total_weight = result.total_objf, result.total_weight
+            num_lp = result.num_logprob.mean()
+            den_lp = result.den_logprob.mean()
+            ok = result.ok.all()
+            if ax.dp is not None:
+                # the global batch's gradients and sums, in one all-reduce;
+                # the data ranks hold equal rows, so the means are the
+                # ranks' means' mean (at world 1, the single process's bits)
+                w = 1.0 / (ax.data.world if ax.data is not None else 1)
+                grads, tot, nonfinite = all_reduce_grads(grads, _reported([
+                    loss, total_objf, total_weight, num_lp * w, den_lp * w,
+                    xent_objf.detach(), (~result.ok).sum()], group), ax.dp)
+                loss, total_objf, total_weight, num_lp, den_lp, xent_objf = \
+                    tot[:6]
+                ok = tot[6] == 0
 
-        # finiteness is judged on the raw grads, the sharded leaves' too
-        finite = grads_finite(grads)
-        if ax.dp is not None:
-            finite = finite & (nonfinite == 0)
-        if ax.model is not None:
-            bad = (~finite).to(torch.float32).reshape(1)
-            finite = ax.model.all_reduce(bad)[0] == 0
-        if config.use_loss_scaling:
-            new_scale_state, skip = update_loss_scale(scale_state, finite)
-        else:
-            new_scale_state, skip = scale_state, ~finite
+            # finiteness is judged on the raw grads, the sharded leaves' too
+            finite = grads_finite(grads)
+            if ax.dp is not None:
+                finite = finite & (nonfinite == 0)
+            if ax.model is not None:
+                bad = (~finite).to(torch.float32).reshape(1)
+                finite = ax.model.all_reduce(bad)[0] == 0
+            if config.use_loss_scaling:
+                new_scale_state, skip = update_loss_scale(scale_state, finite)
+            else:
+                new_scale_state, skip = scale_state, ~finite
 
-        # the one read of the device per step: skip, whether the
-        # orthonormal constraint falls on this step, the NG counters
-        interval = max(config.orthonormal_interval, 1)
-        keys = [(s["name"], side) for s in sites for side in ("in", "out")]
-        flags = torch.stack(
-            [skip.to(torch.int64),
-             ((opt_state["step"] + 1) % interval == 0).to(torch.int64)]
-            + [opt_state["ng"][nm][side].t.to(torch.int64)
-               for nm, side in keys]).tolist()
-        skip_host, orth_due = bool(flags[0]), bool(flags[1])
+        with span("train_step.read"):
+            # the one read of the device per step: skip, whether the
+            # orthonormal constraint falls on this step, the NG counters
+            interval = max(config.orthonormal_interval, 1)
+            keys = [(s["name"], side) for s in sites for side in ("in", "out")]
+            flags = torch.stack(
+                [skip.to(torch.int64),
+                 ((opt_state["step"] + 1) % interval == 0).to(torch.int64)]
+                + [opt_state["ng"][nm][side].t.to(torch.int64)
+                   for nm, side in keys]).tolist()
+            skip_host, orth_due = bool(flags[0]), bool(flags[1])
 
         new_ng = None
         if sites:
@@ -519,47 +543,51 @@ def make_train_step(model: Model, net: Network,
             loss, total_objf, total_weight, num_lp, den_lp, xent_objf = \
                 rep[3]
         if sites:
-            grads = apply_natural_gradient(model, sites, new_ng, grads,
-                                           ng_cfg_in, specs, ax.model)
-        if ax.model is None:
-            grad_norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                       for g in tree_leaves(grads)))
-        else:
-            sq = [(torch.sum(grads[l][k].float() ** 2), sharded[l][k])
-                  for l, p in grads.items() for k in p]
-            part = ax.model.all_reduce(torch.stack(
-                [sum(t for t, sh in sq if sh)]))[0]
-            grad_norm = torch.sqrt(sum(t for t, sh in sq if not sh) + part)
+            with span("ng.precondition"):
+                grads = apply_natural_gradient(model, sites, new_ng, grads,
+                                               ng_cfg_in, specs, ax.model)
+        with span("train_step.update"):
+            if ax.model is None:
+                grad_norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                           for g in tree_leaves(grads)))
+            else:
+                sq = [(torch.sum(grads[l][k].float() ** 2), sharded[l][k])
+                      for l, p in grads.items() for k in p]
+                part = ax.model.all_reduce(torch.stack(
+                    [sum(t for t, sh in sq if sh)]))[0]
+                grad_norm = torch.sqrt(sum(t for t, sh in sq if not sh) + part)
 
-        # a skipped (non-finite) batch must not poison the BN statistics
-        net.set_bn_state(tree_map(lambda new, old: torch.where(skip, old, new),
-                                  new_state, old_state))
+            # a skipped (non-finite) batch must not poison the BN statistics
+            net.set_bn_state(tree_map(
+                lambda new, old: torch.where(skip, old, new), new_state,
+                old_state))
 
-        new_params, new_opt_state, stats = sgd_update(
-            params, grads,
-            {k: v for k, v in opt_state.items() if k != "ng"}, sgd_cfg,
-            lr=lr, hyper=hyper, trainable=trainable_mask(model, params),
-            skip=skip, sharded=sharded, model_group=ax.model)
-        if new_ng is not None:
-            new_opt_state["ng"] = new_ng
-        with torch.no_grad():
-            for l, p in params.items():
-                for k, w in p.items():
-                    w.copy_(new_params[l][k])
-            # Kaldi applies ConstrainOrthonormal after the parameter update
-            if targets and orth_due and not skip_host:
-                for lname, pname, c in targets:
-                    w = params[lname][pname]
-                    d = sharded_dim(specs[lname][pname])
-                    if d is None:
-                        w.copy_(constrain_orthonormal(w, c))
-                        continue
-                    # a sharded target (prefinal small_w): constrained
-                    # whole, then cut back to this rank's rows
-                    (whole,) = gather_over([w], [d], ax.model)
-                    w.copy_(model_slice(constrain_orthonormal(whole, c), d,
-                                        ax.model.rank, ax.model.world,
-                                        lname))
+            new_params, new_opt_state, stats = sgd_update(
+                params, grads,
+                {k: v for k, v in opt_state.items() if k != "ng"}, sgd_cfg,
+                lr=lr, hyper=hyper, trainable=trainable_mask(model, params),
+                skip=skip, sharded=sharded, model_group=ax.model)
+            if new_ng is not None:
+                new_opt_state["ng"] = new_ng
+            with torch.no_grad():
+                for l, p in params.items():
+                    for k, w in p.items():
+                        w.copy_(new_params[l][k])
+                # Kaldi applies ConstrainOrthonormal after the parameter
+                # update
+                if targets and orth_due and not skip_host:
+                    for lname, pname, c in targets:
+                        w = params[lname][pname]
+                        d = sharded_dim(specs[lname][pname])
+                        if d is None:
+                            w.copy_(constrain_orthonormal(w, c))
+                            continue
+                        # a sharded target (prefinal small_w): constrained
+                        # whole, then cut back to this rank's rows
+                        (whole,) = gather_over([w], [d], ax.model)
+                        w.copy_(model_slice(constrain_orthonormal(whole, c), d,
+                                            ax.model.rank, ax.model.world,
+                                            lname))
 
         return new_opt_state, new_scale_state, TrainStepOutput(
             loss=loss,

@@ -58,6 +58,7 @@ from kaldi_fp16_tpu_torch.training.train_step import (
     EvalStepOutput, TrainConfig, TrainStepOutput, init_train_state,
     make_eval_step, make_train_step,
 )
+from kaldi_fp16_tpu_torch.utils.spans import span
 
 _GRAPH_FIELDS = ("arc_src", "arc_dst", "arc_pdf", "arc_logw", "arc_mask",
                  "start", "final_logw")
@@ -206,11 +207,12 @@ class Trainer:
         """Upload a batch's arrays and numerator graph to the device
         without running a step, so a loop can upload batch i+1 while step
         i runs.  Returns (arrays, num_graph) of device tensors; under a
-        data group, of this rank's rows."""
-        self._validate_geometry(batch)
-        if self.group is not None and self.shard_batches:
-            batch = shard_chain_batch(batch, self.group)
-        return upload_batch(batch, self.device, self._copy_stream)
+        data group, of this rank's rows.  Host span `trainer.place_batch`."""
+        with span("trainer.place_batch"):
+            self._validate_geometry(batch)
+            if self.group is not None and self.shard_batches:
+                batch = shard_chain_batch(batch, self.group)
+            return upload_batch(batch, self.device, self._copy_stream)
 
     def _step_fn(self, batch: ChainBatch):
         """One step per supervision length (the step's num_frames_out)."""
