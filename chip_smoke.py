@@ -334,7 +334,7 @@ from kaldi_fp16_tpu_torch.models import network as network_module
 from kaldi_fp16_tpu_torch.models.network import Network
 from kaldi_fp16_tpu_torch.ops import _build, den_scan
 from kaldi_fp16_tpu_torch.ops.den_matmul import (
-    DenMatmul, den_matmul_split_plain,
+    DenMatmul, den_matmul_split_plain, fp32_matmuls,
 )
 from kaldi_fp16_tpu_torch.parallel.data_parallel import (
     broadcast_train_state, full_state_dict, shard_batch, shard_graph,
@@ -343,6 +343,8 @@ from kaldi_fp16_tpu_torch.parallel.data_parallel import (
 from kaldi_fp16_tpu_torch.parallel.mesh import (
     Mesh, MeshConfig, free_address, make_mesh, spawn_ranks,
 )
+from kaldi_fp16_tpu_torch.chain import numerator as num_module
+from kaldi_fp16_tpu_torch.chain.numerator import numerator_forward_backward
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
     segment_order, segment_order_plain, segment_reduce, segment_reduce_plain,
 )
@@ -409,6 +411,11 @@ ORACLE_LOGP_ATOL, ORACLE_POST_RTOL, ORACLE_POST_ATOL = 5e-5, 1e-3, 5e-5
 LOGP_ATOL = 2e-6
 REDUCE_TOL = 1e-5                # fp32 segment sums, tests/test_pallas_reduce.py:30
 REDUCE_REPS = 10                 # segment_reduce calls per timed CUDA graph
+NUM_REPS = 10                    # numerator calls per timed CUDA graph
+# numerator kernel vs its plain version: fp32 sums in another order
+# (tests/test_torch_numerator.py)
+NUM_LOGP_RTOL, NUM_POST_RTOL, NUM_POST_ATOL = 1e-5, 1e-4, 1e-6
+NUM_REPLACES = "none (kaldi_fp16_tpu/chain/numerator.py, a lax.scan)"
 # fp32 card vs CPU: summation order only, through two SGD steps
 SMALL_RTOL = 1e-4
 # NG ranks of the small NG step: at the default ranks each narrow site
@@ -1064,6 +1071,77 @@ def segment_reduce_phase(dev, den_b):
     result["max_abs_err"] = max(result[t]["max_abs_err"]
                                 for t in ("sorted", "shuffled"))
     phase("segment_reduce", **result)
+    return result
+
+
+def numerator_phase(dev):
+    """The numerator kernel at the benchmark's supervision (B = 128, T_OUT
+    frames, a linear chain with one alternative arc a frame: S = T_OUT + 1,
+    A = 2 T_OUT, P pdfs; int32 / fp32 arrays on the card, as the Trainer
+    uploads them) against its plain version on the card: log-probs and
+    posteriors at tests/test_torch_numerator.py's bars, repeats
+    bit-identical, one launch a call.  Device ms of a call (the output's
+    memset and the kernel) from CUDA-graph replays and of the kernel alone
+    under the profiler, beside the plain version's (CUDA events around one
+    call, which its host enqueue bounds), and each one's host ms a call."""
+    g = bench_num_graph(B, T_OUT, 2 * T_OUT, P, np.random.default_rng(6))
+    graph = dataclasses.replace(g, **{
+        f.name: torch.as_tensor(getattr(g, f.name), device=dev)
+        for f in dataclasses.fields(g)
+        if isinstance(getattr(g, f.name), np.ndarray)})
+    x = torch.randn((B, T_OUT, P), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    S, A = graph.num_states, graph.num_arcs
+
+    def kernel():
+        return numerator_forward_backward(graph, x)
+
+    def plain():
+        with fp32_matmuls():
+            return num_module._forward_backward(graph, x)
+
+    before = numerator_forward_backward.launches
+    (lp, post), (lp2, post2), (rlp, rpost) = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if numerator_forward_backward.launches != before + 2:
+        raise AssertionError("the numerator did not launch once a call")
+    if not (torch.equal(lp, lp2) and torch.equal(post, post2)):
+        raise AssertionError("numerator kernel repeats differ")
+    torch.testing.assert_close(lp, rlp, rtol=NUM_LOGP_RTOL, atol=0)
+    torch.testing.assert_close(post, rpost, rtol=NUM_POST_RTOL,
+                               atol=NUM_POST_ATOL)
+
+    def host_ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+        return ms
+
+    ms = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ms[name].append(warm_ms(kernel, NUM_REPS) if name == "kernel"
+                        else cuda_ms(plain, 1))
+    _, rows = kernel_times(kernel)
+    kernel_alone = [us for name, _, us in rows if "numerator_kernel" in name]
+    result = {
+        "B": B, "T": T_OUT, "S": S, "A": A, "P": P,
+        "max_rel_err_logp": float(((lp - rlp).abs() / rlp.abs()).max()),
+        "max_abs_err_post": float((post - rpost).abs().max()),
+        "bit_identical": True,
+        "ms": float(np.mean(ms["kernel"])), "ms_each": ms["kernel"],
+        "kernel_alone_ms": kernel_alone[0] / 1e3 if kernel_alone else None,
+        "plain_ms": float(np.mean(ms["plain"])), "plain_ms_each": ms["plain"],
+        "host_ms": host_ms(kernel, 20), "plain_host_ms": host_ms(plain, 3),
+        # the posteriors written, the arcs and final weights read, and the
+        # nnet output's values the arcs read (each once)
+        "bound": bound(4 * (B * T_OUT * P + 5 * B * A + B * S + B
+                            + B * T_OUT * A), 0),
+    }
+    phase("numerator", **result)
     return result
 
 
@@ -1801,7 +1879,8 @@ def tensor_leaves(tree):
 
 
 def check_steps(res, per_step, first, last, tag):
-    expect = {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0}
+    expect = {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0,
+              "numerator": 1}
     steps = res["steps"]
     if [s["step"] for s in steps] != list(range(first, last + 1)):
         raise AssertionError(f"{tag}: ran steps {[s['step'] for s in steps]}")
@@ -1849,7 +1928,8 @@ def trainer_phase(egs_dir, graph, dev):
     8 steps without NG-SGD."""
     counters = {"den_scan_fwd": den_scan.fused_forward,
                 "den_scan_bwd": den_scan.fused_backward,
-                "den_matmul": DenMatmul}
+                "den_matmul": DenMatmul,
+                "numerator": numerator_forward_backward}
     torch.cuda.reset_peak_memory_stats()
     den_inputs = []
     full, full_steps = recipe_run(egs_dir, WORK / "ckpt_full", counters,
@@ -1957,7 +2037,8 @@ def world1_run(egs_dir, trainer_ref):
     step beside the trainer phase's."""
     counters = {"den_scan_fwd": den_scan.fused_forward,
                 "den_scan_bwd": den_scan.fused_backward,
-                "den_matmul": DenMatmul}
+                "den_matmul": DenMatmul,
+                "numerator": numerator_forward_backward}
     res, per_step = recipe_run(egs_dir, WORK / "ckpt_dp1", counters,
                                ckpt_every=10 * TRAIN_STEPS,
                                extra=["--data-parallel", "1"])
@@ -4476,18 +4557,22 @@ def main():
     red_launches, den_b = den_blocked_phase(dev, graph, lp_s, post_s)
     del lp_s, post_s
     red = segment_reduce_phase(dev, den_b)
+    num = numerator_phase(dev)
     lowp = lowp_phase(dev, graph, den, den_f, den_b)
     del den_b
     small_step_phase(dev)
-    launches, losses, _ = train_phase(dev, den, "train",
-                                   {"den_matmul": DenMatmul},
-                                   {"den_matmul": 2 * T_OUT})
+    launches, losses, _ = train_phase(
+        dev, den, "train", {"den_matmul": DenMatmul,
+                            "numerator": numerator_forward_backward},
+        {"den_matmul": 2 * T_OUT, "numerator": 1})
     scan_counts = {"den_scan_fwd": den_scan.fused_forward,
                    "den_scan_bwd": den_scan.fused_backward,
-                   "den_matmul": DenMatmul}
+                   "den_matmul": DenMatmul,
+                   "numerator": numerator_forward_backward}
     fused_launches, fused_losses, fused = train_phase(
         dev, den_f, "train_fused", scan_counts,
-        {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0},
+        {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0,
+         "numerator": 1},
         check_den=den)
     # same seeds, weights, batch and SpecAugment generator as "train"
     np.testing.assert_allclose(fused_losses[0], losses[0], rtol=SMALL_RTOL,
@@ -4495,7 +4580,8 @@ def main():
     ng_vs_cpu_phase(dev, den_f)
     del den_f
     egs_dir, egs_graph = egs_phase()
-    _, den_check, trainer_ref = trainer_phase(egs_dir, egs_graph, dev)
+    trainer_launches, den_check, trainer_ref = trainer_phase(
+        egs_dir, egs_graph, dev)
     dp_launches, dryrun_8 = data_parallel_phase(egs_dir, graph, trainer_ref,
                                                 dev)
     msp_launches = model_seq_parallel_phase(dev, graph, dryrun_8)
@@ -4587,6 +4673,11 @@ def main():
               REDUCE_REPLACES, lowp["segment_reduce_inexact"],
               red_x["max_abs_err"], red_x["ms"], red_x["plain_ms"],
               red_x["bound"], red_x["library_ms"]),
+        # launches: the train, train_fused and trainer phases' steps
+        entry("numerator", "numerator.cu", NUM_REPLACES,
+              launches["numerator"] + fused_launches["numerator"]
+              + trainer_launches["numerator"], num["max_abs_err_post"],
+              num["ms"], num["plain_ms"], num["bound"], None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,24 @@
 
 Port of `_num_forward_backward` (kaldi_fp16_tpu/chain/numerator.py:38-115).
 The supervision FSTs of a batch are padded to B x (S states, A arcs)
-(chain/graph.py NumeratorGraphBatch) and the T-step recursions run as
-Python loops over the batch-wide arrays.
+(chain/graph.py NumeratorGraphBatch).
 
-Per frame, the per-arc values are read from the states with an exact
-gather, and summed into states by a segment log-sum-exp with a per-row
-max shift whose sum is a product against a stored fp32 one-hot matrix,
-not a scatter-add: on CUDA, scatter-adds use float atomics, and the
-one-hot product keeps repeated runs bit-identical.  TF32 is off for these
-products.  States more than ~87 nats below the row max underflow to
-log-zero, as in the JAX package.
+`numerator_forward_backward` computes it for CUDA tensors with one launch
+of the hand-written kernel (ops/numerator.py, csrc/numerator.cu) and for
+CPU tensors with the plain version `_forward_backward`, which the tests
+hold against the JAX package and the float64 oracle.  A CUDA tensor never
+falls back to the plain version.  `numerator_forward_backward.launches`
+counts the calls that launched the kernel.
+
+The plain version runs the T-step recursions as Python loops over the
+batch-wide arrays.  Per frame, the per-arc values are read from the
+states with an exact gather, and summed into states by a segment
+log-sum-exp with a per-row max shift whose sum is a product against a
+stored fp32 one-hot matrix, not a scatter-add: on CUDA, scatter-adds use
+float atomics, and the one-hot product keeps repeated runs bit-identical.
+TF32 is off for these products.  States more than ~87 nats below the row
+max underflow to log-zero, as in the JAX package.  The kernel does the
+same arithmetic with each sum in increasing arc order.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from kaldi_fp16_tpu_torch.chain.graph import LOG_ZERO, NumeratorGraphBatch
 from kaldi_fp16_tpu_torch.ops.den_matmul import fp32_matmuls
+from kaldi_fp16_tpu_torch.ops.numerator import check_inputs, numerator_kernel
 
 
 def _one_hot(idx: torch.Tensor, num: int) -> torch.Tensor:
@@ -36,9 +45,19 @@ def _one_hot(idx: torch.Tensor, num: int) -> torch.Tensor:
 def numerator_forward_backward(graph: NumeratorGraphBatch,
                                nnet_output: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """nnet_output [B, T, P] -> (total_logprob [B], posteriors [B, T, P])."""
+    """nnet_output [B, T, P] -> (total_logprob [B], posteriors [B, T, P]):
+    the kernel for CUDA tensors, the plain version for CPU tensors; both
+    raise on what the kernel does not take (ops.numerator.check_inputs)."""
+    if nnet_output.device.type != "cpu":
+        out = numerator_kernel(graph, nnet_output)
+        numerator_forward_backward.launches += 1
+        return out
+    check_inputs(graph, nnet_output)
     with fp32_matmuls():
         return _forward_backward(graph, nnet_output.float())
+
+
+numerator_forward_backward.launches = 0
 
 
 def _forward_backward(graph, nnet_output):

@@ -164,4 +164,13 @@ def library() -> ctypes.CDLL:
     #                stream)
     lib.segment_reduce.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.segment_reduce.restype = i
+    # chain_numerator(x, arc_src, arc_dst, arc_pdf, arc_logw, arc_mask,
+    #                 start, final_logw, alpha_hist, total, post,
+    #                 B, T, P, S, A, stream)
+    lib.chain_numerator.argtypes = [p] * 11 + [i] * 5 + [p]
+    lib.chain_numerator.restype = i
+    lib.numerator_max_states.argtypes = []
+    lib.numerator_max_states.restype = i
+    lib.numerator_max_arcs.argtypes = []
+    lib.numerator_max_arcs.restype = i
     return lib
