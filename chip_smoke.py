@@ -60,6 +60,15 @@ Phases, one line of numbers each:
                      repeats bit-identical), a split3 loop den against the
                      plain one; bench.py's step through tools.trainbench
                      exact, --mode fast, --bn-lowp and both; its seconds
+ 8c. lstmp           the fast-lstmp recurrence kernels (csrc/lstmp.cu) at
+                     the benchmark's TDNN-LSTM layer (B = 64, 72 steps,
+                     C = 1024, R = 256) against the plain loop on the same
+                     card tensors, bf16 and fp32 operands, forward and
+                     backward, repeats bit-identical, timed; the den at
+                     B = 64 padded to the fused scans' tile against the
+                     loop den, timed; 3 TDNN-LSTM train steps (the
+                     benchmark's xconfig, B = 64, T_in = 222) launching the
+                     recurrence 6 times a step
   9. small           a narrow fp32 train step on the card against the CPU
  10. train           1 warm-up + 5 timed flagship train steps, loop scans
  11. train_fused     the same with the default den (fused scans)
@@ -345,6 +354,9 @@ from kaldi_fp16_tpu_torch.parallel.mesh import (
 )
 from kaldi_fp16_tpu_torch.chain import numerator as num_module
 from kaldi_fp16_tpu_torch.chain.numerator import numerator_forward_backward
+from kaldi_fp16_tpu_torch.ops.lstmp import (
+    LstmpSteps, lstmp_recurrence, lstmp_recurrence_plain,
+)
 from kaldi_fp16_tpu_torch.ops.segment_reduce import (
     segment_order, segment_order_plain, segment_reduce, segment_reduce_plain,
 )
@@ -416,6 +428,20 @@ NUM_REPS = 10                    # numerator calls per timed CUDA graph
 # (tests/test_torch_numerator.py)
 NUM_LOGP_RTOL, NUM_POST_RTOL, NUM_POST_ATOL = 1e-5, 1e-4, 1e-6
 NUM_REPLACES = "none (kaldi_fp16_tpu/chain/numerator.py, a lax.scan)"
+# the TDNN-LSTM's recurrence (tests/test_torch_lstmp.py's `cell` case): B,
+# steps, C, R, first step with a state, derivative window, the derivatives'
+# scale (large enough to clip and zero); the kernel against the plain loop
+# at that test's bars: fp32 sums in another order, and with bf16 operands
+# the bf16 rounding ties that order moves, carried through the steps
+LSTMP_B, LSTMP_T, LSTMP_C, LSTMP_R = 64, 72, 1024, 256
+LSTMP_START, LSTMP_WINDOW, LSTMP_GRAD = 1, (10, 71), 3.0
+LSTMP_BARS = {True: dict.fromkeys(("r", "m", "grads"), 5e-3),
+              False: {"r": 2e-5, "m": 2e-5, "grads": 1e-4}}
+LSTMP_REPLACES = "none (the JAX package has no recurrent layer)"
+LSTMP_XCONFIG = ROOT / "benchmark" / "configs" / "tdnn_lstm.xconfig"
+# the benchmark's tdnn_lstm.step chunk: 150 + 40 frames of left context +
+# the model's 21 / 11, 50 outputs, derivative margin 8
+LSTMP_T_IN, LSTMP_LEFT, LSTMP_T_OUT, LSTMP_MARGIN = 222, 61, 50, 8
 # fp32 card vs CPU: summation order only, through two SGD steps
 SMALL_RTOL = 1e-4
 # NG ranks of the small NG step: at the default ranks each narrow site
@@ -1142,6 +1168,188 @@ def numerator_phase(dev):
                             + B * T_OUT * A), 0),
     }
     phase("numerator", **result)
+    return result
+
+
+def lstmp_bounds(B, steps, C, R):
+    """(forward, backward) bounds of one layer's recurrence over `steps`
+    steps (benchmark/counts/lstmp.py's counts, bf16 operands): the
+    products, the gates' pre-activations and derivatives, c, m and r and
+    their derivatives each moved once, the recurrent weights once."""
+    rows, w = B * steps, 2 * (R * 4 * C + C * R)
+    fwd = bound(rows * (16 * C + 4 * C + 2 * C + 4 * R) + w,
+                steps * (2.0 * B * R * 4 * C + 2.0 * B * C * R + 20 * B * C))
+    bwd = bound(rows * (16 * C + 8 * C + 4 * R) + rows * (16 * C + 4 * R)
+                + w, steps * (2.0 * B * R * C + 2.0 * B * 4 * C * R
+                              + 30 * B * C))
+    return fwd, bwd
+
+
+def lstmp_steps(bf16):
+    """The phase's recurrence: from LSTMP_START, delay 1 step of 3 frames,
+    decay scale 0.85, Kaldi's clipping and zeroing, LSTMP_WINDOW."""
+    return LstmpSteps(start=LSTMP_START, delay=1, scale=0.85,
+                      deriv_lo=LSTMP_WINDOW[0], deriv_hi=LSTMP_WINDOW[1],
+                      recurrence_frames=3, frame0=-40, frame_step=3,
+                      bf16_ops=bf16)
+
+
+def lstmp_phase(dev, graph):
+    """The recurrence kernels against the plain loop at the TDNN-LSTM
+    cell's layer, the den's B = 64 route, and the TDNN-LSTM train step's
+    launches (see the phase list).  Returns the kernels line's numbers."""
+    B, T, C, R = LSTMP_B, LSTMP_T, LSTMP_C, LSTMP_R
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    leaves = [rnd(B, T, 4 * C), rnd(R, 4 * C, scale=R ** -0.5),
+              rnd(3, C, scale=0.3), rnd(C, R, scale=C ** -0.5),
+              rnd(R, scale=0.1)]
+    g_r, g_m = rnd(B, T, R, scale=LSTMP_GRAD), rnd(B, T, C, scale=LSTMP_GRAD)
+    lo, hi = LSTMP_WINDOW
+
+    def run(fn, steps):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        r, m = fn(*xs, steps)
+        torch.autograd.backward([r, m], [g_r, g_m])
+        return [r.detach(), m.detach()] + [x.grad for x in xs]
+
+    result = {"B": B, "T": T, "C": C, "R": R}
+    names = ("r", "m", "dz", "dw_r", "dpeephole", "dw_rr", "db_r")
+    for bf16 in (True, False):
+        tag = "bf16" if bf16 else "fp32"
+        steps = lstmp_steps(bf16)
+        plain = run(lstmp_recurrence_plain, steps)
+        before = lstmp_recurrence.launches
+        kern = run(lstmp_recurrence, steps)
+        torch.cuda.synchronize()
+        if lstmp_recurrence.launches - before != 2:
+            raise AssertionError("the recurrence did not launch once a pass")
+        again = run(lstmp_recurrence, steps)
+        if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+            raise AssertionError(f"lstmp kernel repeats differ ({tag})")
+        gaps = {n: float((k - p).norm() / p.norm().clamp(min=1e-30))
+                for n, k, p in zip(names, kern, plain)}
+        bars = LSTMP_BARS[bf16]
+        over = {n: v for n, v in gaps.items()
+                if v >= bars.get(n, bars["grads"])}
+        if over:
+            raise AssertionError(f"lstmp kernel vs plain ({tag}): {over}")
+        if kern[2][:, :lo].abs().sum() or kern[2][:, hi + 1:].abs().sum():
+            raise AssertionError("lstmp: a derivative outside the window")
+        result[f"rel_err_{tag}"] = gaps
+        abs_err = [float((k - p).abs().max()) for k, p in zip(kern, plain)]
+        result[f"max_abs_err_{tag}"] = {"fwd": max(abs_err[:2]),
+                                        "bwd": max(abs_err[2:])}
+
+        def forward(fn):
+            with torch.no_grad():
+                fn(*leaves, steps)
+
+        def backward(fn):
+            xs = [x.clone().requires_grad_(True) for x in leaves]
+            r, m = fn(*xs, steps)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.autograd.backward([r, m], [g_r, g_m])
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        # device ms of a pass, kernel and plain loop in turns
+        ms = {"fwd": [], "bwd": [], "fwd_plain": [], "bwd_plain": []}
+        forward(lstmp_recurrence), forward(lstmp_recurrence_plain)
+        for kernel in (False, True, True, False):
+            fn = lstmp_recurrence if kernel else lstmp_recurrence_plain
+            sfx = "" if kernel else "_plain"
+            ms["fwd" + sfx].append(cuda_ms(lambda: forward(fn), 1))
+            ms["bwd" + sfx].append(backward(fn))
+        result[f"ms_{tag}"] = {k: float(np.mean(v)) for k, v in ms.items()}
+    # the kernels alone, bf16 (the train step's mode), under the profiler
+    _, rows = kernel_times(lambda: run(lstmp_recurrence, lstmp_steps(True)))
+    alone = {name: us / 1e3 for name, _, us in rows if "lstmp_" in name}
+    result["kernel_alone_ms"] = alone
+    fwd_b, bwd_b = lstmp_bounds(B, T - LSTMP_START, C, R)
+    result["bound"] = {"fwd": fwd_b, "bwd": bwd_b}
+
+    # the den at the TDNN-LSTM's B = 64: the default den pads the batch to
+    # the fused scans' 128-row tile; the loop den runs the 64 rows
+    x = torch.randn((B, LSTMP_T_OUT, P), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+    den_f = DenominatorComputation(graph, leaky=1e-5, device=dev)
+    den_l = DenominatorComputation(graph, leaky=1e-5, scan_impl="loop",
+                                   device=dev)
+    (lp_f, post_f), (lp_l, post_l) = (den_f.forward_backward(x),
+                                      den_l.forward_backward(x))
+    routes = (den_f._structured.scan_used, den_l._structured.scan_used)
+    if routes != ("fused", "loop"):
+        raise AssertionError(f"den routes at B = 64: {routes}")
+    torch.testing.assert_close(lp_f, lp_l, rtol=LOGP_RTOL, atol=0)
+    torch.testing.assert_close(post_f, post_l, rtol=POST_RTOL,
+                               atol=POST_ATOL)
+    fused_ms, loop_ms = alternate_ms(lambda: den_l.forward_backward(x),
+                                     lambda: den_f.forward_backward(x))
+    result["den_b64"] = {"T": LSTMP_T_OUT, "padded_fused_ms": fused_ms,
+                         "loop_ms": loop_ms}
+    del den_l, x, post_f, post_l
+
+    # the TDNN-LSTM's train step on the main path: counts from 0 here
+    rng = np.random.default_rng(9)
+    model = build_model(str(LSTMP_XCONFIG))
+    config = TrainConfig(learning_rate=1e-3, momentum=0.9,
+                         frame_subsampling_factor=STRIDE,
+                         left_context=LSTMP_LEFT,
+                         deriv_truncate_margin=LSTMP_MARGIN)
+    net, opt, scale = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), config, device=dev)
+    step = make_train_step(
+        model, net, den_f,
+        bench_num_graph(B, LSTMP_T_OUT, 2 * LSTMP_T_OUT, P, rng),
+        ChainTrainingOpts(), config, num_frames_out=LSTMP_T_OUT)
+    batch = {
+        "features": torch.from_numpy(rng.normal(
+            size=(B, LSTMP_T_IN, 40)).astype(np.float32)).to(dev),
+        "ivectors": torch.from_numpy(rng.normal(
+            size=(B, 100)).astype(np.float32)).to(dev),
+        "weights": torch.ones(B, device=dev)}
+    counters = {"lstmp": lstmp_recurrence,
+                "den_scan_fwd": den_scan.fused_forward,
+                "den_scan_bwd": den_scan.fused_backward,
+                "numerator": numerator_forward_backward}
+    per_step = {"lstmp": 6, "den_scan_fwd": 1, "den_scan_bwd": 1,
+                "numerator": 1}
+    for c in counters.values():
+        c.launches = 0
+    step_ms, losses = [], []
+    for i in range(3):
+        before = {k: c.launches for k, c in counters.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt, scale, out = step(opt, scale, batch)
+        end.record()
+        end.synchronize()
+        got = {k: c.launches - before[k] for k, c in counters.items()}
+        if got != per_step:
+            raise AssertionError(f"TDNN-LSTM step {i} launched {got}, "
+                                 f"expected {per_step}")
+        loss = float(out.loss)
+        if not (np.isfinite(loss) and bool(out.ok) and not bool(out.skipped)):
+            raise AssertionError(f"TDNN-LSTM step {i}: loss {loss}, ok "
+                                 f"{bool(out.ok)}, skipped "
+                                 f"{bool(out.skipped)}")
+        losses.append(loss)
+        if i > 0:
+            step_ms.append(start.elapsed_time(end))
+    result["train"] = {"B": B, "T_in": LSTMP_T_IN, "T_out": LSTMP_T_OUT,
+                       "losses": losses, "step_ms_each": step_ms,
+                       "launches": lstmp_recurrence.launches,
+                       "max_memory_allocated_bytes":
+                           torch.cuda.max_memory_allocated()}
+    phase("lstmp", **result)
     return result
 
 
@@ -4560,6 +4768,7 @@ def main():
     num = numerator_phase(dev)
     lowp = lowp_phase(dev, graph, den, den_f, den_b)
     del den_b
+    lstm = lstmp_phase(dev, graph)
     small_step_phase(dev)
     launches, losses, _ = train_phase(
         dev, den, "train", {"den_matmul": DenMatmul,
@@ -4678,6 +4887,16 @@ def main():
               launches["numerator"] + fused_launches["numerator"]
               + trainer_launches["numerator"], num["max_abs_err_post"],
               num["ms"], num["plain_ms"], num["bound"], None),
+        # bf16 operands, as the train step runs them; launches: the lstmp
+        # phase's TDNN-LSTM train steps
+        entry("lstmp_fwd", "lstmp.cu", LSTMP_REPLACES,
+              lstm["train"]["launches"] // 2,
+              lstm["max_abs_err_bf16"]["fwd"], lstm["ms_bf16"]["fwd"],
+              lstm["ms_bf16"]["fwd_plain"], lstm["bound"]["fwd"], None),
+        entry("lstmp_bwd", "lstmp.cu", LSTMP_REPLACES,
+              lstm["train"]["launches"] // 2,
+              lstm["max_abs_err_bf16"]["bwd"], lstm["ms_bf16"]["bwd"],
+              lstm["ms_bf16"]["bwd_plain"], lstm["bound"]["bwd"], None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,13 @@ Two scan implementations, as in the JAX package (`scan_impl`):
   "fused"  each recursion is one call of the fused scan kernels
            (ops/den_scan.py, csrc/den_scan.cu), which fuse every frame's M
            product with its elementwise update.  Needs one chain-length
-           group with L >= 2, hoisted emissions and N % 128 == 0; the chain
+           group with L >= 2, hoisted emissions and N % 128 == 0.  On a
+           card a batch whose N is not a multiple of 128 (the kernels' row
+           tile) is padded with rows of zero nnet output for the scans and
+           cut back after them (rows are independent: the padding moves no
+           real row), where the loop's per-frame launches would cost more
+           than the padded rows; on the CPU it takes the loop, as the
+           JAX package's fused instance does; the chain
            axis is padded to a multiple of 128 (`pad_chains`) once, here,
            and the whole instance (the loop path it takes for other batch
            sizes, and the posteriors) then runs on the padded layout, as in
@@ -84,7 +90,7 @@ from kaldi_fp16_tpu_torch.ops.den_matmul import (
     DenMatmul, bf16_product, fp32_matmuls, split3, split_planes,
 )
 from kaldi_fp16_tpu_torch.ops.den_scan import (
-    ScanPlane, fused_backward, fused_forward, fused_scan_supported,
+    LANE, ScanPlane, fused_backward, fused_forward, fused_scan_supported,
 )
 
 SB = 128   # pdf block width of the posterior one-hot reduce
@@ -352,11 +358,23 @@ class StructuredKernels:
         x = torch.exp(torch.clamp(nnet_output.float(), -30.0, 30.0))
         x_tpn = x.permute(1, 2, 0).contiguous()            # [T, P, N]
 
-        # hoist budget: 2 passes of (2L+1)*F*N fp32 per frame
-        hoist = T * (2 * L + 1) * F * N * 4 * 2 <= self.hoist_bytes
-        self.scan_used = "fused" if self._use_fused(N, hoist) else "loop"
-        if self.scan_used == "fused":
-            return self._forward_backward_fused(x_tpn, N, T, compute_grad)
+        def fits(n):    # hoist budget: 2 passes of (2L+1)*F*n fp32 per frame
+            return T * (2 * L + 1) * F * n * 4 * 2 <= self.hoist_bytes
+
+        # on a card, a batch off the fused scans' row tile is padded up to
+        # it with rows of zero nnet output (emissions exp(0) = 1), dropped
+        # again after the scans
+        n_fused = N + (-N % LANE if x_tpn.is_cuda else 0)
+        if self._use_fused(n_fused, fits(n_fused)):
+            self.scan_used = "fused"
+            if n_fused > N:
+                x_tpn = torch.nn.functional.pad(x_tpn, (0, n_fused - N),
+                                                value=1.0)
+            lp, post = self._forward_backward_fused(x_tpn, n_fused, T,
+                                                    compute_grad)
+            return lp[:N], None if post is None else post[:N]
+        self.scan_used = "loop"
+        hoist = fits(N)
         frame = self._emissions(x_tpn, hoist)
 
         # ---- forward (alpha recursion) -------------------------------------

@@ -6,7 +6,10 @@ form a CARTESIAN product (Kaldi TimeHeightConvolutionComponent <Offsets>),
 not zipped pairs as the reference assumed.  Feature-map layout everywhere is
 Kaldi's: column = height_index * num_filters + filter_index (filter fastest).
 
-Copy of kaldi_fp16_tpu/models/layers.py (pure Python, see xconfig.py).
+Copy of kaldi_fp16_tpu/models/layers.py (pure Python, see xconfig.py),
+with the port's own TDNN-LSTM layers: fixed-affine-layer, relu-renorm-layer,
+fast-lstmp-layer and the output layer's output-delay (Kaldi's
+steps/libs/nnet3/xconfig/{basic_layers,lstm}.py defaults).
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ class InputSpec:
     ref: InputRef
     names: List[str] = field(default_factory=list)  # resolved source names
     dim: int = 0
+    # each source's time offset (the source at t + offset); all 0 but in an
+    # Append of offsets
+    offsets: List[int] = field(default_factory=list)
 
 
 # -- per-type specs ----------------------------------------------------------
@@ -171,6 +177,60 @@ class OutputSpec:
     l2_reg: float = 0.0
     learning_rate_factor: float = 1.0
     max_change: float = 1.5
+    # Kaldi's output-delay: the output at t reads its input at t - delay
+    output_delay: int = 0
+
+
+@dataclass
+class FixedAffineSpec:
+    """Kaldi fixed-affine-layer (the LDA): y = x W + b with W and b held
+    fixed.  Kaldi reads them from affine-transform-file; the port holds
+    them as parameters that the caller sets (Xavier-drawn until then)."""
+    input_dim: int
+    output_dim: int
+    affine_file: str = ""
+
+
+@dataclass
+class ReluRenormSpec:
+    """Kaldi relu-renorm-layer: affine, ReLU, NormalizeComponent
+    (y = x (mean(x^2) / target_rms^2 + 2^-66)^-1/2 per frame)."""
+    input_dim: int
+    output_dim: int
+    target_rms: float = 1.0
+    l2_reg: float = 0.0
+
+
+@dataclass
+class FastLstmpSpec:
+    """Kaldi fast-lstmp-layer: W_all over [x_t ; s r_{t+delay}] into the
+    gates i, f, g, o, the peepholes w_ic, w_fc, w_oc, the cell and W_rp into
+    [r_t ; p_t]; the layer's output is [r_t ; p_t].  The recurrence's
+    BackpropTruncationComponent scales c and r by `scale` both ways and, in
+    the backward, clips each frame's [c ; r] derivative row to
+    clipping_threshold and zeroes one above zeroing_threshold on the frames
+    that cross a multiple of zeroing_interval."""
+    input_dim: int
+    cell_dim: int
+    recurrent_dim: int
+    nonrecurrent_dim: int
+    delay: int = -1
+    decay_time: float = -1.0
+    clipping_threshold: float = 30.0
+    zeroing_threshold: float = 15.0
+    zeroing_interval: int = 20
+    l2_reg: float = 0.0
+
+    @property
+    def output_dim(self) -> int:
+        return self.recurrent_dim + self.nonrecurrent_dim
+
+    @property
+    def scale(self) -> float:
+        """1 - |delay| / decay-time (1 without a decay time)."""
+        if self.decay_time < 0:
+            return 1.0
+        return 1.0 - abs(self.delay) / self.decay_time
 
 
 @dataclass
@@ -228,13 +288,21 @@ def _resolve_input(cfg: LayerConfig, layer_map, layers, idx) -> InputSpec:
         spec.dim = src.output_dim
     elif ref.type == InputType.APPEND:
         total = 0
-        for n in ref.names:
-            inner = parse_input(n)
-            src_name = inner.source if inner.type == InputType.REPLACE_INDEX else n
-            src = resolve_layer_name(src_name, layer_map)
+        for n, off in zip(ref.names, ref.offsets):
+            if not n:                   # an offset of the previous layer
+                if idx == 0:
+                    raise ValueError(f"layer {cfg.name}: an offset needs a "
+                                     "previous layer")
+                src = layers[idx - 1]
+            else:
+                inner = parse_input(n)
+                src_name = (inner.source if inner.type == InputType.REPLACE_INDEX
+                            else n)
+                src = resolve_layer_name(src_name, layer_map)
             if src is None:
                 raise ValueError(f"layer {cfg.name}: append input {n!r} not found")
             spec.names.append(src.name)
+            spec.offsets.append(off)
             total += src.output_dim
         spec.dim = total
     elif ref.type == InputType.REPLACE_INDEX:
@@ -243,6 +311,8 @@ def _resolve_input(cfg: LayerConfig, layer_map, layers, idx) -> InputSpec:
             raise ValueError(f"layer {cfg.name}: input {ref.source!r} not found")
         spec.names = [src.name]
         spec.dim = src.output_dim
+    if not spec.offsets:
+        spec.offsets = [0] * len(spec.names)
     return spec
 
 
@@ -366,7 +436,46 @@ def _resolve_one(cfg: LayerConfig, layer_map, layers, idx) -> Layer:
                           include_log_softmax=cfg.get_bool("include-log-softmax", True),
                           l2_reg=cfg.get_float("l2-regularize"),
                           learning_rate_factor=cfg.get_float("learning-rate-factor", 1.0),
-                          max_change=cfg.get_float("max-change", 1.5))
+                          max_change=cfg.get_float("max-change", 1.5),
+                          output_delay=cfg.get_int("output-delay", 0))
         return Layer(cfg.name, t, cfg, inp, inp.dim, dim, spec)
+
+    if t == LayerType.FIXED_AFFINE:
+        dim = cfg.get_int("dim", inp.dim)
+        spec = FixedAffineSpec(inp.dim, dim,
+                               affine_file=cfg.get_str("affine-transform-file"))
+        return Layer(cfg.name, t, cfg, inp, inp.dim, dim, spec)
+
+    if t == LayerType.RELU_RENORM:
+        dim = cfg.get_int("dim")
+        if dim <= 0:
+            raise ValueError(f"relu-renorm-layer {cfg.name}: missing dim")
+        spec = ReluRenormSpec(inp.dim, dim,
+                              target_rms=cfg.get_float("target-rms", 1.0),
+                              l2_reg=cfg.get_float("l2-regularize"))
+        return Layer(cfg.name, t, cfg, inp, inp.dim, dim, spec)
+
+    if t == LayerType.FAST_LSTMP:
+        cell = cfg.get_int("cell-dim")
+        rec = cfg.get_int("recurrent-projection-dim", cell // 4)
+        nonrec = cfg.get_int("non-recurrent-projection-dim", cell // 4)
+        if cell <= 0 or rec <= 0 or nonrec < 0:
+            raise ValueError(f"fast-lstmp-layer {cfg.name}: need cell-dim > 0 "
+                             "and recurrent-projection-dim > 0")
+        spec = FastLstmpSpec(
+            inp.dim, cell, rec, nonrec,
+            delay=cfg.get_int("delay", -1),
+            decay_time=cfg.get_float("decay-time", -1.0),
+            clipping_threshold=cfg.get_float("clipping-threshold", 30.0),
+            zeroing_threshold=cfg.get_float("zeroing-threshold", 15.0),
+            zeroing_interval=cfg.get_int("zeroing-interval", 20),
+            l2_reg=cfg.get_float("l2-regularize"))
+        if spec.delay >= 0:
+            raise ValueError(f"fast-lstmp-layer {cfg.name}: delay must be "
+                             f"negative (a forward recurrence), got {spec.delay}")
+        if spec.scale <= 0:
+            raise ValueError(f"fast-lstmp-layer {cfg.name}: decay-time must "
+                             "exceed |delay|")
+        return Layer(cfg.name, t, cfg, inp, inp.dim, spec.output_dim, spec)
 
     raise ValueError(f"unsupported layer type: {t}")

@@ -15,7 +15,7 @@ from kaldi_fp16_tpu_torch.models.xconfig import LayerType, parse_xconfig, parse_
 from kaldi_fp16_tpu_torch.models.layers import (
     Layer, resolve_layers,
     ConvReluBNSpec, TDNNFSpec, AttentionSpec, PrefinalSpec, OutputSpec,
-    LinearSpec, IDCTSpec,
+    LinearSpec, IDCTSpec, FastLstmpSpec, ReluRenormSpec,
 )
 
 
@@ -80,8 +80,13 @@ class Model:
             elif isinstance(s, PrefinalSpec):
                 total += s.input_dim * s.big_dim + s.big_dim
                 total += s.big_dim * s.small_dim
-            elif isinstance(s, OutputSpec):
+            elif isinstance(s, (OutputSpec, ReluRenormSpec)):
                 total += s.input_dim * s.output_dim + s.output_dim
+            elif isinstance(s, FastLstmpSpec):
+                gates = 4 * s.cell_dim
+                total += (s.input_dim + s.recurrent_dim + 1) * gates
+                total += 3 * s.cell_dim                      # peepholes
+                total += (s.cell_dim + 1) * s.output_dim
         return total
 
     def time_context(self) -> tuple:
@@ -96,13 +101,19 @@ class Model:
         compute, never correctness.  (The reference never computes this:
         its egs arrive pre-chunked with context baked in — docs
         kaldi-egs-format.md t=-31..171; this is the serving-side
-        equivalent.)"""
-        from kaldi_fp16_tpu_torch.models.layers import (
-            AttentionSpec, ConvReluBNSpec, TDNNFSpec,
-        )
+        equivalent.)
+
+        An Append's time offsets add their reach; a fast-lstmp layer adds
+        none (its recurrence reads the past only where it is defined,
+        Kaldi's IfDefined); the outputs' output-delay moves the context
+        left, once (the largest delay)."""
         left = right = 0
         for l in self.layers:
             s = l.spec
+            offs = l.input.offsets
+            if offs:
+                left += max(0, -min(offs))
+                right += max(0, max(offs))
             if isinstance(s, ConvReluBNSpec):
                 left += max(0, -min(s.time_offsets))
                 right += max(0, max(s.time_offsets))
@@ -112,7 +123,8 @@ class Model:
             elif isinstance(s, AttentionSpec):
                 left += s.num_left_inputs * s.time_stride
                 right += s.num_right_inputs * s.time_stride
-        return left, right
+        delay = max([o.spec.output_delay for o in self.outputs()], default=0)
+        return left + delay, max(0, right - delay)
 
     def summary(self) -> str:
         lines = [f"{'#':>3} {'name':<22} {'type':<28} {'in':>6} {'out':>6}  input"]

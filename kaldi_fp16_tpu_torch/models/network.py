@@ -6,6 +6,21 @@ combine-feature-maps, conv-relu-batchnorm (direct, cut-conv and patch
 lowerings), tdnnf, restricted attention (attention-relu-batchnorm),
 relu-batchnorm, prefinal and the output heads, and the natural-gradient
 sites (`ng_sites`, `NGContext`): every layer type the JAX package builds.
+Beside them the port runs Kaldi's TDNN-LSTM layers, which the JAX package
+has not: fixed-affine-layer (the LDA), relu-renorm-layer, fast-lstmp-layer
+(its recurrence in ops/lstmp.py) and the output layer's output-delay, and
+an Append's time offsets.
+
+A recurrence starts at zero state at the first frame where its input is
+defined: frame 0 of the chunk plus the context the layers below it read
+to the left (Kaldi computes no frame whose inputs do not exist, and
+IfDefined reads a zero state before it).  Under an output-delay d the
+layers below the delayed outputs run on the grid shifted by d: frames
+offset - d + k * stride (those inside the chunk), and the outputs read
+them there (zero where the shifted frame lies outside the chunk).  A
+training chunk's times (`ChunkTimes`) give the recurrence its origin, for
+the backward's zeroing interval, and the derivative window outside which
+every layer's derivative is zero (nnet3's LimitDerivativeTimes).
 
 Layouts follow the JAX package at every public boundary: activations are
 [B, T, D] with a feature map's column = height * num_filters + filter
@@ -58,8 +73,8 @@ from torch import nn
 
 from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.models.layers import (
-    AttentionSpec, CombineFeatureMapsSpec, ConvReluBNSpec, Layer,
-    SpecAugmentSpec, TDNNFSpec,
+    AttentionSpec, CombineFeatureMapsSpec, ConvReluBNSpec, FastLstmpSpec,
+    Layer, ReluRenormSpec, SpecAugmentSpec, TDNNFSpec,
 )
 from kaldi_fp16_tpu_torch.models.model import Model
 from kaldi_fp16_tpu_torch.models.xconfig import InputType, LayerType
@@ -68,6 +83,8 @@ from kaldi_fp16_tpu_torch.parallel.data_parallel import (
     reduce_from, spec_rows,
 )
 from kaldi_fp16_tpu_torch.parallel.mesh import mesh_axes
+from kaldi_fp16_tpu_torch.ops.lstmp import LstmpSteps, lstmp_recurrence
+from kaldi_fp16_tpu_torch.utils.spans import span
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 State = Dict[str, dict]
@@ -161,15 +178,27 @@ def _init_layer(layer: Layer, generator: torch.Generator,
     if t == LayerType.ATTENTION_RELU_BATCHNORM:
         proj = s.num_heads * s.input_dim_per_head
         return {"w": xavier(s.input_dim, proj), "b": zeros(proj)}
+    if t in (LayerType.FIXED_AFFINE, LayerType.RELU_RENORM):
+        return {"w": xavier(s.input_dim, s.output_dim),
+                "b": zeros(s.output_dim)}
+    if t == LayerType.FAST_LSTMP:
+        gates = 4 * s.cell_dim
+        return {"w_all": xavier(s.input_dim + s.recurrent_dim, gates),
+                "b_all": zeros(gates),
+                "peephole": xavier(3, s.cell_dim),
+                "w_rp": xavier(s.cell_dim, s.output_dim),
+                "b_rp": zeros(s.output_dim)}
     return {}
 
 
 def trainable_mask(model: Model, params: Params) -> Dict[str, Dict[str, bool]]:
-    """False for fixed matrices (idct), True for everything else."""
+    """False for fixed matrices (idct, fixed-affine), True for everything
+    else."""
     mask = {}
     for lname, p in params.items():
         layer = model.layer_map.get(lname)
-        fixed = layer is not None and layer.type == LayerType.IDCT
+        fixed = layer is not None and layer.type in (LayerType.IDCT,
+                                                     LayerType.FIXED_AFFINE)
         mask[lname] = {k: not fixed for k in p}
     return mask
 
@@ -368,14 +397,21 @@ def ng_sites(model: Model):
     """Registry of natural-gradient sites for a model: one per matmul
     application, with the param names and dims needed to precondition the
     accumulated gradient (copied from network.py:838-884 of the JAX
-    package; `in_dim` counts rows of the JAX weight layout)."""
+    package; `in_dim` counts rows of the JAX weight layout).  A model with a
+    fast-lstmp layer raises: its recurrent products' inputs live inside the
+    recurrence kernel, and NG-SGD does not reach them yet."""
+    lstm = [l.name for l in model.layers if l.type == LayerType.FAST_LSTMP]
+    if lstm:
+        raise NotImplementedError(
+            f"natural gradient is not implemented for fast-lstmp layers "
+            f"({', '.join(lstm)}); train this model without it")
     sites = []
     for layer in model.layers:
         t, sp, n = layer.type, layer.spec, layer.name
         if t == LayerType.LINEAR:
             sites.append(dict(name=f"{n}/w", layer=n, w="w", b=None,
                               in_dim=sp.input_dim, out_dim=sp.output_dim))
-        elif t == LayerType.RELU_BATCHNORM:
+        elif t in (LayerType.RELU_BATCHNORM, LayerType.RELU_RENORM):
             sites.append(dict(name=f"{n}/w", layer=n, w="w", b="b",
                               in_dim=sp.input_dim, out_dim=sp.output_dim))
         elif t == LayerType.CONV_RELU_BATCHNORM:
@@ -545,6 +581,80 @@ def _fwd_attention(spec: AttentionSpec, p: dict, bn: dict, x: torch.Tensor,
     return _batchnorm(out, bn, spec.target_rms, 1e-3, train, tc, bn_lowp)
 
 
+def _fwd_relu_renorm(spec: ReluRenormSpec, p: dict, x: torch.Tensor, dtype,
+                     ng=None, lname="", tc=None) -> torch.Tensor:
+    """Affine, ReLU, then Kaldi's NormalizeComponent: each frame scaled to
+    root-mean-square target_rms, y = x (mean(x^2) / target_rms^2 +
+    2^-66)^-1/2, in fp32."""
+    out = _matmul(x, p["w"], dtype) + p["b"].float()
+    out = torch.relu(_site(ng, f"{lname}/w", x, out, tc))
+    ms = out.square().mean(-1, keepdim=True)
+    return out * torch.rsqrt(ms / spec.target_rms ** 2 + 2.0 ** -66)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkTimes:
+    """A training chunk's times, in its input frames: `origin`, the first
+    supervised frame (Kaldi's t = 0), and the derivative window [deriv_lo,
+    deriv_hi] outside which every derivative is zero (None: no window)."""
+    origin: int = 0
+    deriv_lo: Optional[int] = None
+    deriv_hi: Optional[int] = None
+
+    def steps(self, frame0: int, rate: int, n: int) -> Tuple[int, int]:
+        """The window as (first, last) of n frames frame0 + j * rate."""
+        lo = (0 if self.deriv_lo is None
+              else -((frame0 - self.deriv_lo) // rate))
+        hi = n - 1 if self.deriv_hi is None else (self.deriv_hi - frame0) // rate
+        return lo, hi
+
+
+class _DerivWindow(torch.autograd.Function):
+    """Identity on [B, n, ...]; the derivative is zero outside frames
+    [lo, hi]."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.lo, ctx.hi = lo, hi
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        g[:, :max(ctx.lo, 0)] = 0
+        g[:, max(ctx.hi + 1, 0):] = 0
+        return g, None, None
+
+
+def _fwd_fast_lstmp(spec: FastLstmpSpec, p: dict, x: torch.Tensor, dtype,
+                    rate: int, frame0: int, defined: int,
+                    chunk: Optional[ChunkTimes]) -> torch.Tensor:
+    """Kaldi's fast-lstmp layer over x [B, n, D_in], frames frame0 + j *
+    rate: W_all's input rows applied to every frame in one matmul, the
+    recurrence (ops/lstmp.py) from the first frame at or after `defined`,
+    where the input is defined, and W_rp's non-recurrent columns on m in
+    one matmul; the output is [r ; p]."""
+    n = x.shape[1]
+    din, R = spec.input_dim, spec.recurrent_dim
+    origin = 0 if chunk is None else chunk.origin
+    lo, hi = (0, n - 1) if chunk is None else chunk.steps(frame0, rate, n)
+    steps = LstmpSteps(
+        start=min(n, max(0, -((frame0 - defined) // rate))),
+        delay=-spec.delay // rate, scale=spec.scale, deriv_lo=lo,
+        deriv_hi=hi, clip=spec.clipping_threshold,
+        zero_threshold=spec.zeroing_threshold,
+        zero_interval=spec.zeroing_interval,
+        recurrence_frames=-spec.delay, frame0=frame0 - origin,
+        frame_step=rate, bf16_ops=dtype == torch.bfloat16)
+    z = _matmul(x, p["w_all"][:din], dtype) + p["b_all"].float()
+    r, m = lstmp_recurrence(z, p["w_all"][din:], p["peephole"],
+                            p["w_rp"][:, :R], p["b_rp"][:R], steps)
+    if spec.nonrecurrent_dim == 0:
+        return r
+    proj = _matmul(m, p["w_rp"][:, R:], dtype) + p["b_rp"][R:].float()
+    return torch.cat([r, proj], dim=-1)
+
+
 def spec_augment_masks(spec: SpecAugmentSpec, B: int, T: int,
                        generator: torch.Generator, device=None):
     """Draw SpecAugment keep-masks: (freq_keep [B, D] bool or None,
@@ -655,6 +765,10 @@ def _grid_base(model: Model, stride: int) -> frozenset:
 
     def offsets_ok(layer: Layer) -> bool:
         t, s = layer.type, layer.spec
+        if any(o % stride for o in layer.input.offsets):
+            return False
+        if t == LayerType.FAST_LSTMP:
+            return s.delay % stride == 0
         if t == LayerType.TDNNF:
             return s.time_stride % stride == 0
         if t == LayerType.ATTENTION_RELU_BATCHNORM:
@@ -664,6 +778,7 @@ def _grid_base(model: Model, stride: int) -> frozenset:
         if t in (LayerType.INPUT, LayerType.SPEC_AUGMENT):
             return False
         return True     # pointwise: idct/linear/bn/combine/prefinal/output
+                        # (an output's delay moves the grid below it)
 
     grid = set()
     for layer in reversed(order):
@@ -674,6 +789,24 @@ def _grid_base(model: Model, stride: int) -> frozenset:
         if (is_out and not cons) or (cons and all(c in grid for c in cons)):
             grid.add(layer.name)
     return frozenset(grid)
+
+
+def _sources(layer: Layer, prev_name: Optional[str]) -> list:
+    """[(source layer, time offset)] of a layer's input."""
+    if layer.input.ref.type == InputType.PREVIOUS:
+        return [(prev_name, 0)]
+    return list(zip(layer.input.names, layer.input.offsets))
+
+
+def grid_delay(model: Model, grid: frozenset) -> int:
+    """The output-delay of the outputs on the grid (0 without one); the
+    grid layers below them run shifted by it.  Outputs on one grid with
+    different delays raise."""
+    delays = {l.spec.output_delay for l in model.outputs() if l.name in grid}
+    if len(delays) > 1:
+        raise ValueError(f"outputs on the frame grid have different "
+                         f"output-delay values {sorted(delays)}")
+    return delays.pop() if delays else 0
 
 
 def _consumers(model: Model) -> Dict[str, list]:
@@ -821,7 +954,8 @@ class Network(nn.Module):
                 spec_masks: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None,
                 ng: Optional[NGContext] = None, group=None,
-                bn_lowp: Optional[bool] = None):
+                bn_lowp: Optional[bool] = None,
+                chunk: Optional[ChunkTimes] = None):
         """Run the network: ({output_name: [B, T, dim] fp32}, new BN state).
 
         time_subsample=(stride, offset, n_grid) runs every grid-eligible
@@ -850,6 +984,9 @@ class Network(nn.Module):
         bn_lowp: the low-precision BatchNorm for a bf16 network (default:
         the `set_bn_lowp_stats` switch, read here, once: a switch turned
         while the forward runs does not reach it).
+
+        chunk (ChunkTimes): a training chunk's origin and derivative window
+        (see the module docstring); None: origin 0, no window.
         """
         lowp = _BN_LOWP_STATS if bn_lowp is None else bool(bn_lowp)
         model = self.model
@@ -881,26 +1018,71 @@ class Network(nn.Module):
                 grid_tc = full_tc.grid(g_stride, g_offset, n_grid)
                 k_lo, n_k, lo = grid_tc.lo, grid_tc.n, full_tc.lo
             p0 = g_offset + k_lo * g_stride - lo
+        # the layers below delayed outputs: the grid shifted by the delay,
+        # frames q0 + j * stride, j < n_q, inside the chunk; the outputs
+        # read them with pad_lo / pad_hi zero frames around
+        delay = grid_delay(model, grid) if grid else 0
+        q0, n_q, pad_lo, pad_hi = (p0, n_k, 0, 0) if grid else (0, T, 0, 0)
+        if delay:
+            if group is not None:
+                raise NotImplementedError("an output-delay under a mesh")
+            shifted = p0 - delay
+            pad_lo = max(0, -(shifted // g_stride))
+            last = shifted + (n_k - 1) * g_stride
+            pad_hi = max(0, -((T - 1 - last) // g_stride))
+            q0 = shifted + pad_lo * g_stride
+            n_q = max(0, n_k - pad_lo - pad_hi)
 
         def to_grid(a):
-            """Full-rate [B, T, ...] -> grid [B, n_grid, ...]."""
-            return a[:, p0:p0 + (n_k - 1) * g_stride + 1:g_stride]
+            """Full-rate [B, T, ...] -> grid [B, n_grid, ...] (the shifted
+            grid under an output-delay)."""
+            return a[:, q0:q0 + (n_q - 1) * g_stride + 1:g_stride]
+
+        def rate_of(name: str) -> Tuple[int, int]:
+            """(first frame, frames a step) of a layer's output."""
+            if name not in grid:
+                return 0, 1
+            if model.layer_map[name].type == LayerType.OUTPUT:
+                return p0, g_stride
+            return q0, g_stride
+
+        window = (chunk is not None and train and torch.is_grad_enabled()
+                  and (chunk.deriv_lo is not None
+                       or chunk.deriv_hi is not None))
+        if window and group is not None:
+            raise NotImplementedError("a derivative window under a mesh")
+        # the first input frame at which each layer's output is defined
+        defined: Dict[str, int] = {}
 
         def get_input(layer: Layer, prev_name: Optional[str]) -> torch.Tensor:
             # cut convs consume full-rate input (the stride lives in their
             # convolution window)
             on_grid = layer.name in grid and layer.name not in cut
-            if layer.input.ref.type == InputType.PREVIOUS:
-                names = [prev_name]
-            else:
-                names = list(layer.input.names)
+            rate = g_stride if on_grid else 1
             parts = []
-            for n in names:
+            for n, off in _sources(layer, prev_name):
                 a = acts[n]
                 if on_grid and n not in grid:
                     a = to_grid(a)          # the full->grid cut
+                if off:
+                    a = _shifted(a, (off // rate,), "zero",
+                                 grid_tc if on_grid else full_tc)[0]
                 parts.append(a)
             return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+        def defined_at(layer: Layer, prev_name: Optional[str]) -> int:
+            lo_in = max(defined[n] - off
+                        for n, off in _sources(layer, prev_name))
+            t, sp = layer.type, layer.spec
+            if t == LayerType.CONV_RELU_BATCHNORM:
+                return lo_in + max(0, -min(sp.time_offsets))
+            if t == LayerType.TDNNF:
+                return lo_in + sp.time_stride
+            if t == LayerType.ATTENTION_RELU_BATCHNORM:
+                return lo_in + sp.num_left_inputs * sp.time_stride
+            if t == LayerType.OUTPUT:
+                return lo_in + sp.output_delay
+            return lo_in
 
         prev_name: Optional[str] = None
         for layer in model.execution_order():
@@ -916,10 +1098,13 @@ class Network(nn.Module):
                     acts[layer.name] = iv[:, None, :].expand(B, T, iv.shape[-1])
                 else:
                     acts[layer.name] = features.to(dtype)
+                defined[layer.name] = (-(1 << 30) if layer.name == "ivector"
+                                       else 0)
                 prev_name = layer.name
                 continue
 
             x = get_input(layer, prev_name)
+            defined[layer.name] = defined_at(layer, prev_name)
             p = params.get(layer.name, {})
             st = state.get(layer.name)
             tc = (grid_tc if layer.name in grid and layer.name not in cut
@@ -944,7 +1129,7 @@ class Network(nn.Module):
             elif t == LayerType.COMBINE_FEATURE_MAPS:
                 out = _fwd_combine_feature_maps(s, x)
             elif t == LayerType.CONV_RELU_BATCHNORM:
-                gc = (g_stride, p0, n_k) if layer.name in cut else None
+                gc = (g_stride, q0, n_q) if layer.name in cut else None
                 out, new_state[layer.name] = _fwd_conv_relu_bn(
                     s, p, st, x, train, dtype, ng=ng, lname=layer.name,
                     grid_cut=gc, tc=tc, tc_out=grid_tc if gc else tc,
@@ -957,6 +1142,18 @@ class Network(nn.Module):
                 out, new_state[layer.name] = _fwd_attention(
                     s, p, st, x, train, dtype, ng=ng, lname=layer.name,
                     tc=tc, bn_lowp=lowp)
+            elif t == LayerType.FIXED_AFFINE:
+                out = _matmul(x, p["w"], dtype) + p["b"].float()
+            elif t == LayerType.RELU_RENORM:
+                out = _fwd_relu_renorm(s, p, x, dtype, ng=ng,
+                                       lname=layer.name, tc=tc)
+            elif t == LayerType.FAST_LSTMP:
+                if group is not None:
+                    raise NotImplementedError("fast-lstmp layers under a mesh")
+                f0, rate = rate_of(layer.name)
+                with span("network.lstmp"):
+                    out = _fwd_fast_lstmp(s, p, x, dtype, rate, f0,
+                                          defined[layer.name], chunk)
             elif t == LayerType.RELU_BATCHNORM:
                 out = _matmul(x, p["w"], dtype) + p["b"].float()
                 out = _site(ng, f"{layer.name}/w", x, out, tc)
@@ -991,6 +1188,11 @@ class Network(nn.Module):
                                       train, tc, lowp)
                 new_state[layer.name] = {"bn1": ns1, "bn2": ns2}
             elif t == LayerType.OUTPUT:
+                if s.output_delay and layer.name in grid:
+                    # read on the shifted grid: zero where it leaves the chunk
+                    x = F.pad(x, (0, 0, pad_lo, pad_hi))
+                elif s.output_delay:
+                    x = _shifted(x, (-s.output_delay,), "zero", tc)[0]
                 xin = x if tp is None else copy_to(x, tp)
                 out = _matmul(xin, p["w"], dtype) + p["b"].float()
                 out = _site(ng, f"{layer.name}/w", x, out, tc)
@@ -1004,6 +1206,12 @@ class Network(nn.Module):
             else:                           # no-op-component
                 out = x
 
+            if window and t != LayerType.OUTPUT and out.requires_grad:
+                # the chain loss reads only frames inside the window
+                f0, rate = rate_of(layer.name)
+                lo_j, hi_j = chunk.steps(f0, rate, out.shape[1])
+                if lo_j > 0 or hi_j < out.shape[1] - 1:
+                    out = _DerivWindow.apply(out, lo_j, hi_j)
             acts[layer.name] = out if t == LayerType.OUTPUT else out.to(dtype)
             prev_name = layer.name
 

@@ -9,7 +9,10 @@ point of keeping this format.
 Copy of kaldi_fp16_tpu/models/xconfig.py (pure Python).  The JAX
 package's `models/__init__` imports jax, which the PyTorch port must not
 need, so the port carries its own copy; tests/test_torch_network.py holds
-the two equal.
+the two equal on the layer types both have.  The port adds Kaldi's
+TDNN-LSTM layer types (fixed-affine-layer, relu-renorm-layer,
+fast-lstmp-layer) and, in an Append, time offsets of an input: an integer
+k is the previous layer at t + k, and Offset(name, k) the named one.
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ class LayerType(Enum):
     OUTPUT = "output-layer"
     RELU_BATCHNORM = "relu-batchnorm-layer"
     NO_OP = "no-op-component"
+    # the TDNN-LSTM layers (the port's own; the JAX package has none)
+    FIXED_AFFINE = "fixed-affine-layer"
+    RELU_RENORM = "relu-renorm-layer"
+    FAST_LSTMP = "fast-lstmp-layer"
 
 
 _TYPE_BY_NAME = {t.value: t for t in LayerType}
@@ -159,6 +166,9 @@ class InputRef:
     name: str = ""
     names: List[str] = field(default_factory=list)
     source: str = ""
+    # an Append's time offset of each element (names[i] at t + offsets[i]);
+    # an integer element is "" in names, the previous layer
+    offsets: List[int] = field(default_factory=list)
 
 
 def parse_input(spec: str) -> InputRef:
@@ -167,8 +177,12 @@ def parse_input(spec: str) -> InputRef:
         return InputRef(InputType.PREVIOUS)
     if spec.startswith("Append(") and spec.endswith(")"):
         inner = spec[len("Append("):-1]
-        names = [_strip_inner(p) for p in _split_top_level(inner)]
-        return InputRef(InputType.APPEND, names=names)
+        names, offsets = [], []
+        for p in _split_top_level(inner):
+            name, off = _offset_element(_strip_inner(p))
+            names.append(name)
+            offsets.append(off)
+        return InputRef(InputType.APPEND, names=names, offsets=offsets)
     if spec.startswith("ReplaceIndex(") and spec.endswith(")"):
         inner = spec[len("ReplaceIndex("):-1]
         parts = _split_top_level(inner)
@@ -191,6 +205,21 @@ def _split_top_level(s: str) -> List[str]:
     if cur:
         out.append("".join(cur))
     return out
+
+
+def _offset_element(s: str):
+    """(name, time offset) of an Append element: an integer k is ("", k),
+    the previous layer at t + k; Offset(name, k) is (name, k); anything
+    else is itself at offset 0."""
+    try:
+        return "", int(s)
+    except ValueError:
+        pass
+    if s.startswith("Offset(") and s.endswith(")"):
+        parts = _split_top_level(s[len("Offset("):-1])
+        if len(parts) == 2:
+            return parts[0].strip(), int(parts[1])
+    return s, 0
 
 
 def _strip_inner(s: str) -> str:

@@ -94,7 +94,7 @@ from kaldi_fp16_tpu_torch.device import resolve_device
 from kaldi_fp16_tpu_torch.models import network as network_module
 from kaldi_fp16_tpu_torch.models.model import Model
 from kaldi_fp16_tpu_torch.models.network import (
-    NGContext, Network, conv_weight_from_oihw, conv_weight_to_oihw,
+    ChunkTimes, NGContext, Network, conv_weight_from_oihw, conv_weight_to_oihw,
     draw_spec_masks, grid_layers, ng_sites, trainable_mask,
 )
 from kaldi_fp16_tpu_torch.models.xconfig import LayerType
@@ -143,6 +143,10 @@ class TrainConfig:
     # rematerialize the network forward in the backward pass
     # (torch.utils.checkpoint): trades FLOPs for activation memory
     remat: bool = False
+    # Kaldi's --trainer.deriv-truncate-margin: every derivative at input
+    # frames more than this many frames (plus the model's context) outside
+    # the supervised span is zero (None: no window)
+    deriv_truncate_margin: Optional[int] = None
 
 
 class TrainStepOutput(NamedTuple):
@@ -187,6 +191,21 @@ def _frame_geometry(model: Model, config: TrainConfig, T_in: int,
                     left_context + (n_out - 1) * stride + 1:stride]
 
     return grid, time_subsample, pick_frames
+
+
+def chunk_times(model: Model, config: TrainConfig, n_out: int,
+                left_context: int) -> ChunkTimes:
+    """The chunk's origin (its first supervised frame) and, under a
+    deriv-truncate-margin, the derivative window: the supervised span
+    widened by the margin and the model's context (steps/nnet3/chain/
+    train.py's min-deriv-time and max-deriv-time-relative)."""
+    margin = config.deriv_truncate_margin
+    if margin is None:
+        return ChunkTimes(left_context)
+    left, right = model.time_context()
+    last = left_context + (n_out - 1) * config.frame_subsampling_factor
+    return ChunkTimes(left_context, left_context - margin - left,
+                      last + margin + right)
 
 
 def _batch_inputs(batch, config: TrainConfig, num_frames_out, group=None):
@@ -430,11 +449,13 @@ def make_train_step(model: Model, net: Network,
             # the backward runs the same BatchNorm
             bn_lowp = network_module._BN_LOWP_STATS
 
+            chunk = chunk_times(model, config, n_out, left_context)
+
             def forward():
                 return net(feats, ivecs, train=True, compute_dtype=dtype,
                            time_subsample=time_subsample,
                            spec_masks=spec_masks, generator=generator, ng=ng,
-                           group=group, bn_lowp=bn_lowp)
+                           group=group, bn_lowp=bn_lowp, chunk=chunk)
 
             if config.remat:
                 outs, new_state = torch.utils.checkpoint.checkpoint(
