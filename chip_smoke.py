@@ -1752,10 +1752,12 @@ def train_phase(dev, den, name, counters, per_step, check_den=None,
     """1 warm-up + (steps - 1) timed steps of bench.py's step on the
     flagship (or `xconfig`).  counters: {kernel name: object with a
     `launches` count}; each count is set to 0 before the steps and must
-    grow by per_step[name] in every step.  check_den: another den that
-    each step's den input is run through afterwards, to hold `den`
-    against it on the nnet outputs that training produced.  Prints the
-    phase line `name` (None: none); returns (launches, losses, numbers)."""
+    grow by per_step[name] in every step, and only the first step may
+    read its flags off the card (`blocking_reads`).  check_den: another
+    den that each step's den input is run through afterwards, to hold
+    `den` against it on the nnet outputs that training produced.  Prints
+    the phase line `name` (None: none); returns (launches, losses,
+    numbers)."""
     seen = []
     if check_den is not None:
         run = den.forward_backward
@@ -1812,6 +1814,11 @@ def train_phase(dev, den, name, counters, per_step, check_den=None,
         if i > 0:                       # step 0 is the warm-up
             step_ms.append(start.elapsed_time(end))
     launches = {k: c.launches for k, c in counters.items()}
+    # without NG only the first call reads the step count off the card;
+    # the others take their flags from the previous call's copy
+    if step.blocking_reads != 1:
+        raise AssertionError(f"{steps} steps waited on their own flags "
+                             f"{step.blocking_reads} times, expected 1")
     mean_ms = float(np.mean(step_ms))
     checked = {}
     if check_den is not None:
@@ -1833,7 +1840,8 @@ def train_phase(dev, den, name, counters, per_step, check_den=None,
     numbers = dict(
         B=B, T_in=T_IN, T_out=T_OUT, timed_steps=len(step_ms),
         step_ms=mean_ms, step_ms_each=step_ms, losses=losses,
-        den_logprobs=den_logprobs, **checked,
+        den_logprobs=den_logprobs, blocking_reads=step.blocking_reads,
+        **checked,
         train_audio_sec_per_s_per_chip=B * T_IN / 100.0 / (mean_ms / 1e3),
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
         **{f"{k}_launches": v for k, v in launches.items()})

@@ -34,20 +34,35 @@ statistics are those the first forward returned (the forward never writes
 them; the recompute's are discarded).  Under a data group the recompute
 repeats BatchNorm's all-reduces, on every rank alike.
 
-The step reads the device once, after the backward: whether the batch is
-skipped, whether the orthonormal constraint is due and, with NG, the
-sites' update counters, in one transfer.  NG's eigensolves run only on
-the steps where a counter is due (every 4th), batched over the sites of
-one shape (training/natural_gradient.py).
+The host learns each flag when it is needed, never sooner.  A call's
+`skip` goes to the host in a non-blocking copy (a pinned slot and a CUDA
+event; on the CPU it is there already), which the next call waits on and
+folds into a host count of the non-skipped steps, the mirror of
+opt_state["step"]: by then the card has finished the previous backward
+and holds this call's forward and backward in its queue, so the host
+stays one step ahead and never drains it.  Whether the orthonormal
+constraint falls on a call comes from that count, exact once every
+earlier call's skip is in; the call's own skip is applied on the device
+(the constraint is selected away on a skipped step, as the update is).
+Only NG's host branch needs the call's own skip and the sites' update
+counters, so a step with NG sites reads them after the backward, in one
+transfer.  The count is seeded by one read of opt_state["step"] on the
+first call and whenever a call is given a "step" tensor that the step
+did not return last (a resume, a swapped state).  `step.blocking_reads`
+counts the calls that waited on their own device values: without NG only
+the seeding ones, with NG every call.  NG's eigensolves run only on the
+steps where a counter is due (every 4th), batched over the sites of one
+shape (training/natural_gradient.py).
 
 Host spans (utils/spans.py) tile the step's body in code order:
 `train_step.forward` (inputs, frame geometry, the network forward, the
 chain head's frames), the objective (its `chain.den` and
 `chain.numerator`, chain/objective.py), `train_step.backward` (xent,
 backward, grads, unscale, all-reduce, finiteness, loss scale),
-`train_step.read`, `ng.fisher_update` (only on the steps that fold in
-statistics), `ng.precondition` and `train_step.update`, all inside
-`train_step`.
+`train_step.read` (the wait for the previous call's skip; this call's
+own read with NG or on a re-seed), `ng.fisher_update` (only on the steps
+that fold in statistics), `ng.precondition` and `train_step.update`, all
+inside `train_step`.
 
 Data parallel (`group`, a DataGroup of parallel/mesh.py): the batch is
 this rank's rows of the global batch, and each global reduction of the
@@ -367,6 +382,47 @@ def apply_natural_gradient(model: Model, sites, ng_states, grads,
     return grads
 
 
+class _StepCount:
+    """The host's count of non-skipped steps, one call late: the mirror of
+    opt_state["step"] (see the module docstring)."""
+
+    def __init__(self):
+        self.done = None        # non-skipped steps before the last call's
+        self.pending = None     # the last call's skip: (host value, event)
+        self.returned = None    # the "step" tensor the last call returned
+        self.slots = None       # two pinned host slots, used in turn
+        self.turn = 0
+
+    def exchange(self, step: torch.Tensor, skip: torch.Tensor):
+        """Send this call's skip to the host without a wait, then fold in
+        the last call's, waiting on its copy.  Returns (non-skipped steps
+        before this call, whether it read `step` on the device)."""
+        pending, self.pending = self.pending, self._send(skip)
+        seeded = self.done is None or step is not self.returned
+        self.returned = None
+        if seeded:
+            self.done = int(step)
+        elif pending is not None:
+            value, event = pending
+            if event is not None:
+                event.synchronize()
+            self.done += 0 if bool(value) else 1
+        return self.done, seeded
+
+    def _send(self, skip: torch.Tensor):
+        if skip.device.type != "cuda":
+            return skip, None
+        if self.slots is None:
+            self.slots = [torch.empty((), dtype=torch.bool, pin_memory=True)
+                          for _ in range(2)]
+        slot = self.slots[self.turn]
+        self.turn ^= 1
+        slot.copy_(skip, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(skip.device))
+        return slot, event
+
+
 def make_train_step(model: Model, net: Network,
                     den: DenominatorComputation,
                     num_graph: Optional[NumeratorGraphBatch] = None,
@@ -408,6 +464,9 @@ def make_train_step(model: Model, net: Network,
                for l, p in specs.items()}
     col_sites = frozenset(s["name"] for s in sites
                           if specs[s["layer"]][s["w"]] == COLS)
+    ng_keys = [(s["name"], side) for s in sites for side in ("in", "out")]
+    interval = max(config.orthonormal_interval, 1)
+    count = _StepCount()
 
     def step(opt_state, scale_state, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -522,22 +581,25 @@ def make_train_step(model: Model, net: Network,
                 new_scale_state, skip = scale_state, ~finite
 
         with span("train_step.read"):
-            # the one read of the device per step: skip, whether the
-            # orthonormal constraint falls on this step, the NG counters
-            interval = max(config.orthonormal_interval, 1)
-            keys = [(s["name"], side) for s in sites for side in ("in", "out")]
-            flags = torch.stack(
-                [skip.to(torch.int64),
-                 ((opt_state["step"] + 1) % interval == 0).to(torch.int64)]
-                + [opt_state["ng"][nm][side].t.to(torch.int64)
-                   for nm, side in keys]).tolist()
-            skip_host, orth_due = bool(flags[0]), bool(flags[1])
+            # this call's skip goes to the host without a wait; the last
+            # call's, folded in, makes the orthonormal flag exact
+            done, seeded = count.exchange(opt_state["step"], skip)
+            orth_due = bool(targets) and (done + 1) % interval == 0
+            if sites:
+                # NG's host branch needs this call's skip and counters now
+                flags = torch.stack(
+                    [skip.to(torch.int64)]
+                    + [opt_state["ng"][nm][side].t.to(torch.int64)
+                       for nm, side in ng_keys]).tolist()
+                skip_host, counters = bool(flags[0]), flags[1:]
+            if seeded or sites:
+                step.blocking_reads += 1
 
         new_ng = None
         if sites:
             new_ng = opt_state["ng"] if skip_host else update_ng_states(
                 sites, opt_state["ng"], ng.xs, gs,
-                dict(zip(keys, flags[2:])), ng_cfg_in, ng_cfg_out, ax.dp,
+                dict(zip(ng_keys, counters)), ng_cfg_in, ng_cfg_out, ax.dp,
                 ng.counts, ax.model, col_sites)
             del ng, gs
         if ax.model is not None:
@@ -546,10 +608,9 @@ def make_train_step(model: Model, net: Network,
             # the NG states updated now, the reported sums
             # (a list in the sites' order: the buffer's layout must be
             # every rank's, which a set's order is not)
-            due = list(dict.fromkeys(
-                nm for (nm, side), t in zip(keys, flags[2:])
-                if not skip_host and update_due(
-                    t, ng_cfg_in if side == "in" else ng_cfg_out)))
+            due = [] if not sites or skip_host else list(dict.fromkeys(
+                nm for (nm, side), t in zip(ng_keys, counters)
+                if update_due(t, ng_cfg_in if side == "in" else ng_cfg_out)))
             rep = one_replica(
                 ({l: {k: g for k, g in p.items() if not sharded[l][k]}
                   for l, p in grads.items()}, new_state,
@@ -595,20 +656,24 @@ def make_train_step(model: Model, net: Network,
                     for k, w in p.items():
                         w.copy_(new_params[l][k])
                 # Kaldi applies ConstrainOrthonormal after the parameter
-                # update
-                if targets and orth_due and not skip_host:
+                # update; a skipped step keeps the old w (the skip is
+                # known on the device only)
+                if orth_due:
                     for lname, pname, c in targets:
                         w = params[lname][pname]
                         d = sharded_dim(specs[lname][pname])
                         if d is None:
-                            w.copy_(constrain_orthonormal(w, c))
-                            continue
-                        # a sharded target (prefinal small_w): constrained
-                        # whole, then cut back to this rank's rows
-                        (whole,) = gather_over([w], [d], ax.model)
-                        w.copy_(model_slice(constrain_orthonormal(whole, c), d,
-                                            ax.model.rank, ax.model.world,
-                                            lname))
+                            new_w = constrain_orthonormal(w, c)
+                        else:
+                            # a sharded target (prefinal small_w):
+                            # constrained whole, then cut back to this
+                            # rank's rows
+                            (whole,) = gather_over([w], [d], ax.model)
+                            new_w = model_slice(
+                                constrain_orthonormal(whole, c), d,
+                                ax.model.rank, ax.model.world, lname)
+                        w.copy_(torch.where(skip, w, new_w))
+            count.returned = new_opt_state["step"]
 
         return new_opt_state, new_scale_state, TrainStepOutput(
             loss=loss,
@@ -624,6 +689,7 @@ def make_train_step(model: Model, net: Network,
             weight_frames=total_weight,
         )
 
+    step.blocking_reads = 0
     return step
 
 

@@ -38,7 +38,9 @@ The port's spans:
     chain.numerator       chain/objective.py, the numerator's
     train_step.backward   xent term, backward, grads, unscale, all-reduce,
                           finiteness, loss-scale update
-    train_step.read       the step's one device read
+    train_step.read       the wait for the previous step's skip (its
+                          non-blocking copy); this step's own read only
+                          with NG sites or on a re-seed of the step count
     ng.fisher_update      update_ng_states, on the steps that fold in
     ng.precondition       apply_natural_gradient
     train_step.update     gradient norm, BatchNorm select, SGD, the

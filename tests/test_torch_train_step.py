@@ -174,3 +174,145 @@ def test_non_finite_batch_skips_and_keeps_bn_state():
         for k in fb:
             np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
     assert not any(v.any() for v in tree_leaves(opt["velocity"]))
+
+
+def _check_params(net, jstate):
+    pparams, pstate = params_to_numpy(net)
+    for mine, theirs in ((pparams, jstate[0]), (pstate, jstate[1])):
+        want = _flat(jax.tree_util.tree_map(np.asarray, theirs))
+        for k, v in _flat(mine).items():
+            np.testing.assert_allclose(v, want[k], **PARAM, err_msg=k)
+
+
+def _spy_constraint(monkeypatch):
+    """(now, seen): seen lists the calls on which the step computed the
+    orthonormal constraint, each once, by the number now[0] holds."""
+    now, seen = [0], []
+    real = port_ts.constrain_orthonormal
+
+    def spy(w, c):
+        if not seen or seen[-1] != now[0]:
+            seen.append(now[0])
+        return real(w, c)
+    monkeypatch.setattr(port_ts, "constrain_orthonormal", spy)
+    return now, seen
+
+
+@pytest.mark.parametrize("bad_call, computed", [(2, [5]), (4, [4, 5])])
+def test_orthonormal_falls_on_the_fourth_non_skipped_step(
+        monkeypatch, bad_call, computed):
+    """Six calls, a non-finite batch at `bad_call`: the constraint is due
+    on the 4th non-skipped step, call 5 either way.  At bad_call 4 it was
+    due on the skipped call too, computed there (the skip is known on the
+    device only) and selected away.  Every call's outputs and parameters
+    match JAX's, and only the first call reads the device's step count."""
+    jstep, jstate, pstep, net, np_batch, _ = _setup({})
+    bad = dict(np_batch, features=np_batch["features"].copy())
+    bad["features"][1, 4, 2] = np.nan
+    now, seen = _spy_constraint(monkeypatch)
+    opt = init_sgd_state(net.params)
+    scale = init_loss_scale(1.0, device="cpu")
+    key = jax.random.PRNGKey(1)
+    for call in range(1, 7):
+        now[0] = call
+        batch = bad if call == bad_call else np_batch
+        key, sub = jax.random.split(key)
+        *jstate, jout = jstep(*jstate, {k: jnp.asarray(v)
+                                        for k, v in batch.items()}, sub)
+        opt, scale, pout = pstep(opt, scale, {k: torch.from_numpy(v)
+                                              for k, v in batch.items()})
+        assert bool(pout.skipped) == bool(jout.skipped) == (call == bad_call)
+        if call != bad_call:
+            for name in ("loss", "grad_norm", "param_change_norm"):
+                np.testing.assert_allclose(
+                    getattr(pout, name).detach().numpy(),
+                    np.asarray(getattr(jout, name)), **SCALAR,
+                    err_msg=f"{name}, call {call}")
+        assert int(opt["step"]) == int(jstate[2]["step"])
+        _check_params(net, jstate)
+        assert pstep.blocking_reads == 1
+    assert int(opt["step"]) == 5
+    assert seen == computed
+
+
+def _snapshot(net, opt):
+    """Copies of the network's state and of opt_state (new tensors)."""
+    return ({k: v.clone() for k, v in net.state_dict().items()},
+            {"velocity": {l: {k: v.clone() for k, v in p.items()}
+                          for l, p in opt["velocity"].items()},
+             "step": opt["step"].clone()})
+
+
+def test_a_swapped_state_reseeds_the_step_count(monkeypatch):
+    """A step that ran three calls is given the state (and parameters) of
+    its 2nd: it reads the step count again, so the constraint falls on
+    its 2nd call from there (the 4th non-skipped step), not its 1st, and
+    its results equal an unbroken run's bit for bit."""
+    _, _, pstep, net, np_batch, _ = _setup({})
+    batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
+    scale = init_loss_scale(1.0, device="cpu")
+    start = _snapshot(net, init_sgd_state(net.params))
+    now, seen = _spy_constraint(monkeypatch)
+
+    def run(state, calls):
+        """`calls` calls from a copy of `state` (whose "step" the step
+        never returned)."""
+        net_state, opt = state
+        net.load_state_dict(net_state)
+        opt = dict(opt, step=opt["step"].clone())
+        outs = []
+        for call in range(1, calls + 1):
+            now[0] = call
+            opt, _, out = pstep(opt, scale, batch)
+            outs.append(out)
+        return outs, _snapshot(net, opt)
+
+    unbroken, (unbroken_end, _) = run(start, 4)
+    _, at2 = run(start, 2)
+    run(at2, 1)                     # the step's count now reads 3
+    reads = pstep.blocking_reads
+    seen.clear()
+    swapped, (end, opt) = run(at2, 2)
+    assert pstep.blocking_reads == reads + 1
+    assert seen == [2]
+    assert int(opt["step"]) == 4
+    for got, want in zip(swapped, unbroken[2:]):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    for k, v in end.items():
+        assert torch.equal(v, unbroken_end[k]), k
+
+
+@pytest.mark.parametrize("natural_gradient", [False, True])
+def test_blocking_reads_count_the_calls_that_wait_on_their_own_flags(
+        natural_gradient):
+    """Without NG only the first call reads the device (the seed); with
+    NG sites every call reads its own skip and the sites' counters."""
+    cfg = dict(learning_rate=0.01, momentum=0.9,
+               frame_subsampling_factor=STRIDE, left_context=LEFT,
+               compute_dtype="float32", natural_gradient=natural_gradient,
+               ng_rank_in=4, ng_rank_out=4)
+    pm = build_model_from_string(XCONFIG)
+    net = Network(pm, torch.Generator().manual_seed(0), "cpu")
+    pden = DenominatorComputation(port_graph.DenominatorGraph.from_fst(
+        port_graph.make_phone_lm_den_fst(**DEN_KW), P), leaky=1e-5,
+        device="cpu")
+    rng = np.random.default_rng(3)
+    csrs = [fst_to_csr(random_fst(rng, num_states=2 * (T_OUT + 1),
+                                  num_pdfs=P, T=T_OUT)) for _ in range(B)]
+    pcfg = port_ts.TrainConfig(**cfg)
+    pstep = port_ts.make_train_step(
+        pm, net, pden, port_graph.build_numerator_batch(csrs),
+        ChainTrainingOpts(), pcfg, num_frames_out=T_OUT)
+    opt = init_sgd_state(net.params)
+    if natural_gradient:
+        opt["ng"] = port_ts.init_ng_states(pm, pcfg, "cpu")
+    scale = init_loss_scale(1.0, device="cpu")
+    batch = {"features": torch.from_numpy(
+                 rng.normal(size=(B, T_IN, 8)).astype(np.float32)),
+             "ivectors": torch.from_numpy(
+                 rng.normal(size=(B, 10)).astype(np.float32))}
+    assert pstep.blocking_reads == 0
+    for call in range(1, 4):
+        opt, scale, _ = pstep(opt, scale, batch)
+        assert pstep.blocking_reads == (call if natural_gradient else 1)
