@@ -31,10 +31,9 @@ Phases, one line of numbers each:
   1. device          the card (nvidia-smi name and power limit); TF32 off
   2. build           nvcc builds the CUDA kernels from kaldi_fp16_tpu_torch/csrc
   3. kernel          den_matmul, split="kernel" and "pre", against float64
-                     and the split's plain version, repeats bit-identical;
-                     timed with L2 warm and flushed beside torch.matmul
+                     and the split's plain version, repeats bit-identical
   4. scan_kernels    den_scan forward / backward at the production shape,
-                     both splits, against their plain versions, timed
+                     both splits, against their plain versions
   5. den             the production den built with the JAX package's
                      names (matmul_impl "auto", scan_impl "xla" and
                      "auto", posterior_reduce "pallas"), each route
@@ -43,78 +42,71 @@ Phases, one line of numbers each:
                      (both splits) vs plain path; a small den against the
                      float64 oracle
   6. den_fused       the default den (scan_impl="auto": the fused scans)
-                     against the loop path, timed; a small fused den against
-                     the oracle
+                     against the loop path; a small fused den against the
+                     oracle
   7. den_blocked     the graph forced to the blocked layout, the default
                      posterior reduce (the kernel on a card) and the einsum
                      one, against each other and the structured den; a
                      small blocked den against the oracle
   8. segment_reduce  the kernel and its order pass against their plain
                      versions (on the card and the CPU) at the production
-                     pdf-order shape, its labels sorted and shuffled; timed
-                     from CUDA graphs beside index_add_
+                     pdf-order shape, its labels sorted and shuffled
  8b. lowp            the low-precision modes: the fused scans at terms 1
                      and 3 and segment_reduce(exact=False) against their
-                     plain versions, timed; the fast den on the fused, loop
-                     and blocked paths against the exact dens (drift, ms,
-                     repeats bit-identical), a split3 loop den against the
-                     plain one; bench.py's step through tools.trainbench
-                     exact, --mode fast, --bn-lowp and both; its seconds
+                     plain versions; the fast den on the fused, loop and
+                     blocked paths against the exact dens (drift, repeats
+                     bit-identical), a split3 loop den against the plain
+                     one; bench.py's step through tools.trainbench exact,
+                     --mode fast, --bn-lowp and both
  8c. lstmp           the fast-lstmp recurrence kernels (csrc/lstmp.cu) at
                      the benchmark's TDNN-LSTM layer (B = 64, 72 steps,
                      C = 1024, R = 256) against the plain loop on the same
                      card tensors, bf16 and fp32 operands, forward and
-                     backward, repeats bit-identical, timed; the den at
-                     B = 64 padded to the fused scans' tile against the
-                     loop den, timed; 3 TDNN-LSTM train steps (the
+                     backward, repeats bit-identical; the den at B = 64
+                     padded to the fused scans' tile against the loop den;
+                     3 TDNN-LSTM train steps (the
                      benchmark's xconfig, B = 64, T_in = 222) launching the
                      recurrence 6 times a step
   9. small           a narrow fp32 train step on the card against the CPU
- 10. train           1 warm-up + 5 timed flagship train steps, loop scans
+ 10. train           6 flagship train steps, loop scans
  11. train_fused     the same with the default den (fused scans)
  12. ng_vs_cpu       one NG update step at flagship width (B = 128, T_in =
                      164, ranks 20 / 80, patch-lowered convs) on the card;
                      its NG calls re-run on the CPU from the same inputs
                      and states, equal at the NG tests' bars
- 13. egs             2 x 512 synthetic cegs (164 frames in, 50 out, 3080
-                     pdfs) and the 7052-state den.fst written by the port's
-                     tool and read back; the DataLoader's batches with the
-                     native and the Python parser, and the ProcessLoader's
-                     (2 spawned workers), equal; ms per batch of each
- 14. trainer         tools.train's main, train_flagship.sh's flags at
-                     B = 128: 8 steps (checkpoint at 4), the first step's
-                     den input [128, 50, 3080] through the Trainer's den
-                     against the loop den and its scans against the plain
-                     ones, the run resumed from step 4 equal to it bit for
-                     bit, 1 + 1 den_scan launches and no den_matmul launch
-                     per step; device and loop ms per step, idle share over
-                     one window, the same 8 steps without NG (the NG cost),
-                     peak memory
- 15. data_parallel   tools.train's main with --data-parallel 1 (one rank,
-                     NCCL) and the recipe's flags: its 8 steps and final
-                     state equal to the trainer phase's bit for bit, the
-                     data group's collectives and MB per step, device ms
-                     per step beside the trainer phase's; then bench.py's
-                     step at B = 256 in one process (bf16 with NG-SGD and
-                     loss scaling and without, fp32 without), again with
-                     its rows permuted (the yardstick), and on two ranks
-                     of one gloo group on the card (128 rows, the fused
-                     den, each): a gloo all-reduce of a CUDA tensor first,
-                     the losses, the update and the BN statistics after
-                     step 1 against one process's and the yardstick's
-                     (after the last step reported), per-leaf update
-                     distances, the ranks' states bit-identical to each
-                     other and (bf16) to a repeat, 1 + 1 den_scan launches
-                     per rank per step, ms per step, the collectives'
-                     share, peak memory per rank; ranks with per-rank BN
-                     statistics (bf16) and with averaged gradients (fp32)
-                     must fail; the CPU tests' narrow fp32 cases on the
-                     two ranks at those tests' bars (averaged gradients
-                     must fail them); tools.mpworker as 2 processes on
-                     the card against one process, 4 restoring their
-                     checkpoint, a killed one failing its peer; and
-                     tools.dryrun_multichip as 2 ranks on the card and
-                     as 8 (data 2 x seq 2 x model 2)
+ 13. egs             2 x 512 synthetic cegs (164 frames in, 50 out, 3080 pdfs)
+                     and the 7052-state den.fst written by the port's tool and
+                     read back; the DataLoader's batches with the native and
+                     the Python parser, and the ProcessLoader's (2 spawned
+                     workers), equal
+ 14. trainer         tools.train's main, train_flagship.sh's flags at B = 128:
+                     8 steps (checkpoint at 4), the first step's den input
+                     [128, 50, 3080] through the Trainer's den against the loop
+                     den and its scans against the plain ones, the run resumed
+                     from step 4 equal to it bit for bit, 1 + 1 den_scan
+                     launches and no den_matmul launch per step, the same 8
+                     steps without NG, peak memory
+ 15. data_parallel   tools.train's main with --data-parallel 1 (one rank, NCCL)
+                     and the recipe's flags: its 8 steps and final state equal
+                     to the trainer phase's bit for bit, the data group's
+                     collectives and MB per step; then bench.py's step at B =
+                     256 in one process (bf16 with NG-SGD and loss scaling and
+                     without, fp32 without), again with its rows permuted (the
+                     yardstick), and on two ranks of one gloo group on the card
+                     (128 rows, the fused den, each): a gloo all-reduce of a
+                     CUDA tensor first, the losses, the update and the BN
+                     statistics after step 1 against one process's and the
+                     yardstick's (after the last step reported), per-leaf
+                     update distances, the ranks' states bit-identical to each
+                     other and (bf16) to a repeat, 1 + 1 den_scan launches per
+                     rank per step, peak memory per rank; ranks with per-rank
+                     BN statistics (bf16) and with averaged gradients (fp32)
+                     must fail; the CPU tests' narrow fp32 cases on the two
+                     ranks at those tests' bars (averaged gradients must fail
+                     them); tools.mpworker as 2 processes on the card against
+                     one process, 4 restoring their checkpoint, a killed one
+                     failing its peer; and tools.dryrun_multichip as 2 ranks on
+                     the card and as 8 (data 2 x seq 2 x model 2)
  16. model_seq_parallel  bench.py's step at B = 128 on two gloo ranks of
                      the card split over the model axis (the 3080-pdf
                      heads, prefinal and TDNN-F affines by columns) and
@@ -125,9 +117,8 @@ Phases, one line of numbers each:
                      statistics after step 1 at the data_parallel phase's
                      bars and yardstick), the ranks' whole states bit-
                      identical, 1 + 1 den_scan launches per rank per step;
-                     per rank ms per step (CUDA events), collectives and MB
-                     per step per axis, the collectives' share of an
-                     instrumented step, peak memory beside one process's;
+                     collectives and MB per step per axis, peak memory
+                     beside one process's;
                      the CPU tests' narrow fp32 cases at (model 2) and
                      (seq 2) at those tests' bars; the 8-rank dryrun's
                      numbers from data_parallel
@@ -140,8 +131,7 @@ Phases, one line of numbers each:
                      dense and the compact mask transfer equal, its
                      checkpointed and plain masks equal; the dense decoder
                      equal to the arc decoder at decodebench's defaults (S =
-                     2048, P = 512, B = 32, T = 500); decode_audio_sec_per_s,
-                     decode ms, launches per decode and peak memory
+                     2048, P = 512, B = 32, T = 500); peak memory
  18. decode_layouts  decode_hclg's graph and loglikes through the ELL and
                      tree-ELL layouts (width 128): the tree Viterbi
                      (checkpointed) and the ELL Viterbi (plain), and the
@@ -158,12 +148,9 @@ Phases, one line of numbers each:
                      keep threshold in a float64 recomputation (the
                      layouts add in other orders); the tree windowed
                      stream (window >= T, chunks of 32) equal to the
-                     offline decode; per layout ms per decode,
-                     decode_audio_sec_per_s, launches per decode, peak
-                     memory over held and the device ms split into
-                     scatter, gather, reduce and other; the profile_tree
-                     and profile_lattice twins' per-frame lines at their
-                     defaults
+                     offline decode; per layout the peak memory over held;
+                     the profile_tree and profile_lattice twins at their
+                     defaults (their shapes, not their times)
  19. decode_parallel two gloo ranks sharing the card, 8 rows each of
                      decode_hclg's batch (loglikes made from the same
                      seed): the segment and tree Viterbi decoders and the
@@ -175,7 +162,7 @@ Phases, one line of numbers each:
                      phase's geometry through the flagship model and a 20000-state
                      HCLG-shaped graph written as an OpenFst file: every
                      utterance final, the lattices' 1-best equal to the
-                     Viterbi words; the utterance count and wall seconds
+                     Viterbi words; the utterance count
  21. kaldi_model     the trainer phase's network (its step-8 checkpoint)
                      exported to nnet3 text and a binary .raw by
                      models/kaldi_loader.py, each loaded into a network of
@@ -186,8 +173,8 @@ Phases, one line of numbers each:
                      round trip (bit for bit) and --model on the .raw;
                      tools.decode --on-device --model on the .raw, the
                      decode_tool phase's cegs file and graph: the words of
-                     the network in memory, utterance for utterance;
-                     seconds of export, parse, binary write, loads, MB
+                     the network in memory, utterance for utterance; the
+                     files' MB
  22. stream_decode   streaming decoding at decode_hclg's HCLG scale and
                      loglikes: the incremental decoder fed 16 frames at a
                      time and in a ragged 5, 7, 12 schedule, and the
@@ -196,23 +183,22 @@ Phases, one line of numbers each:
                      with chunks of 6, 16 and 32 (its window bounded after
                      every feed, utterances equal to offline counted, peak
                      memory over what the phase holds at T = 500 and 1000);
-                     tools.streambench's decode-only rows
+                     tools.streambench's decode-only rows (one iteration,
+                     their shapes and window counts)
  23. stream_encode   the streaming encoder on the flagship network (random
                      weights, seed 0, 100-dim ivectors, B = 8) at chunk_out
                      6, 16 and 32: fp32 against its offline_reference and
                      across chunk sizes, bf16 against its own oracle;
-                     tools.streambench's encoder and pipeline rows
- 24. attention       the flagship with attention1 (15 heads, value 80, key
-                     40, context 5 + 1 + 2 at time-stride 3) after tdnnf21,
-                     16,271,624 parameters: bench.py's step with the
-                     default den, 1 warm-up + 3 timed, twice, in turns
-                     with the flagship's (flagship, attention, attention,
-                     flagship), 1 + 1 den_scan launches per step, ms
-                     beside the flagship's and train_fused's, peak
-                     memory; a narrow fp32 attention step on the card
-                     against the CPU (rtol 2e-4 / atol 2e-5 scalars, 1e-4 /
-                     1e-5 parameters); the streaming encoder (B = 8,
-                     chunk_out 16, fp32) against its offline reference
+                     tools.streambench's encoder and pipeline rows (one
+                     iteration, their shapes)
+ 24. attention       the flagship with attention1 (15 heads, value 80, key 40,
+                     context 5 + 1 + 2 at time-stride 3) after tdnnf21,
+                     16,271,624 parameters: 4 steps of bench.py's step with the
+                     default den, 1 + 1 den_scan launches per step, peak
+                     memory; a narrow fp32 attention step on the card against
+                     the CPU (rtol 2e-4 / atol 2e-5 scalars, 1e-4 / 1e-5
+                     parameters); the streaming encoder (B = 8, chunk_out 16,
+                     fp32) against its offline reference
  25. synthwer        tools.synthwer's main, the 40-word / 80-phone streaming
                      and rescoring run of the JAX evidence: ok, the WER
                      trajectory, den_matmul launches (its den has L = 1,
@@ -229,29 +215,26 @@ Phases, one line of numbers each:
                      finite differences of the probed row's objective,
                      repeats bit for bit); tools.denverify on that den.fst;
                      tools.chaintest on the flagship; tools.chainbench
-                     --topology phone-lm at production scale
- 27. verify_net      tools.fwdtest on the flagship (B = 8, T = 150, 20
-                     iterations) with and without --bn-identity;
+                     --topology phone-lm at production scale (1 iteration)
+ 27. verify_net      tools.fwdtest on the flagship (B = 8, T = 150, 1
+                     iteration) with and without --bn-identity;
                      tools.backtest and tools.sgdtest on the card, TF32 off
  28. verify_train    tools.traintest on the flagship at B = 128 over the egs
-                     phase's cegs, 9 steps at lr 1e-4 (fused route, the
-                     first batch's loss falls by its second visit, the
-                     loop's train_audio_sec_per_s_per_chip); tools.soak on the
-                     flagship (SIGKILL after 25 steps, --resume, run 1's
-                     objf reproduced exactly; cut to 2 epochs and a
-                     checkpoint every 20 steps); tools.abtest --ab grid,
-                     den-mode and bn-lowp at the tool's defaults (each
-                     arm's wall seconds and objf drift)
+                     phase's cegs, 9 steps at lr 1e-4 (fused route, the first
+                     batch's loss falls by its second visit); tools.soak on the
+                     flagship (SIGKILL after 25 steps, --resume, run 1's objf
+                     reproduced exactly; cut to 2 epochs and a checkpoint every
+                     20 steps); tools.abtest --ab grid, den-mode and bn-lowp at
+                     the tool's defaults (each arm's objf drift)
  29. verify_data     tools.gputest (pageable and pinned copies to the card),
                      tools.dltest (in-line, --workers 2, --process-workers 2:
                      one bf16 error), egstools analyze / verify, nscheck and
                      csrdump on the egs phase's files
- 30. xvector         the x-vector family at XVectorConfig()'s widths with
-                     1024 speakers: 30 fp32 Adam steps (warmup + StepLR) at
-                     B = 64 x 300 frames, the loss on a fixed batch of 256
-                     utterances must fall; ms per step,
-                     peak memory; one fp32 loss + grad on the card against
-                     the CPU at B = 4 (rtol 1e-4), then two adam_update
+ 30. xvector         the x-vector family at XVectorConfig()'s widths with 1024
+                     speakers: 30 fp32 Adam steps (warmup + StepLR) at B = 64 x
+                     300 frames, the loss on a fixed batch of 256 utterances
+                     must fall; peak memory; one fp32 loss + grad on the card
+                     against the CPU at B = 4 (rtol 1e-4), then two adam_update
                      steps from that state on the same gradients, with and
                      without weight decay, parameters and m / v held card
                      against CPU (rtol 1e-4); tools.xvectortrain at its
@@ -261,8 +244,9 @@ Phases, one line of numbers each:
                      SpecAugment generator, 2 steps each: losses, grad
                      norms and parameters at the JAX bars (rel 1e-6, 1e-5;
                      rtol 1e-5 / atol 1e-7), the generator's state and the
-                     BN buffers equal; peak memory and ms of each
- 32. measure         the measurement twins: tools.trainbench at B = 128
+                     BN buffers equal; peak memory of each
+ 32. measure         the measurement twins, one iteration each (the run
+                     their checks read): tools.trainbench at B = 128
                      (plain, --remat, --natural-gradient) and --topology
                      random; tools.roofline at B = 128 on every stage (no
                      share over 100 %); tools.scalebench --worlds 1,2
@@ -273,7 +257,9 @@ Phases, one line of numbers each:
                      high,pallas,fused; one trainbench step inside
                      utils.profiling.trace, whose Chrome trace must name
                      the den_scan kernels
- 33. summary         the kernels' JSON line, then {"ok": true, "device": ...}
+ 33. summary         the kernels' JSON line (each kernel's launches and its
+                     largest error against its plain version), then
+                     {"ok": true, "device": ...}
 
 The verify and measure phases run each tool's main in this process (soak
 and abtest start tools.train processes), its output in
@@ -285,10 +271,10 @@ small_step_vs_cpu also holds a narrow NG step (patch-lowered convs) on
 the card against the CPU.
 
 Each path's kernel counts are set to 0 just before it is driven and read
-just after; comparison launches do not count.  Each kernel's bound is the
-larger of its bytes (each input read once, each output written once)
-over 3.35 TB/s and its operations over 989 TFLOP/s (bf16 tensor cores;
-H100 SXM data sheet).
+just after; comparison launches do not count.  The run times nothing: a
+phase line holds counts, errors against the references, routes and
+peak memory.  Speed is benchmark/run.py's to measure, and
+each kernel's work is counted once, in benchmark/counts.
 
 Any failure raises and exits non-zero: there is no CPU path and no
 fallback.  Needs one card, nvcc, no network and no JAX.
@@ -303,7 +289,6 @@ import os
 import shutil
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -373,12 +358,12 @@ from kaldi_fp16_tpu_torch.tools import (
 )
 from kaldi_fp16_tpu_torch.tools.dryrun_multichip import run_setup
 from kaldi_fp16_tpu_torch.models.xvector import (
-    XVectorConfig, init_xvector, xvector_forward, xvector_loss,
+    XVectorConfig, init_xvector, xvector_loss,
 )
 from kaldi_fp16_tpu_torch.training.schedulers import (
     adam_update, init_adam_state, step_lr, warmup_lr,
 )
-from kaldi_fp16_tpu_torch.utils.profiling import profile_fn, trace
+from kaldi_fp16_tpu_torch.utils.profiling import trace
 from kaldi_fp16_tpu_torch.tools.profile_step import (
     supervision as bench_num_graph,
 )
@@ -389,12 +374,8 @@ from kaldi_fp16_tpu_torch.training.train_step import (
     TrainConfig, init_train_state, make_train_step,
 )
 from kaldi_fp16_tpu_torch.training.trainer import Trainer
-from kaldi_fp16_tpu_torch.utils.profiling import (
-    H100_PEAK_BF16_FLOPS, H100_PEAK_HBM_BYTES, kernel_times,
-)
 
 ROOT = Path(__file__).resolve().parent
-T_START = time.perf_counter()
 B, T_IN, P, AN = 128, 150, 3080, 256
 LEFT = STRIDE = 3
 T_OUT = (T_IN - LEFT + STRIDE - 1) // STRIDE          # 49
@@ -422,8 +403,6 @@ ORACLE_LOGP_ATOL, ORACLE_POST_RTOL, ORACLE_POST_ATOL = 5e-5, 1e-3, 5e-5
 # blocked vs structured log-prob (tests/test_chain_denominator.py:175-178)
 LOGP_ATOL = 2e-6
 REDUCE_TOL = 1e-5                # fp32 segment sums, tests/test_pallas_reduce.py:30
-REDUCE_REPS = 10                 # segment_reduce calls per timed CUDA graph
-NUM_REPS = 10                    # numerator calls per timed CUDA graph
 # numerator kernel vs its plain version: fp32 sums in another order
 # (tests/test_torch_numerator.py)
 NUM_LOGP_RTOL, NUM_POST_RTOL, NUM_POST_ATOL = 1e-5, 1e-4, 1e-6
@@ -460,7 +439,6 @@ WORK = ROOT / "build" / "chip_smoke"
 DEC_S, DEC_B, DEC_T, DEC_BEAM = 100_000, 16, 500, 4.0
 DENSE_S, DENSE_P, DENSE_B, DENSE_T, DENSE_E = 2048, 512, 32, 500, 8
 DEC_COST_RTOL = 1e-5             # fp32 path costs, card vs CPU
-DEC_ITERS = 2                    # timed decodes per decoder
 TREE_W = 128                     # the tree layout's row width
 ELL_LAT_B = 4                    # ELL lattices keep [T, S, B] alphas: 0.8 GB
 LAT_CPU_B = 2                    # a layout's lattices re-run on the CPU
@@ -469,7 +447,7 @@ TOOL_UTTS = 128                  # utterances the decode tool phase decodes
 # streaming: tools/streambench.py's chunk sizes, window and batch; a ragged
 # feed schedule; encoder outputs for 96 frames (a multiple of every chunk)
 STREAM_CHUNKS, STREAM_WINDOW, STREAM_RAGGED = (6, 16, 32), 96, (5, 7, 12)
-STREAM_B, STREAM_T_OUT, STREAM_ITERS = 8, 96, 20
+STREAM_B, STREAM_T_OUT = 8, 96
 # streamed vs offline encoder outputs (tests/test_streaming.py:92, :102)
 ENC_FP32_TOL, ENC_BF16_TOL = 2e-5, 0.1
 # the JAX evidence's streaming closed loop
@@ -532,7 +510,6 @@ MSP_RUNS = (("fp32", False, "float32"), ("ng", True, "bfloat16"))
 MP_FILES, MP_LOCAL_B, MP_STEPS = 4, 4, 2
 MP_HEARTBEAT_S, MP_TIMEOUT_S = 20, 300
 DP_JOIN_S = 600
-FLUSH_BYTES = 128 << 20          # > the 50 MB L2
 # the model of the attention phase: the flagship with one restricted
 # attention layer after tdnnf21, at the head and context widths of Kaldi's
 # restricted-attention xconfig recipes; its narrow twin for the card-vs-CPU
@@ -568,81 +545,13 @@ output-layer name=output-xent dim=24
 
 
 def phase(phase_name, **numbers):
-    """One phase's line, with the seconds since the run started."""
-    print(json.dumps({"phase": phase_name, **numbers,
-                      "t_s": time.perf_counter() - T_START}), flush=True)
-
-
-def cuda_ms(fn, iters):
-    """Mean device milliseconds of `iters` back-to-back calls (CUDA events)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(nbytes, flops):
-    """(least ms the card could take, "bytes" or "operations")."""
-    t_bytes = nbytes / H100_PEAK_HBM_BYTES * 1e3
-    t_ops = flops / H100_PEAK_BF16_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def captured(fn, reps):
-    """A CUDA graph of `reps` back-to-back calls of fn: replaying it times
-    the device work alone, without the host's time to enqueue each call."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    return graph
-
-
-def warm_ms(fn, reps):
-    """Mean device ms of one call of fn among `reps` back-to-back calls
-    (L2 warm), replayed from a CUDA graph."""
-    graph = captured(fn, reps)
-    return cuda_ms(graph.replay, 1) / reps
-
-
-def cold_ms(fn, flush, iters):
-    """Mean device ms of one call of fn with the L2 flushed before each,
-    replayed from a CUDA graph."""
-    graph = captured(fn, 1)
-    total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+    """One phase's line."""
+    print(json.dumps({"phase": phase_name, **numbers}), flush=True)
 
 
 def max_rel(out, ref):
     return float(np.max(np.abs(out.astype(np.float64) - ref)
                         / (np.abs(ref) + 1e-8)))
-
-
-def alternate_ms(plain, kernel):
-    """Mean device ms of one call each, in the order plain, kernel,
-    kernel, plain (after one warm-up call of each)."""
-    plain(), kernel()
-    ms = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        ms[name].append(cuda_ms(kernel if name == "kernel" else plain, 1))
-    return float(np.mean(ms["kernel"])), float(np.mean(ms["plain"]))
 
 
 def den_input(dev):
@@ -705,11 +614,9 @@ def device_phase():
 
 
 def build_phase():
-    t0 = time.perf_counter()
-    lib_path, compile_s = _build.build()
+    lib_path, _ = _build.build()
     _build.library()
-    phase("build", compile_s=compile_s, total_s=time.perf_counter() - t0,
-          library=str(lib_path.relative_to(ROOT)))
+    phase("build", library=str(lib_path.relative_to(ROOT)))
 
 
 def kernel_phase(dev, layout):
@@ -718,15 +625,11 @@ def kernel_phase(dev, layout):
     F = M.shape[0]
     v = np.random.default_rng(1).random((F, B)).astype(np.float32)
     vd = torch.from_numpy(v).to(dev)
-    Md = torch.from_numpy(M).to(dev)
     M64, v64 = M.astype(np.float64), v.astype(np.float64)
-    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
     result = {"F": F, "n": B, "terms": 6}
     for split in ("kernel", "pre"):
         dm = DenMatmul(M, dev, split=split)
         worst_abs = 0.0
-        times = {"kernel": [], "plain": [], "kernel_cold": [], "library": [],
-                 "library_cold": []}
         for transpose in (False, True):
             tag = f"{split}_{'MT' if transpose else 'M'}"
             ref = (M64.T if transpose else M64) @ v64
@@ -743,29 +646,6 @@ def kernel_phase(dev, layout):
                 raise AssertionError(f"den_matmul ({tag}) rel err {rel} > "
                                      f"{FP64_RTOL} against float64")
             worst_abs = max(worst_abs, float((out - plain).abs().max()))
-
-            def kernel():
-                return dm.apply(vd, transpose)
-
-            def split_plain():
-                return den_matmul_split_plain(dm.M, vd, transpose)
-
-            def library():
-                return (Md.t() if transpose else Md) @ vd
-
-            # device time from CUDA graphs: L2 warm, 2*T back-to-back
-            # applications, plain, kernel, kernel, plain; then one
-            # application at a time with the L2 flushed
-            # (the plain version allocates its fp32 split copies of M on
-            # every call: 8 calls per graph)
-            for name in ("plain", "kernel", "kernel", "plain"):
-                times[name].append(warm_ms(kernel, 2 * T_OUT) if name == "kernel"
-                                   else warm_ms(split_plain, 8))
-            times["kernel_cold"].append(cold_ms(kernel, flush, 10))
-            times["library"].append(warm_ms(library, 2 * T_OUT))
-            times["library_cold"].append(cold_ms(library, flush, 10))
-        for name, t in times.items():
-            result[f"{split}_{name}_us"] = 1e3 * float(np.mean(t))
         result[f"{split}_max_abs_err_vs_plain"] = worst_abs
         del dm
         torch.cuda.empty_cache()
@@ -780,8 +660,8 @@ def check_scans(sk, x_tpn, tag, terms=6, plane=None):
     terms = 1), each run twice and beside its plain version at the same
     terms: repeats bit-identical, the kernels within the HIST bars of the
     plain versions.  Returns (max abs errors, the same relative to the
-    largest entry, {"fwd": (plain, kernel), "bwd": (plain, kernel)} calls
-    to time, the kernels' outputs: hist, asum, logc, a_final, beta_hist)."""
+    largest entry, the kernels' outputs: hist, asum, logc, a_final,
+    beta_hist)."""
     xs = sk._hoisted_emissions(x_tpn)
     kw = dict(L=sk.lay.L, T=x_tpn.shape[0], leaky=sk.leaky, terms=terms)
     if plane is not None:
@@ -825,8 +705,7 @@ def check_scans(sk, x_tpn, tag, terms=6, plane=None):
     rel = {k: float((a - r).abs().max() / r.abs().max())
            for k, a, r in (("adash_hist", out[0], ref[0]),
                            ("beta_hist", beta, beta_ref))}
-    return (err, rel, {"fwd": (fwd_plain, fwd), "bwd": (bwd_plain, bwd)},
-            (*out, beta))
+    return err, rel, (*out, beta)
 
 
 def scan_kernels_phase(dev, graph):
@@ -843,32 +722,12 @@ def scan_kernels_phase(dev, graph):
                                  f"2, 3584")
         gen = torch.Generator(device=dev).manual_seed(4)
         x = torch.exp(torch.randn((T_OUT, P, B), generator=gen, device=dev))
-        err, rel, calls, _ = check_scans(sk, x, split)
+        err, rel, _ = check_scans(sk, x, split)
         result[f"{split}_max_abs_err"] = err
         result[f"{split}_max_err_rel_to_max"] = rel
-        for tag, pair in calls.items():
-            ms, plain_ms = alternate_ms(*pair)
-            result[f"{split}_{tag}_ms"] = ms
-            result[f"{split}_{tag}_plain_ms"] = plain_ms
-        del calls, x, sk
-    result["fwd_bound"], result["bwd_bound"] = scan_bounds(6)
+        del x, sk
     phase("scan_kernels", **result)
     return result
-
-
-def scan_bounds(terms):
-    """(forward, backward) bounds of one production-scale scan: T frames
-    of `terms` bf16 products of M [Fp, Fp] with [Fp, N]; bytes of each input
-    read once (M as fp32, or at terms = 1 as its one bf16 plane) and each
-    output written once."""
-    LFN, FN, FF = 2 * 3584 * B, 3584 * B, 3584 ** 2
-    flops = T_OUT * terms * 2 * FF * B
-    m_bytes = 2 * FF if terms == 1 else 4 * FF
-    emissions = T_OUT * (LFN + (LFN - FN) + FN)
-    return (bound(m_bytes + 4 * (emissions + 2 * 3584 + T_OUT * LFN
-                                 + 2 * T_OUT * B + B), flops),
-            bound(m_bytes + 4 * (emissions + T_OUT * B + 4 * 3584 + B
-                                 + T_OUT * LFN), flops))
 
 
 # (the den's options, the option whose route is read, the route on the
@@ -941,10 +800,6 @@ def den_phase(dev, graph):
         torch.testing.assert_close(lp, lp_p, rtol=LOGP_RTOL, atol=0)
         torch.testing.assert_close(post, post_p, rtol=POST_RTOL,
                                    atol=POST_ATOL)
-    ms = {"kernel": [], "plain": [], "pre": []}
-    for name, den in (("plain", den_p), ("kernel", den_k), ("pre", den_pre),
-                      ("pre", den_pre), ("kernel", den_k), ("plain", den_p)):
-        ms[name].append(cuda_ms(lambda: den.forward_backward(x), 1))
 
     # the same code on a small graph against the float64 oracle
     small = DenominatorGraph.from_fst(
@@ -965,9 +820,7 @@ def den_phase(dev, graph):
           pre_logp_max_rel_vs_plain=float(((lp_pre - lp_p).abs()
                                            / lp_p.abs()).max()),
           pre_post_max_abs_vs_plain=float((post_pre - post_p).abs().max()),
-          kernel_ms=float(np.mean(ms["kernel"])),
-          pre_ms=float(np.mean(ms["pre"])),
-          plain_ms=float(np.mean(ms["plain"])), small_vs_fp64="ok")
+          small_vs_fp64="ok")
     del post_k, post_p, post_r, post_pre, x, den_pre
     return den_k, pre_launches
 
@@ -995,8 +848,6 @@ def den_fused_phase(dev, graph, den_loop):
     torch.testing.assert_close(lp_f, lp_l, rtol=LOGP_RTOL, atol=0)
     torch.testing.assert_close(post_f, post_l, rtol=POST_RTOL,
                                atol=POST_ATOL)
-    fused_ms, loop_ms = alternate_ms(lambda: den_loop.forward_backward(x),
-                                     lambda: den_f.forward_backward(x))
     # a small fused den (N = 128) against the float64 oracle
     small = DenominatorGraph.from_fst(
         make_phone_lm_den_fst(24, 13, 2, 4, seed=7), 24)
@@ -1005,11 +856,11 @@ def den_fused_phase(dev, graph, den_loop):
                                            scan_impl="fused", device=dev),
                     small, xs, (0, 77), 1e-4, dev)
     phase("den_fused", B=B, T=T_OUT, P=P, launches_fwd_bwd_matmul=launches,
-          bit_identical=True, fused_faster=fused_ms < loop_ms,
+          bit_identical=True,
           logp_max_rel_vs_loop=float(((lp_f - lp_l).abs()
                                       / lp_l.abs()).max()),
           post_max_abs_vs_loop=float((post_f - post_l).abs().max()),
-          fused_ms=fused_ms, loop_ms=loop_ms, small_vs_fp64="ok")
+          small_vs_fp64="ok")
     del post_f, post_r
     return lp_l, post_l, den_f
 
@@ -1019,8 +870,7 @@ def segment_reduce_phase(dev, den_b):
     with that order's labels (sorted, padding last) and with each block's
     slots shuffled (same labels, seed 5): against its plain version on the
     card and on the CPU, repeats bit-identical, its order pass against
-    segment_order_plain; device times from CUDA-graph replays beside the
-    plain version's and index_add_'s."""
+    segment_order_plain."""
     pdfo = den_b._pdf_o
     n = den_b.frames_per_chunk(B, T_OUT) * B
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1031,16 +881,10 @@ def segment_reduce_phase(dev, den_b):
     shuffled = torch.gather(pdfo.local, 1,
                             torch.from_numpy(perm).to(dev)).contiguous()
     vals_cpu = vals.cpu()
-    flat = vals.reshape(NB * K, n)
     result = {"shape": [NB, K, n], "bit_identical": True}
     for tag, labels in (("sorted", pdfo.local), ("shuffled", shuffled)):
-        def kernel():
-            return segment_reduce(vals, labels)
-
-        def plain():
-            return segment_reduce_plain(vals, labels)
-
-        out, again, ref = kernel(), kernel(), plain()
+        out, again = segment_reduce(vals, labels), segment_reduce(vals, labels)
+        ref = segment_reduce_plain(vals, labels)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
             raise AssertionError(f"segment_reduce ({tag}) repeats differ")
@@ -1060,40 +904,14 @@ def segment_reduce_phase(dev, den_b):
             if not torch.equal(order[b, :used], order_ref[b, :used]):
                 raise AssertionError(f"segment_order ({tag}) block {b} "
                                      f"differs")
-        # L2 warm, REDUCE_REPS back-to-back calls per graph, plain, kernel,
-        # kernel, plain; the library call: one index_add_ of every slot
-        # into its block's row (the plain version without its index set-up)
-        ms = {"kernel": [], "plain": []}
-        for name in ("plain", "kernel", "kernel", "plain"):
-            ms[name].append(warm_ms(kernel if name == "kernel" else plain,
-                                    REDUCE_REPS))
-        key = labels.to(torch.int64)
-        rows = (torch.arange(NB, device=dev)[:, None] * (SB + 1)
-                + torch.where((key >= 0) & (key < SB), key, SB)).reshape(-1)
-        acc = torch.zeros((NB * (SB + 1), n), device=dev)
-        labelled = int(((labels >= 0) & (labels < SB)).sum())
         result[tag] = {
             "max_abs_err": float((out - ref).abs().max()),
             "max_abs_err_vs_cpu_plain": float((out.cpu() - ref_cpu)
                                               .abs().max()),
             "equal_to_cpu_plain": torch.equal(out.cpu(), ref_cpu),
-            "ms": float(np.mean(ms["kernel"])),
-            "ms_each": ms["kernel"],
-            "plain_ms": float(np.mean(ms["plain"])),
-            "library_ms": warm_ms(lambda: acc.index_add_(0, rows, flat),
-                                  REDUCE_REPS),
-            "order_pass_ms": warm_ms(lambda: segment_order(labels),
-                                     REDUCE_REPS),
-            "labelled_slots": labelled,
-            # bytes the labelled values need (each read once), the labels
-            # and the output; one add per labelled value
-            "bound": bound(4 * (labelled * n + labels.numel() + out.numel()),
-                           labelled * n),
-            "bound_all_slots_ms": bound(4 * (vals.numel() + labels.numel()
-                                             + out.numel()),
-                                        vals.numel())[0],
+            "labelled_slots": int(((labels >= 0) & (labels < SB)).sum()),
         }
-        del out, again, ref, ref_cpu, acc, rows
+        del out, again, ref, ref_cpu
     result["max_abs_err"] = max(result[t]["max_abs_err"]
                                 for t in ("sorted", "shuffled"))
     phase("segment_reduce", **result)
@@ -1106,10 +924,7 @@ def numerator_phase(dev):
     A = 2 T_OUT, P pdfs; int32 / fp32 arrays on the card, as the Trainer
     uploads them) against its plain version on the card: log-probs and
     posteriors at tests/test_torch_numerator.py's bars, repeats
-    bit-identical, one launch a call.  Device ms of a call (the output's
-    memset and the kernel) from CUDA-graph replays and of the kernel alone
-    under the profiler, beside the plain version's (CUDA events around one
-    call, which its host enqueue bounds), and each one's host ms a call."""
+    bit-identical, one launch a call."""
     g = bench_num_graph(B, T_OUT, 2 * T_OUT, P, np.random.default_rng(6))
     graph = dataclasses.replace(g, **{
         f.name: torch.as_tensor(getattr(g, f.name), device=dev)
@@ -1117,17 +932,11 @@ def numerator_phase(dev):
         if isinstance(getattr(g, f.name), np.ndarray)})
     x = torch.randn((B, T_OUT, P), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(6))
-    S, A = graph.num_states, graph.num_arcs
-
-    def kernel():
-        return numerator_forward_backward(graph, x)
-
-    def plain():
-        with fp32_matmuls():
-            return num_module._forward_backward(graph, x)
-
     before = numerator_forward_backward.launches
-    (lp, post), (lp2, post2), (rlp, rpost) = kernel(), kernel(), plain()
+    lp, post = numerator_forward_backward(graph, x)
+    lp2, post2 = numerator_forward_backward(graph, x)
+    with fp32_matmuls():
+        rlp, rpost = num_module._forward_backward(graph, x)
     torch.cuda.synchronize()
     if numerator_forward_backward.launches != before + 2:
         raise AssertionError("the numerator did not launch once a call")
@@ -1136,53 +945,15 @@ def numerator_phase(dev):
     torch.testing.assert_close(lp, rlp, rtol=NUM_LOGP_RTOL, atol=0)
     torch.testing.assert_close(post, rpost, rtol=NUM_POST_RTOL,
                                atol=NUM_POST_ATOL)
-
-    def host_ms(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        ms = (time.perf_counter() - t0) * 1e3 / n
-        torch.cuda.synchronize()
-        return ms
-
-    ms = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        ms[name].append(warm_ms(kernel, NUM_REPS) if name == "kernel"
-                        else cuda_ms(plain, 1))
-    _, rows = kernel_times(kernel)
-    kernel_alone = [us for name, _, us in rows if "numerator_kernel" in name]
     result = {
-        "B": B, "T": T_OUT, "S": S, "A": A, "P": P,
+        "B": B, "T": T_OUT, "S": graph.num_states, "A": graph.num_arcs,
+        "P": P,
         "max_rel_err_logp": float(((lp - rlp).abs() / rlp.abs()).max()),
         "max_abs_err_post": float((post - rpost).abs().max()),
         "bit_identical": True,
-        "ms": float(np.mean(ms["kernel"])), "ms_each": ms["kernel"],
-        "kernel_alone_ms": kernel_alone[0] / 1e3 if kernel_alone else None,
-        "plain_ms": float(np.mean(ms["plain"])), "plain_ms_each": ms["plain"],
-        "host_ms": host_ms(kernel, 20), "plain_host_ms": host_ms(plain, 3),
-        # the posteriors written, the arcs and final weights read, and the
-        # nnet output's values the arcs read (each once)
-        "bound": bound(4 * (B * T_OUT * P + 5 * B * A + B * S + B
-                            + B * T_OUT * A), 0),
     }
     phase("numerator", **result)
     return result
-
-
-def lstmp_bounds(B, steps, C, R):
-    """(forward, backward) bounds of one layer's recurrence over `steps`
-    steps (benchmark/counts/lstmp.py's counts, bf16 operands): the
-    products, the gates' pre-activations and derivatives, c, m and r and
-    their derivatives each moved once, the recurrent weights once."""
-    rows, w = B * steps, 2 * (R * 4 * C + C * R)
-    fwd = bound(rows * (16 * C + 4 * C + 2 * C + 4 * R) + w,
-                steps * (2.0 * B * R * 4 * C + 2.0 * B * C * R + 20 * B * C))
-    bwd = bound(rows * (16 * C + 8 * C + 4 * R) + rows * (16 * C + 4 * R)
-                + w, steps * (2.0 * B * R * C + 2.0 * B * 4 * C * R
-                              + 30 * B * C))
-    return fwd, bwd
 
 
 def lstmp_steps(bf16):
@@ -1243,38 +1014,6 @@ def lstmp_phase(dev, graph):
         result[f"max_abs_err_{tag}"] = {"fwd": max(abs_err[:2]),
                                         "bwd": max(abs_err[2:])}
 
-        def forward(fn):
-            with torch.no_grad():
-                fn(*leaves, steps)
-
-        def backward(fn):
-            xs = [x.clone().requires_grad_(True) for x in leaves]
-            r, m = fn(*xs, steps)
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            torch.autograd.backward([r, m], [g_r, g_m])
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end)
-
-        # device ms of a pass, kernel and plain loop in turns
-        ms = {"fwd": [], "bwd": [], "fwd_plain": [], "bwd_plain": []}
-        forward(lstmp_recurrence), forward(lstmp_recurrence_plain)
-        for kernel in (False, True, True, False):
-            fn = lstmp_recurrence if kernel else lstmp_recurrence_plain
-            sfx = "" if kernel else "_plain"
-            ms["fwd" + sfx].append(cuda_ms(lambda: forward(fn), 1))
-            ms["bwd" + sfx].append(backward(fn))
-        result[f"ms_{tag}"] = {k: float(np.mean(v)) for k, v in ms.items()}
-    # the kernels alone, bf16 (the train step's mode), under the profiler
-    _, rows = kernel_times(lambda: run(lstmp_recurrence, lstmp_steps(True)))
-    alone = {name: us / 1e3 for name, _, us in rows if "lstmp_" in name}
-    result["kernel_alone_ms"] = alone
-    fwd_b, bwd_b = lstmp_bounds(B, T - LSTMP_START, C, R)
-    result["bound"] = {"fwd": fwd_b, "bwd": bwd_b}
-
     # the den at the TDNN-LSTM's B = 64: the default den pads the batch to
     # the fused scans' 128-row tile; the loop den runs the 64 rows
     x = torch.randn((B, LSTMP_T_OUT, P), device=dev,
@@ -1290,10 +1029,7 @@ def lstmp_phase(dev, graph):
     torch.testing.assert_close(lp_f, lp_l, rtol=LOGP_RTOL, atol=0)
     torch.testing.assert_close(post_f, post_l, rtol=POST_RTOL,
                                atol=POST_ATOL)
-    fused_ms, loop_ms = alternate_ms(lambda: den_l.forward_backward(x),
-                                     lambda: den_f.forward_backward(x))
-    result["den_b64"] = {"T": LSTMP_T_OUT, "padded_fused_ms": fused_ms,
-                         "loop_ms": loop_ms}
+    result["den_b64"] = {"T": LSTMP_T_OUT, "routes": routes}
     del den_l, x, post_f, post_l
 
     # the TDNN-LSTM's train step on the main path: counts from 0 here
@@ -1323,15 +1059,11 @@ def lstmp_phase(dev, graph):
                 "numerator": 1}
     for c in counters.values():
         c.launches = 0
-    step_ms, losses = [], []
+    losses = []
     for i in range(3):
         before = {k: c.launches for k, c in counters.items()}
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         opt, scale, out = step(opt, scale, batch)
-        end.record()
-        end.synchronize()
+        torch.cuda.synchronize()
         got = {k: c.launches - before[k] for k, c in counters.items()}
         if got != per_step:
             raise AssertionError(f"TDNN-LSTM step {i} launched {got}, "
@@ -1342,10 +1074,8 @@ def lstmp_phase(dev, graph):
                                  f"{bool(out.ok)}, skipped "
                                  f"{bool(out.skipped)}")
         losses.append(loss)
-        if i > 0:
-            step_ms.append(start.elapsed_time(end))
     result["train"] = {"B": B, "T_in": LSTMP_T_IN, "T_out": LSTMP_T_OUT,
-                       "losses": losses, "step_ms_each": step_ms,
+                       "losses": losses,
                        "launches": lstmp_recurrence.launches,
                        "max_memory_allocated_bytes":
                            torch.cuda.max_memory_allocated()}
@@ -1358,7 +1088,7 @@ def lstmp_phase(dev, graph):
 # single-pass arithmetic, at JAX's own fast-mode bars
 # (tests/test_chain_denominator.py:283-297)
 FAST_LOGP_RTOL, FAST_POST_ATOL = 2e-2, 2e-2
-LOWP_STEPS = 5                   # timed trainbench steps, after a warm-up
+LOWP_STEPS = 1                   # trainbench steps after its warm-up
 
 
 SCAN_OUTPUTS = ("adash_hist", "asum", "logc", "a_final", "beta_hist")
@@ -1366,33 +1096,25 @@ SCAN_OUTPUTS = ("adash_hist", "asum", "logc", "a_final", "beta_hist")
 
 def plane_scans(x_tpn, standing):
     """The one-plane terms = 1 scans, the fast den's route, on the standing
-    terms = 1 routes' den and emissions (standing: split -> (sk, calls,
-    outputs) from check_scans): repeats bit-identical and within the plain
+    terms = 1 routes' den and emissions (standing: split -> (sk, outputs)
+    from check_scans): repeats bit-identical and within the plain
     versions' terms = 1 bars (check_scans); every output equal bit for bit
-    to both standing routes' (split "kernel" and "pre", themselves equal).
-    Then ms of each scan in turns beside its plain version and beside the
-    standing split="kernel" route."""
-    sk, k_calls, k_outs = standing["kernel"]
-    for name, a, b in zip(SCAN_OUTPUTS, k_outs, standing["pre"][2]):
+    to both standing routes' (split "kernel" and "pre", themselves equal)."""
+    sk, k_outs = standing["kernel"]
+    for name, a, b in zip(SCAN_OUTPUTS, k_outs, standing["pre"][1]):
         if not torch.equal(a, b):
             raise AssertionError(f"terms1 kernel and pre routes: {name} "
                                  f"differs")
     plane = den_scan.ScanPlane(sk.M.to(torch.bfloat16))
     # equal forwards give the backward the standing routes' inputs
-    err, rel, calls, outs = check_scans(sk, x_tpn, "terms1 plane", 1,
-                                        plane=plane)
-    for split, (_, _, std) in standing.items():
+    err, rel, outs = check_scans(sk, x_tpn, "terms1 plane", 1, plane=plane)
+    for split, (_, std) in standing.items():
         for name, a, b in zip(SCAN_OUTPUTS, outs, std):
             if not torch.equal(a, b):
                 raise AssertionError(f"terms1 plane {name} differs from "
                                      f"split={split}'s")
-    row = {"max_abs_err": err, "max_err_rel_to_max": rel,
-           "bit_equal_to": sorted(standing)}
-    for tag, (plain, kernel) in calls.items():
-        row[f"{tag}_ms"], row[f"{tag}_plain_ms"] = alternate_ms(plain, kernel)
-        row[f"{tag}_ms_vs_kernel_route"], row[f"{tag}_kernel_route_ms"] = \
-            alternate_ms(k_calls[tag][1], kernel)
-    return row
+    return {"max_abs_err": err, "max_err_rel_to_max": rel,
+            "bit_equal_to": sorted(standing)}
 
 
 def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
@@ -1400,15 +1122,13 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
     and 3 (split "kernel" and "pre") against their plain versions at the
     same terms, and at terms = 1 the one-plane route against them bit for
     bit (`plane_scans`); segment_reduce(exact=False) at the blocked den's shape
-    against its plain version and index_add_ on the rounded values; the
-    fast den on the fused, loop and blocked paths against the exact dens of
-    the earlier phases (drift, ms per forward-backward in turns, repeats
+    against its plain version; the fast den on the fused, loop and blocked
+    paths against the exact dens of the earlier phases (drift, repeats
     bit-identical), and a split3 loop den against the plain loop den; then
     bench.py's step through tools.trainbench exact, --mode fast, --bn-lowp
-    and both, in turns.  The fast den's runs and the trainbench runs are
-    this phase's main path: the counts are set to 0 before each."""
+    and both.  The fast den's runs and the trainbench runs are this
+    phase's main path: the counts are set to 0 before each."""
     from kaldi_fp16_tpu_torch.tools import trainbench
-    t0 = time.perf_counter()
     result = {"N": B, "T": T_OUT}
     # 1. the scans at terms 1 and 3, then terms = 1's one-plane route
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1419,18 +1139,15 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
             sk = StructuredKernels(analyze_chain_structure(graph), 1e-5,
                                    scan_impl="fused", split=split,
                                    device=dev)
-            err, rel, calls, outs = check_scans(
+            err, rel, outs = check_scans(
                 sk, x_tpn, f"terms{terms} {split}", terms)
-            row = {"max_abs_err": err, "max_err_rel_to_max": rel}
-            for tag, pair in calls.items():
-                row[f"{tag}_ms"], row[f"{tag}_plain_ms"] = alternate_ms(*pair)
-            scans[f"terms{terms}_{split}"] = row
+            scans[f"terms{terms}_{split}"] = {"max_abs_err": err,
+                                              "max_err_rel_to_max": rel}
             if terms == 1:
-                standing[split] = (sk, calls, outs)
-            del sk, calls, outs
+                standing[split] = (sk, outs)
+            del sk, outs
     scans["terms1_plane"] = plane_scans(x_tpn, standing)
     result["scans"] = scans
-    result["terms1_bounds"] = dict(zip(("fwd", "bwd"), scan_bounds(1)))
     del x_tpn, standing
     torch.cuda.empty_cache()
 
@@ -1441,15 +1158,9 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
                       generator=torch.Generator(device=dev).manual_seed(5),
                       device=dev)
     labels = pdfo.local
-    NB, K, n = vals.shape
-
-    def kernel():
-        return segment_reduce(vals, labels, exact=False)
-
-    def plain():
-        return segment_reduce_plain(vals, labels, exact=False)
-
-    out, again, ref = kernel(), kernel(), plain()
+    out = segment_reduce(vals, labels, exact=False)
+    again = segment_reduce(vals, labels, exact=False)
+    ref = segment_reduce_plain(vals, labels, exact=False)
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError("segment_reduce(exact=False) repeats differ")
@@ -1458,30 +1169,13 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
     torch.testing.assert_close(out.cpu(), ref_cpu, rtol=REDUCE_TOL,
                                atol=REDUCE_TOL)
     exact_out = segment_reduce(vals, labels)
-    ms = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        ms[name].append(warm_ms(kernel if name == "kernel" else plain,
-                                REDUCE_REPS))
-    key = labels.to(torch.int64)
-    rows = (torch.arange(NB, device=dev)[:, None] * (SB + 1)
-            + torch.where((key >= 0) & (key < SB), key, SB)).reshape(-1)
-    rounded = vals.to(torch.bfloat16).float().reshape(NB * K, n)
-    acc = torch.zeros((NB * (SB + 1), n), device=dev)
-    labelled = int(((labels >= 0) & (labels < SB)).sum())
     result["segment_reduce_inexact"] = {
-        "shape": [NB, K, n],
+        "shape": list(vals.shape),
         "max_abs_err": float((out - ref).abs().max()),
         "equal_to_cpu_plain": torch.equal(out.cpu(), ref_cpu),
         "max_abs_vs_exact": float((out - exact_out).abs().max()),
-        "ms": float(np.mean(ms["kernel"])), "ms_each": ms["kernel"],
-        "plain_ms": float(np.mean(ms["plain"])),
-        "library_ms": warm_ms(lambda: acc.index_add_(0, rows, rounded),
-                              REDUCE_REPS),
-        # the exact kernel's bytes: the labelled values, labels, output
-        "bound": bound(4 * (labelled * n + labels.numel() + out.numel()),
-                       labelled * n),
     }
-    del vals, out, again, ref, ref_cpu, exact_out, acc, rows, rounded
+    del vals, out, again, ref, ref_cpu, exact_out
 
     # 3. the fast den on each path, against the exact dens
     x = den_input(dev)
@@ -1505,16 +1199,13 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
             raise AssertionError(f"fast den ({path}) repeats differ")
         if not (torch.isfinite(lp).all() and torch.isfinite(post).all()):
             raise AssertionError(f"fast den ({path}) output not finite")
-        fast_ms, exact_ms = alternate_ms(
-            lambda: exact[path].forward_backward(x),
-            lambda: den.forward_backward(x))
         outs[path] = (lp, post)
         dens[path] = {
             "logprob_drift": float((lp - lp_e).abs().max()),
             "logprob_drift_rel": float(((lp - lp_e).abs()
                                         / lp_e.abs()).max()),
             "posterior_drift": float((post - post_e).abs().max()),
-            "fast_ms": fast_ms, "exact_ms": exact_ms, "bit_identical": True}
+            "bit_identical": True}
         del lp_r, post_r, lp_e, post_e
     if fast["fused"]._structured.scan_used != "fused" or \
             launches["fused"]["den_scan_fwd_plane"] != 1 or \
@@ -1524,30 +1215,19 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
         raise AssertionError(f"the fused fast den launched "
                              f"{launches['fused']}, not the one-plane scans")
     # the fused fast den on the standing three-plane terms = 1 route (its
-    # ScanPlane taken away) gives the same bits; its ms in turns
+    # ScanPlane taken away) gives the same bits
     sk_fast = fast["fused"]._structured
-    plane = sk_fast._plane
-
-    def fused_fast():
-        return fast["fused"].forward_backward(x)
-
-    def standing_route():
-        sk_fast._plane = None
-        try:
-            return fused_fast()
-        finally:
-            sk_fast._plane = plane
-
-    lp_s, post_s = standing_route()
+    plane, sk_fast._plane = sk_fast._plane, None
+    try:
+        lp_s, post_s = fast["fused"].forward_backward(x)
+    finally:
+        sk_fast._plane = plane
     torch.cuda.synchronize()
     if not (torch.equal(lp_s, outs["fused"][0])
             and torch.equal(post_s, outs["fused"][1])):
         raise AssertionError("the fused fast den's one-plane and standing "
                              "routes differ")
     del lp_s, post_s
-    row = dens["fused"]
-    row["fast_ms_vs_standing_route"], row["fast_standing_route_ms"] = \
-        alternate_ms(standing_route, fused_fast)
     chunks = -(-T_OUT // fast["blocked"].frames_per_chunk(B, T_OUT))
     if launches["blocked"]["segment_reduce"] != chunks:
         raise AssertionError(f"the blocked fast den launched "
@@ -1572,23 +1252,20 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
     lp_p, post_p = den_pl.forward_backward(x)
     torch.testing.assert_close(lp_3, lp_p, rtol=LOGP_RTOL, atol=0)
     torch.testing.assert_close(post_3, post_p, rtol=POST_RTOL, atol=POST_ATOL)
-    s3_ms, pl_ms = alternate_ms(lambda: den_pl.forward_backward(x),
-                                lambda: den_s3.forward_backward(x))
     dens["split3_vs_plain"] = {
         "logprob_max_rel": float(((lp_3 - lp_p).abs() / lp_p.abs()).max()),
-        "posterior_max_abs": float((post_3 - post_p).abs().max()),
-        "split3_ms": s3_ms, "plain_ms": pl_ms}
+        "posterior_max_abs": float((post_3 - post_p).abs().max())}
     result["dens"] = dens
     result["fast_den_launches"] = launches
     del den_s3, den_pl, lp_3, post_3, lp_p, post_p, x
     torch.cuda.empty_cache()
 
-    # 4. bench.py's step through trainbench, in turns
+    # 4. bench.py's step through trainbench
     steps, step_launches = {}, {}
     for tag, extra in (("exact", []), ("fast", ["--mode", "fast"]),
                        ("bn_lowp", ["--bn-lowp"]),
                        ("fast_bn_lowp", ["--mode", "fast", "--bn-lowp"])):
-        res, _, sec, n = run_tool(
+        res, _, n = run_tool(
             trainbench, ["--batch", str(B), "--frames", str(T_IN), "--pdfs",
                          str(P), "--iters", str(LOWP_STEPS)] + extra,
             f"lowp_trainbench_{tag}", {})
@@ -1601,14 +1278,12 @@ def lowp_phase(dev, graph, den_loop, den_fused, den_blocked):
             raise AssertionError(f"trainbench {tag}: {d}, {n}")
         if network_module._BN_LOWP_STATS:
             raise AssertionError("trainbench left the BatchNorm switch on")
-        steps[tag] = {"step_ms": d["step_ms"], "loss": d["loss"],
-                      "den_mode": d["den_mode"], "bn_lowp": d["bn_lowp"],
-                      "max_memory_allocated_bytes":
-                          d["max_memory_allocated_bytes"], "seconds": sec}
+        steps[tag] = {"loss": d["loss"], "den_mode": d["den_mode"],
+                      "bn_lowp": d["bn_lowp"], "max_memory_allocated_bytes":
+                          d["max_memory_allocated_bytes"]}
         step_launches[tag] = n
     result["trainbench"] = steps
     result["trainbench_launches"] = step_launches
-    result["phase_s"] = time.perf_counter() - t0
     phase("lowp", **result)
     # launches of the terms = 1 scans (the one-plane route) and of the
     # inexact reduce on the main path: the fast dens' runs and the fast
@@ -1660,8 +1335,6 @@ def den_blocked_phase(dev, graph, lp_s, post_s):
                                    atol=LOGP_ATOL)
         torch.testing.assert_close(post_k, other[1], rtol=POST_RTOL,
                                    atol=POST_ATOL)
-    kernel_ms, einsum_ms = alternate_ms(lambda: den_e.forward_backward(x),
-                                        lambda: den_k.forward_backward(x))
     # a small graph that does not decompose, against the float64 oracle
     small = DenominatorGraph.from_fst(
         make_simple_den_fst(num_pdfs=6, num_states=5, seed=3), 6)
@@ -1674,14 +1347,14 @@ def den_blocked_phase(dev, graph, lp_s, post_s):
     phase("den_blocked", B=B, T=T_OUT, P=P, arcs=graph.num_transitions,
           default_posterior_reduce=den_k.posterior_reduce,
           posterior_chunks=chunks, segment_reduce_launches=launches,
-          bit_identical=True, kernel_faster=kernel_ms < einsum_ms,
+          bit_identical=True,
           logp_max_rel_kernel_vs_einsum=float(((lp_k - lp_e).abs()
                                                / lp_e.abs()).max()),
           post_max_abs_kernel_vs_einsum=float((post_k - post_e).abs().max()),
           logp_max_rel_vs_structured=float(((lp_k - lp_s).abs()
                                             / lp_s.abs()).max()),
           post_max_abs_vs_structured=float((post_k - post_s).abs().max()),
-          kernel_ms=kernel_ms, einsum_ms=einsum_ms, small_vs_fp64="ok")
+          small_vs_fp64="ok")
     return launches, den_k
 
 
@@ -1749,8 +1422,8 @@ def small_step_pair(dev, natural_gradient, xconfig=SMALL_XCONFIG,
 
 def train_phase(dev, den, name, counters, per_step, check_den=None,
                 xconfig=None, steps=6):
-    """1 warm-up + (steps - 1) timed steps of bench.py's step on the
-    flagship (or `xconfig`).  counters: {kernel name: object with a
+    """`steps` steps of bench.py's step on the flagship (or `xconfig`).
+    counters: {kernel name: object with a
     `launches` count}; each count is set to 0 before the steps and must
     grow by per_step[name] in every step, and only the first step may
     read its flags off the card (`blocking_reads`).  check_den: another
@@ -1789,15 +1462,10 @@ def train_phase(dev, den, name, counters, per_step, check_den=None,
     # the main path: every kernel count starts at 0 here
     for counter in counters.values():
         counter.launches = 0
-    step_ms, losses, den_logprobs = [], [], []
+    losses, den_logprobs = [], []
     for i in range(steps):
         before = {k: c.launches for k, c in counters.items()}
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         opt, scale, out = step(opt, scale, batch, generator=spec_gen)
-        end.record()
-        end.synchronize()
         loss, num_lp = float(out.loss), float(out.num_logprob)
         if not (np.isfinite(loss) and num_lp > -1e20 and bool(out.ok)
                 and not bool(out.skipped)):
@@ -1811,15 +1479,12 @@ def train_phase(dev, den, name, counters, per_step, check_den=None,
                                      f"expected {per_step[k]}")
         losses.append(loss)
         den_logprobs.append(float(out.den_logprob))
-        if i > 0:                       # step 0 is the warm-up
-            step_ms.append(start.elapsed_time(end))
     launches = {k: c.launches for k, c in counters.items()}
     # without NG only the first call reads the step count off the card;
     # the others take their flags from the previous call's copy
     if step.blocking_reads != 1:
         raise AssertionError(f"{steps} steps waited on their own flags "
                              f"{step.blocking_reads} times, expected 1")
-    mean_ms = float(np.mean(step_ms))
     checked = {}
     if check_den is not None:
         del den.forward_backward
@@ -1838,11 +1503,9 @@ def train_phase(dev, den, name, counters, per_step, check_den=None,
                    "den_post_max_abs_vs_check": worst_post}
         del seen
     numbers = dict(
-        B=B, T_in=T_IN, T_out=T_OUT, timed_steps=len(step_ms),
-        step_ms=mean_ms, step_ms_each=step_ms, losses=losses,
+        B=B, T_in=T_IN, T_out=T_OUT, steps=steps, losses=losses,
         den_logprobs=den_logprobs, blocking_reads=step.blocking_reads,
         **checked,
-        train_audio_sec_per_s_per_chip=B * T_IN / 100.0 / (mean_ms / 1e3),
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
         **{f"{k}_launches": v for k, v in launches.items()})
     if name is not None:
@@ -1888,9 +1551,7 @@ def ng_vs_cpu_phase(dev, den):
         rec[key] = ng_precision.cast(rec[key], cpu)
     del rec["new"], rec["pre"], rec["out"], out
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     runs["cpu32"] = ng_precision.ng_calls(rec, cpu, torch.float32)
-    cpu_s = time.perf_counter() - t0
     runs["cpu64"] = ng_precision.ng_calls(rec, cpu, torch.float64)
 
     sites, grads = rec["sites"], rec["grads"]
@@ -1928,7 +1589,7 @@ def ng_vs_cpu_phase(dev, den):
               (cpu32_vs_64[nm] for nm in posed), default=0.0),
           float32_max_excess_card32_vs_cpu64=max(
               (card32_vs_64[nm] for nm in posed), default=0.0),
-          float32_ill_posed_sites=ill, cpu_ng_s=cpu_s)
+          float32_ill_posed_sites=ill)
 
 
 def batches_equal(a, b):
@@ -1958,13 +1619,11 @@ def egs_phase():
     if WORK.exists():
         shutil.rmtree(WORK)
     egs_dir = WORK / "egs"
-    t0 = time.perf_counter()
     make_synthetic_egs.main([
         str(egs_dir), "--files", str(EGS_FILES), "--per-file",
         str(EGS_PER_FILE), "--pdfs", str(P), "--frames-in", str(EGS_T_IN),
         "--frames-out", str(EGS_T_OUT), "--den-topology", "phone-lm",
         "--den-states", "7052"])
-    write_s = time.perf_counter() - t0
     den_fst = read_fst_file(str(egs_dir / "den.fst"))
     graph = DenominatorGraph.from_fst(den_fst, P)
     layout = analyze_chain_structure(graph)
@@ -1973,13 +1632,11 @@ def egs_phase():
                              "states, F = 3526")
     cfg = DataLoaderConfig(batch_size=B, label_dim=P, max_fst_states=256,
                            max_fst_arcs=512)
-    loaded, ms = {}, {}
+    loaded = {}
     for name, use_native in (("native", True), ("python", False)):
         dl = DataLoader(str(egs_dir / "cegs.*.ark"), cfg,
                         use_native=use_native)
-        t0 = time.perf_counter()
         loaded[name] = list(dl)
-        ms[name] = (time.perf_counter() - t0) * 1e3 / max(len(loaded[name]), 1)
         if dl.readers != name:
             raise AssertionError(f"the {name} loader ran the {dl.readers!r} "
                                  f"parser")
@@ -1987,13 +1644,11 @@ def egs_phase():
         raise AssertionError("native and Python parsers gave other batches")
     # spawned workers beside this process's CUDA context: one file each,
     # merged round-robin, so the same batches in another order
-    t0 = time.perf_counter()
     procs = ProcessLoader(str(egs_dir / "cegs.*.ark"), cfg, workers=EGS_FILES)
     try:
         spawned = list(procs)
     finally:
         procs.close()
-    ms["process"] = (time.perf_counter() - t0) * 1e3 / max(len(spawned), 1)
     by_keys = sorted(spawned, key=lambda b: b.keys)
     if not batches_equal(by_keys, sorted(loaded["native"],
                                          key=lambda b: b.keys)):
@@ -2012,11 +1667,8 @@ def egs_phase():
           T_in=EGS_T_IN, T_out=EGS_T_OUT, pdfs=P, ivector_dim=100,
           left_context=first.left_context, den_states=graph.num_states,
           den_arcs=graph.num_transitions, chains=layout.F,
-          batches=len(loaded["native"]), write_s=write_s,
-          readers=["native", "python"], batches_equal=True,
-          ms_per_batch_native=ms["native"], ms_per_batch_python=ms["python"],
-          process_loader_workers=EGS_FILES,
-          process_loader_ms_per_batch_incl_start=ms["process"])
+          batches=len(loaded["native"]), readers=["native", "python"],
+          batches_equal=True, process_loader_workers=EGS_FILES)
     return egs_dir, graph
 
 
@@ -2042,7 +1694,7 @@ def recipe_run(egs_dir, ckpt_dir, counters, natural_gradient=True,
     B = 128, a checkpoint every `ckpt_every` steps.  Every kernel count is
     set to 0 just before the run; returns (summary, per-step launch
     counts).  den_inputs: a list that gets a CPU copy of the den's input
-    in the first step (a warm-up step, not timed); extra: more flags."""
+    in the first step; extra: more flags."""
     flags = flagship_recipe_flags(egs_dir)
     override = {"--epochs": "1", "--ckpt-dir": str(ckpt_dir),
                 "--ckpt-every": str(ckpt_every)}
@@ -2128,7 +1780,7 @@ def trainer_den_check(den_t, graph, x_cpu, dev):
     torch.testing.assert_close(post, post_l, rtol=POST_RTOL, atol=POST_ATOL)
     x_tpn = torch.exp(torch.clamp(x.float(), -30.0, 30.0)) \
         .permute(1, 2, 0).contiguous()
-    err, rel, _, _ = check_scans(den_t._structured, x_tpn, "trainer")
+    err, rel, _ = check_scans(den_t._structured, x_tpn, "trainer")
     return {"input_shape": list(x.shape),
             "logp_max_rel_vs_loop": float(((lp - lp_l).abs()
                                            / lp_l.abs()).max()),
@@ -2159,7 +1811,6 @@ def trainer_phase(egs_dir, graph, dev):
     sd_full = {k: v.detach().cpu().clone()
                for k, v in full["trainer"].net.state_dict().items()}
     losses = [s["loss"] for s in full["steps"]]
-    timer = full["timer"]
     readers = full["readers"]
     del full
     torch.cuda.empty_cache()
@@ -2188,52 +1839,22 @@ def trainer_phase(egs_dir, graph, dev):
     del resumed, sd_res, saved, opt_a, opt_b
     torch.cuda.empty_cache()
 
-    # no checkpoint inside this run's loop: its loop time is the steps'
+    # no checkpoint inside this run: nothing resumes it
     plain, plain_steps = recipe_run(egs_dir, WORK / "ckpt_no_ng", counters,
                                     natural_gradient=False,
                                     ckpt_every=10 * TRAIN_STEPS)
     check_steps(plain, plain_steps, 1, TRAIN_STEPS, "run without NG")
-    plain_timer = plain["timer"]
     del plain
     torch.cuda.empty_cache()
 
-    device_ms = timer["device_mean_ms"]
-    loop_ms = timer["device_loop_mean_ms"]
-    # timed steps 3..8: the NG update (counter % 4 == 0) falls on step 5
-    each = timer["device_each_ms"]
-    update_ms = each[NG_UPDATE_STEP - 3]
-    other_ms = float(np.mean([m for i, m in enumerate(each)
-                              if i != NG_UPDATE_STEP - 3]))
-    plain_ms = plain_timer["device_mean_ms"]
     phase("trainer", B=B, T_in=EGS_T_IN, T_out=EGS_T_OUT, pdfs=P,
-          steps=TRAIN_STEPS, timed_steps=timer["steps"],
-          resumed_from=CKPT_STEP, resume_bit_identical=True,
+          steps=TRAIN_STEPS, resumed_from=CKPT_STEP, resume_bit_identical=True,
           readers=readers, losses=losses,
           launches=launches, launches_per_step=full_steps[0],
           resumed_launches={k: sum(s[k] for s in resumed_steps)
                             for k in counters},
-          den_check=den_check,
-          step_device_ms=device_ms, step_host_ms=timer["mean_ms"],
-          step_device_ms_each=each,
-          loop_ms_per_step=loop_ms, loop_host_ms_per_step=timer["loop_mean_ms"],
-          device_gaps_ms=timer["device_gaps_ms"],
-          idle_share=timer["idle_share"],
-          ng_update_step_device_ms=update_ms,
-          ng_other_steps_device_ms=other_ms,
-          no_ng_step_device_ms=plain_ms,
-          no_ng_step_device_ms_each=plain_timer["device_each_ms"],
-          no_ng_loop_ms_per_step=plain_timer["device_loop_mean_ms"],
-          no_ng_device_gaps_ms=plain_timer["device_gaps_ms"],
-          no_ng_idle_share=plain_timer["idle_share"],
-          ng_cost_ms_per_step=device_ms - plain_ms,
-          ng_cost_update_step_ms=update_ms - plain_ms,
-          ng_cost_other_steps_ms=other_ms - plain_ms,
-          train_audio_sec_per_s_per_chip=B * EGS_T_IN / 100.0
-          / (loop_ms / 1e3),
-          train_audio_sec_per_s_per_chip_device=B * EGS_T_IN / 100.0
-          / (device_ms / 1e3),
-          max_memory_allocated_bytes=peak)
-    return launches, den_check, {"losses": losses, "device_each_ms": each,
+          den_check=den_check, max_memory_allocated_bytes=peak)
+    return launches, den_check, {"losses": losses,
                                  "digest": train_tool.state_digest(sd_full)}
 
 
@@ -2249,8 +1870,7 @@ def world1_run(egs_dir, trainer_ref):
     run) with the recipe's flags: its 8 steps' losses and its final state
     equal to the trainer phase's bit for bit (at world 1 the data group's
     BatchNorm merge and reported means are torch.mean's and torch.var's
-    bits), the data group's collectives per step, and its device ms per
-    step beside the trainer phase's."""
+    bits) and the data group's collectives per step."""
     counters = {"den_scan_fwd": den_scan.fused_forward,
                 "den_scan_bwd": den_scan.fused_backward,
                 "den_matmul": DenMatmul,
@@ -2276,8 +1896,6 @@ def world1_run(egs_dir, trainer_ref):
         raise AssertionError(f"collectives per step {calls}, expected "
                              f"{plain_calls} ({n_bn} BatchNorms) and more "
                              f"on the NG update steps")
-    each, ref_each = res["timer"]["device_each_ms"], \
-        trainer_ref["device_each_ms"]
     launches = {k: sum(s[k] for s in per_step) for k in counters}
     del res
     torch.cuda.empty_cache()
@@ -2285,10 +1903,6 @@ def world1_run(egs_dir, trainer_ref):
         "losses_bit_identical": True, "state_bit_identical": True,
         "losses": losses, "collectives_per_step": calls,
         "collective_mb_per_step": mb, "batchnorms": n_bn,
-        "step_device_ms_each": each, "trainer_step_device_ms_each": ref_each,
-        # timed steps 3-8; the NG update (step 5) apart
-        "step_device_ms": float(np.mean(each)),
-        "trainer_step_device_ms": float(np.mean(ref_each)),
         "launches": launches}
 
 
@@ -2397,18 +2011,16 @@ def permute_rows(g, perm):
         if isinstance(getattr(g, f.name), np.ndarray)})
 
 
-def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
-                   dtype="bfloat16", steps=DP_STEPS, perm=None, b=DP_B):
+def dp_bench_steps(group, dev, graph, natural_gradient, dtype="bfloat16",
+                   steps=DP_STEPS, perm=None, b=DP_B):
     """bench.py's step (train_phase's batch, seeds and SpecAugment
     generator) at global B = b for `steps` steps in `dtype`, NG-SGD and
     loss scaling on or off: in this process (group None) or as this rank
     of `group` (a DataGroup, or a Mesh: its rows, frames and columns) on
     its share.  perm: this process's batch in another row order, each
     sequence with its numerator graph and SpecAugment masks (the same
-    mathematics, summed in another order).  instrument: one more step
-    with every collective synchronised before and after, for the
-    collectives' share.  The states it returns are whole (gathered over
-    a model axis)."""
+    mathematics, summed in another order).  The states it returns are
+    whole (gathered over a model axis)."""
     rng = np.random.default_rng(0)
     model = build_model(str(ROOT / "configs" / "cnn_tdnn.xconfig"))
     dims = {layer.name: layer.output_dim for layer in model.inputs()}
@@ -2448,23 +2060,15 @@ def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
                 "den_matmul": DenMatmul}
     for c in counters.values():
         c.launches = 0
-    losses, step_ms, launches, calls, mb = [], [], [], [], []
-    axes, event_ms = [], []
+    losses, launches, calls, mb, axes = [], [], [], [], []
     counts = group.counts if isinstance(group, Mesh) else dict
     with train_tool.deterministic_cudnn(), order:
         for i in range(steps):
             before = {k: c.launches for k, c in counters.items()}
             c0 = (group.calls, group.bytes) if group is not None else (0, 0)
             a0 = counts()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            ev[0].record()
             opt, scale, out = step(opt, scale, batch, generator=spec_gen)
-            ev[1].record()
             loss = float(out.loss)
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            event_ms.append(ev[0].elapsed_time(ev[1]))
             axes.append({k: {"calls": v["calls"] - a0[k]["calls"],
                              "mb": (v["bytes"] - a0[k]["bytes"]) / 1e6}
                          for k, v in counts().items()})
@@ -2483,8 +2087,7 @@ def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
                 first = {k: v.detach().cpu().numpy().copy()
                          for k, v in full_state_dict(net, group).items()}
         whole = full_state_dict(net, group)
-        res = {"losses": losses, "step_ms": step_ms,
-               "event_step_ms": event_ms, "axis_counts_per_step": axes,
+        res = {"losses": losses, "axis_counts_per_step": axes,
                "launches_per_step": launches, "collectives_per_step": calls,
                "collective_mb_per_step": mb,
                "scan_used": den._structured.scan_used,
@@ -2494,47 +2097,8 @@ def dp_bench_steps(group, dev, graph, natural_gradient, instrument=False,
                "states": [first, {k: v.detach().cpu().numpy().copy()
                                   for k, v in whole.items()}],
                "init": init}
-        if instrument and group is not None:
-            res.update(timed_collectives(group, step, opt, scale, batch,
-                                         spec_gen, dev))
     res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     return res
-
-
-def timed_collectives(group, step, opt, scale, batch, spec_gen, dev):
-    """One more step with the device synchronised around each of the
-    group's collectives (a Mesh: each axis group's): the step's ms and
-    the ms inside collectives, in all and per axis."""
-    groups = group.groups() if isinstance(group, Mesh) else {"data": group}
-    spent = {k: [] for k in groups}
-
-    def timed(run, axis):
-        def wrapper(t, *args, **kwargs):
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            out = run(t, *args, **kwargs)
-            torch.cuda.synchronize(dev)
-            spent[axis].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return wrapper
-
-    for axis, g in groups.items():
-        g.all_reduce = timed(g.all_reduce, axis)
-    try:
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        step(opt, scale, batch, generator=spec_gen)
-        torch.cuda.synchronize(dev)
-        total = (time.perf_counter() - t0) * 1e3
-    finally:
-        for g in groups.values():
-            del g.all_reduce            # the class's method again
-    ms = float(sum(sum(v) for v in spent.values()))
-    return {"instrumented_step_ms": total, "collective_ms": ms,
-            "collective_calls": sum(len(v) for v in spent.values()),
-            "collective_share": ms / total,
-            "axis_collective_ms": {k: float(sum(v))
-                                   for k, v in spent.items()}}
 
 
 def narrow_setups():
@@ -2596,8 +2160,7 @@ def _dp_rank(group, graph, narrow):
         return res
 
     for ng in (True, False):
-        first = dp_bench_steps(group, group.device, graph, ng,
-                               instrument=True)
+        first = dp_bench_steps(group, group.device, graph, ng)
         repeat = dp_bench_steps(group, group.device, graph, ng)
         first["repeat_digest"] = repeat["digest"]
         first["repeat_losses"] = repeat["losses"]
@@ -2720,19 +2283,13 @@ def two_rank_run(dev, graph):
             "yardstick_update_rel_diff_steps_1_last": y_update,
             "yardstick_bn_rel_diff_steps_1_last": y_bn,
             "yardstick_leaves_step_1": yard[tag]["leaves"],
-            "step_ms_two_ranks": [r["step_ms"] for r in got],
-            "step_ms_one_process": ref["step_ms"],
             "collectives_per_step": got[0]["collectives_per_step"],
             "collective_mb_per_step": got[0]["collective_mb_per_step"],
             "peak_bytes_per_rank": [r["peak_bytes"] for r in got],
             "peak_bytes_one_process": ref["peak_bytes"],
             "ranks_bit_identical": True}
-        if "collective_ms" in got[0]:
-            report[tag].update(
-                instrumented_step_ms=[r["instrumented_step_ms"] for r in got],
-                collective_ms=[r["collective_ms"] for r in got],
-                collective_share=[r["collective_share"] for r in got],
-                repeat_bit_identical=True)
+        if "repeat_digest" in got[0]:
+            report[tag]["repeat_bit_identical"] = True
     # the negative controls: each must fail the checks its run passed
     for fault, tag in (("per_rank_bn", "no_ng"), ("fp32_averaged", "fp32")):
         f = [r[fault] for r in ranks]
@@ -2854,9 +2411,7 @@ def multiprocess_run(dev):
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     arks = mpworker.write_arks(d, MP_FILES, MP_LOCAL_B)
-    t0 = time.perf_counter()
     two = worker_data(launch_workers(d, 2, MP_STEPS), "2 workers")
-    t1 = time.perf_counter()
     ref = one_process_mp(arks, 2, MP_STEPS, dev)
     for w in two:
         if (w["device"], w["backend"], w["process_count"]) != \
@@ -2866,10 +2421,8 @@ def multiprocess_run(dev):
             raise AssertionError(f"2 workers: {w}")
     np.testing.assert_allclose(two[0]["losses"], ref, rtol=NARROW_LOSS["rtol"],
                                err_msg="2 workers vs one process")
-    t2 = time.perf_counter()
     four = worker_data(launch_workers(d, 4, 1, ["--restore-step",
                                                 str(MP_STEPS)]), "4 workers")
-    t3 = time.perf_counter()
     for w in four:
         if w["restored_digest"] != two[0]["param_digest"] or \
                 w["restored_param_sums"] != two[0]["param_sums"] or \
@@ -2878,16 +2431,13 @@ def multiprocess_run(dev):
     (rc0, err0, res0), (rc1, _, res1) = launch_workers(
         d, 2, 50, ["--heartbeat", str(MP_HEARTBEAT_S)],
         {1: ["--die-at-step", "1"]})
-    t4 = time.perf_counter()
     if rc1 != -9 or rc0 == 0 or res0 is not None or res1 is not None:
         raise AssertionError(f"death: victim rc {rc1}, survivor rc {rc0}:"
                              f"\n{err0}")
     dry = dryrun_multichip.main(["--ranks", "2", "--backend", "gloo"])
-    t5 = time.perf_counter()
     dry8 = dryrun_multichip.main(["--ranks", "8", "--backend", "gloo"])
     if dry8["mesh"] != {"data": 2, "seq": 2, "model": 2}:
         raise AssertionError(f"8-rank dryrun mesh {dry8['mesh']}")
-    t6 = time.perf_counter()
     return {"two_workers_losses": two[0]["losses"],
             "one_process_losses": ref,
             "loss_rel_diff": loss_rel(two[0]["losses"], ref),
@@ -2896,9 +2446,7 @@ def multiprocess_run(dev):
             "resume_2_to_4_bit_identical": True,
             "survivor_rc": rc0,
             "survivor_error": (err0.strip().splitlines() or [""])[-1],
-            "dryrun": dry, "dryrun_8": dry8,
-            "s": {"two": t1 - t0, "four": t3 - t2, "death": t4 - t3,
-                  "dryrun": t5 - t4, "dryrun_8": t6 - t5}}
+            "dryrun": dry, "dryrun_8": dry8}
 
 
 def data_parallel_phase(egs_dir, graph, trainer_ref, dev):
@@ -2908,15 +2456,10 @@ def data_parallel_phase(egs_dir, graph, trainer_ref, dev):
     multi-process tools (mpworker, dryrun_multichip at 2 and 8 ranks) on
     the card.  Returns the phase's launches and the 8-rank dryrun's
     result."""
-    t0 = time.perf_counter()
     w1_launches, world1 = world1_run(egs_dir, trainer_ref)
-    t1 = time.perf_counter()
     two_launches, two = two_rank_run(dev, graph)
-    t2 = time.perf_counter()
     mp = multiprocess_run(dev)
-    phase("data_parallel", world1=world1, world1_s=t1 - t0,
-          two_ranks=two, two_ranks_s=t2 - t1, multiprocess=mp,
-          multiprocess_s=time.perf_counter() - t2,
+    phase("data_parallel", world1=world1, two_ranks=two, multiprocess=mp,
           two_ranks_B=DP_B, T_in=T_IN, steps=DP_STEPS,
           bars={"world1": "bit-identical", "loss_rtol": DP_LOSS_RTOL,
                 "step_1_update_bn_x_yardstick_and_floors": DP_BARS,
@@ -2930,16 +2473,15 @@ def data_parallel_phase(egs_dir, graph, trainer_ref, dev):
 def _msp_rank(group, graph, narrow):
     """A spawned rank of the model_seq_parallel phase: for each mesh of
     MSP_MESHES, bench.py's step at B = MSP_B in fp32 and in bf16 with
-    NG-SGD (the latter with one instrumented step), then the narrow fp32
-    cases.  Rank 0 returns its states, the other rank its digests."""
+    NG-SGD, then the narrow fp32 cases.  Rank 0 returns its states, the
+    other rank its digests."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     for name, cfg in MSP_MESHES.items():
         mesh = make_mesh(cfg, group.device)
         for tag, ng, dtype in MSP_RUNS:
-            res = dp_bench_steps(mesh, group.device, graph, ng,
-                                 instrument=tag == "ng", dtype=dtype,
+            res = dp_bench_steps(mesh, group.device, graph, ng, dtype=dtype,
                                  steps=MSP_STEPS, b=MSP_B)
             del res["init"]
             if group.rank != 0:
@@ -2959,7 +2501,6 @@ def model_seq_parallel_phase(dev, graph, dryrun_8):
     the narrow cases at the CPU tests' bars; the data_parallel phase's
     8-rank dryrun (data 2 x seq 2 x model 2) reported beside them.
     Returns the ranks' kernel launches."""
-    t0 = time.perf_counter()
     perm = np.r_[MSP_B // 2:MSP_B, 0:MSP_B // 2]
     single, yard = {}, {}
     for tag, ng, dtype in MSP_RUNS:
@@ -2974,10 +2515,8 @@ def model_seq_parallel_phase(dev, graph, dryrun_8):
     narrow = {k: v for k, v in narrow_setups().items() if k in ("plain",
                                                                 "ng")}
     narrow_ref = {k: run_setup(s, device=dev) for k, s in narrow.items()}
-    t1 = time.perf_counter()
     ranks = spawn_ranks(_msp_rank, [dev, dev], args=(graph, narrow),
                         backend="gloo", join_seconds=DP_JOIN_S)
-    t2 = time.perf_counter()
     launches = {"den_scan_fwd": 0, "den_scan_bwd": 0, "den_matmul": 0,
                 "segment_reduce": 0}
     report, failed = {}, []
@@ -3029,20 +2568,11 @@ def model_seq_parallel_phase(dev, graph, dryrun_8):
                 "yardstick_update_bn_rel_diff_step_1": [
                     yard[tag]["distance"][0][0], yard[tag]["distance"][1][0]],
                 "leaves_step_1": leaf_distances(got[0]["states"][0], ref),
-                "event_step_ms_per_rank": [r["event_step_ms"] for r in got],
-                "event_step_ms_one_process": ref["event_step_ms"],
                 "axis_collectives_per_step_per_rank": [
                     r["axis_counts_per_step"] for r in got],
                 "peak_bytes_per_rank": [r["peak_bytes"] for r in got],
                 "peak_bytes_one_process": ref["peak_bytes"],
                 "ranks_bit_identical": True}
-            if "collective_ms" in got[0]:
-                report[name][tag].update(
-                    instrumented_step_ms=[r["instrumented_step_ms"]
-                                          for r in got],
-                    collective_share=[r["collective_share"] for r in got],
-                    axis_collective_ms=[r["axis_collective_ms"]
-                                        for r in got])
         for k, ref in narrow_ref.items():
             for r in ranks:
                 try:
@@ -3068,8 +2598,7 @@ def model_seq_parallel_phase(dev, graph, dryrun_8):
                     {t: DP_BARS[t] for t, *_ in MSP_RUNS},
                 "narrow": {"loss": NARROW_LOSS, "params": NARROW_PARAMS,
                            "bn": NARROW_BN, "ng_v": NARROW_NG_V}},
-          launches=launches, one_process_s=t1 - t0, ranks_s=t2 - t1,
-          phase_s=time.perf_counter() - t0, failed=failed)
+          launches=launches, failed=failed)
     if failed:
         raise AssertionError("model_seq_parallel: " + "; ".join(failed))
     return launches
@@ -3085,41 +2614,12 @@ def lattices_equal(a, b):
                     for f in fields))
 
 
-def decode_split(name: str) -> str:
-    """A decode kernel's share: "scatter" (scatter_reduce_'s amax / amin:
-    torch's scatter-like scatter_gather kernel), "gather" (torch.take,
-    gather, index), "reduce" (the axis max / min / argmax and sums:
-    reduce_kernel) or "other" (elementwise, fills, copies)."""
-    if "scatter_gather_internal_kernel<true" in name:
-        return "scatter"
-    if "take" in name or "gather" in name or "index" in name:
-        return "gather"
-    if "reduce_kernel" in name:
-        return "reduce"
-    return "other"
-
-
-def decode_profile(fn, dev):
-    """Device launches (kernels and copies), their summed device ms, the
-    ms of each decode_split share and the three costliest kernels of one
-    call of fn, under torch.profiler."""
-    wall, rows = kernel_times(fn, dev)
-    split = {"scatter": 0.0, "gather": 0.0, "reduce": 0.0, "other": 0.0}
-    for name, _, us in rows:
-        split[decode_split(name)] += us / 1e3
-    return {"launches": sum(r[1] for r in rows),
-            "device_busy_ms": sum(r[2] for r in rows) / 1e3,
-            "profiled_wall_ms": wall, "split_ms": split,
-            "top": [[name[:60], n, us / 1e3] for name, n, us in rows[:3]]}
-
-
 def decode_hclg_phase(dev):
     """The device decoders at HCLG scale (see the module docstring)."""
     graph = decodebench.synth_hclg_graph(DEC_S, P)
     S, A = graph.num_states, len(graph.em_dst)
     gen = torch.Generator(device=dev).manual_seed(1)
     ll = torch.randn((DEC_B, DEC_T, P), generator=gen, device=dev)
-    audio_s = DEC_B * DEC_T / 100.0
 
     # Viterbi: the default (checkpointed) path, the plain path, a repeat
     vit = SparseViterbiDecoder(graph, device=dev)
@@ -3140,18 +2640,15 @@ def decode_hclg_phase(dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    vit_ms, card = decodebench.time_decode(vit, ll, DEC_ITERS)
+    card = vit.decode_batch(ll)
     vit_peak = torch.cuda.max_memory_allocated()
     vit_extra = vit_peak - held
     if not all(r["final_reached"] for r in card):
         raise AssertionError("Viterbi: an utterance reached no final state")
-    vit_prof = decode_profile(lambda: vit.decode_batch(ll), dev)
 
     # two utterances re-decoded by the port on the CPU
-    t0 = time.perf_counter()
     host = SparseViterbiDecoder(graph, device="cpu").decode_batch(
         ll[:2].cpu())
-    cpu_s = time.perf_counter() - t0
     worst_cost = 0.0
     for b, (r, h) in enumerate(zip(card, host)):
         if (r["words"], r["alignment"], r["final_reached"]) != (
@@ -3178,7 +2675,7 @@ def decode_hclg_phase(dev):
     lats_dense = dense.decode_batch(ll)
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    lat_ms, lats = decodebench.time_decode(lat, ll, DEC_ITERS)
+    lats = lat.decode_batch(ll)
     lat_peak = torch.cuda.max_memory_allocated()
     lat_extra = lat_peak - held
     if lat.last_transfer != "compact":
@@ -3187,7 +2684,6 @@ def decode_hclg_phase(dev):
     if not all(lattices_equal(x, y) for x, y in zip(lats, lats_dense)):
         raise AssertionError("lattice: dense and compact transfer differ")
     best_words = [lt.best_path()[0] for lt in lats]
-    lat_prof = decode_profile(lambda: lat.decode_batch(ll), dev)
     del lat, dense, lats_dense, masks_c
     torch.cuda.empty_cache()
 
@@ -3198,8 +2694,7 @@ def decode_hclg_phase(dev):
                        device=dev)
     dense_dec = DenseViterbiDecoder(g_d, device=dev)
     sparse_dec = SparseViterbiDecoder(g_d, device=dev)
-    dense_ms, d_res = decodebench.time_decode(dense_dec, ll_d, 1)
-    sparse_ms, s_res = decodebench.time_decode(sparse_dec, ll_d, 1)
+    d_res, s_res = dense_dec.decode_batch(ll_d), sparse_dec.decode_batch(ll_d)
     worst_dense = 0.0
     for b, (x, y) in enumerate(zip(d_res, s_res)):
         if (x["words"], x["alignment"], x["final_reached"]) != (
@@ -3210,32 +2705,21 @@ def decode_hclg_phase(dev):
         worst_dense = max(worst_dense, abs(x["total_cost"] - y["total_cost"]))
     del dense_dec, sparse_dec, ll_d
     torch.cuda.empty_cache()
-    dense_audio = DENSE_B * DENSE_T / 100.0
     phase("decode_hclg", states=S, arcs=A, pdfs=P, B=DEC_B, T=DEC_T,
           checkpointed_equals_plain=True, repeat_bit_identical=True,
           cpu_utterances=len(host), cpu_equal_words_alignment=True,
-          cpu_cost_max_rel=worst_cost, cpu_decode_s=cpu_s,
-          viterbi_decode_ms=vit_ms,
-          viterbi_decode_audio_sec_per_s=audio_s / (vit_ms / 1e3),
-          viterbi_profile=vit_prof, viterbi_peak_bytes=vit_peak,
+          cpu_cost_max_rel=worst_cost, viterbi_peak_bytes=vit_peak,
           viterbi_peak_bytes_over_held=vit_extra,
           viterbi_mean_words=float(np.mean([len(r["words"]) for r in card])),
           lattice_beam=DEC_BEAM, lattice_dense_equals_compact=True,
-          lattice_checkpointed_equals_plain=True,
-          lattice_decode_ms=lat_ms,
-          lattice_decode_audio_sec_per_s=audio_s / (lat_ms / 1e3),
-          lattice_profile=lat_prof, lattice_peak_bytes=lat_peak,
+          lattice_checkpointed_equals_plain=True, lattice_peak_bytes=lat_peak,
           lattice_peak_bytes_over_held=lat_extra,
           mean_lattice_arcs=float(np.mean([len(x.arcs) for x in lats])),
           lattice_1best_equals_viterbi=sum(
               w == r["words"] for w, r in zip(best_words, card)),
           dense_states=DENSE_S, dense_pdfs=DENSE_P, dense_B=DENSE_B,
           dense_T=DENSE_T, dense_equals_sparse=True,
-          dense_cost_max_abs_diff=worst_dense, dense_decode_ms=dense_ms,
-          dense_decode_audio_sec_per_s=dense_audio / (dense_ms / 1e3),
-          sparse_at_dense_shape_decode_ms=sparse_ms,
-          sparse_at_dense_shape_decode_audio_sec_per_s=dense_audio
-          / (sparse_ms / 1e3))
+          dense_cost_max_abs_diff=worst_dense)
     return graph, ll, card
 
 
@@ -3328,14 +2812,12 @@ def layout_vs_segment(layout, graph, ll, lats, seg_lats, masks, seg_masks,
         raise AssertionError(f"{layout} lattice: 1-best differs from the "
                              f"segment lattice")
     n_cpu = min(LAT_CPU_B, ll.shape[0])
-    t0 = time.perf_counter()
     cpu = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, layout=layout,
                                tree_max_width=TREE_W, device="cpu")
     if not all(lattices_equal(x, y) for x, y in zip(
             cpu.decode_batch(ll[:n_cpu].cpu()), lats[:n_cpu])):
         raise AssertionError(f"{layout} lattice: the card and the CPU "
                              f"differ")
-    cpu_s = time.perf_counter() - t0
     a = ArcGraph.from_graph(graph)
     masks = masks.cpu().numpy()
     slot_arc = getattr(steps, "slot_arc", None)
@@ -3344,13 +2826,12 @@ def layout_vs_segment(layout, graph, ll, lats, seg_lats, masks, seg_masks,
                           kept_arcs(seg_masks, b, A), assume_unique=True)
               for b in range(ll.shape[0])]
     out = {"one_best_equal": True, "cpu_utterances": n_cpu,
-           "cpu_equal": True, "cpu_s": cpu_s,
+           "cpu_equal": True,
            "kept_arcs": [int(len(x.arcs)) for x in lats],
            "differing_arc_instances": [len(d) for d in differ]}
     w = int(np.argmax(out["differing_arc_instances"]))
     if len(differ[w]):
         t_idx, a_idx = np.divmod(differ[w], A)
-        t0 = time.perf_counter()
         margins, thr = edge_margins(
             a, -ll[w].double().cpu().numpy(), DEC_BEAM, t_idx, a_idx)
         bound = 2 * ll.shape[1] * float(np.spacing(np.float32(abs(thr))))
@@ -3361,33 +2842,21 @@ def layout_vs_segment(layout, graph, ll, lats, seg_lats, masks, seg_masks,
                 f"keep threshold in float64 differs from the segment "
                 f"lattice (float32 rounding reaches {bound})")
         out["edge"] = {"utterance": w, "float64_margin_max_abs": worst,
-                       "rounding_bound": bound, "threshold": thr,
-                       "s": time.perf_counter() - t0}
+                       "rounding_bound": bound, "threshold": thr}
     return out
 
 
-def layout_numbers(dec, ll, dev):
-    """(decode_batch's results, {ms per decode, decode_audio_sec_per_s,
-    peak bytes over held, the decode's profile}) of one decoder."""
-    torch.cuda.synchronize()
+def layout_numbers(dec, ll):
+    """(decode_batch's results, {peak bytes over held}) of one decoder."""
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    ms, res = decodebench.time_decode(dec, ll, DEC_ITERS)
-    extra = torch.cuda.max_memory_allocated() - held
-    audio_s = ll.shape[0] * ll.shape[1] / 100.0
-    return res, {"decode_ms": ms,
-                 "decode_audio_sec_per_s": audio_s / (ms / 1e3),
-                 "peak_bytes_over_held": extra,
-                 "profile": decode_profile(lambda: dec.decode_batch(ll),
-                                           dev)}
+    res, extra = peak_over_held(lambda: dec.decode_batch(ll))
+    return res, {"peak_bytes_over_held": extra}
 
 
 def decode_layouts_phase(dev, graph, ll, offline):
     """The ELL and tree-ELL layouts on decode_hclg's graph and loglikes
     (see the module docstring); `offline` is the segment layout's
     decode_batch of ll."""
-    t_phase = time.perf_counter()
     out = {"states": graph.num_states, "arcs": len(graph.em_dst),
            "B": ll.shape[0], "T": ll.shape[1], "tree_max_width": TREE_W}
     # Viterbi: each layout against the segment decode, bit for bit
@@ -3405,7 +2874,7 @@ def decode_layouts_phase(dev, graph, ll, offline):
         if ckpt != (DEC_T * graph.num_states * DEC_B * 4
                     > dec.bp_hist_limit):
             raise AssertionError(f"Viterbi {tag}: the wrong path")
-        res, nums = layout_numbers(dec, ll, dev)
+        res, nums = layout_numbers(dec, ll)
         if not results_equal(res, offline):
             raise AssertionError(f"Viterbi {tag}: best, words or alignment "
                                  f"differ from the segment decode")
@@ -3416,9 +2885,7 @@ def decode_layouts_phase(dev, graph, ll, offline):
                     and torch.equal(best_a, best_b)):
                 raise AssertionError(f"Viterbi {tag}: repeats differ")
             del best_a, arcs_a, best_b, arcs_b
-        vit[tag] = dict(nums, checkpointed=ckpt,
-                        launches_per_frame=nums["profile"]["launches"]
-                        / DEC_T)
+        vit[tag] = dict(nums, checkpointed=ckpt)
         del dec
     out["viterbi"] = vit
     out["viterbi_equal_to_segment"] = True
@@ -3444,12 +2911,12 @@ def decode_layouts_phase(dev, graph, ll, offline):
     # and segment at B = ELL_LAT_B (ELL keeps the whole alpha history)
     lat = {}
     seg = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, device=dev)
-    seg_lats, lat["segment"] = layout_numbers(seg, ll, dev)
+    seg_lats, lat["segment"] = layout_numbers(seg, ll)
     seg_masks = seg.masks(ll)[0].cpu().numpy()
     del seg
     tree = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, layout="tree",
                                 tree_max_width=TREE_W, device=dev)
-    tree_lats, lat["tree"] = layout_numbers(tree, ll, dev)
+    tree_lats, lat["tree"] = layout_numbers(tree, ll)
     lat["tree"]["transfer"] = tree.last_transfer
     lat["tree"]["mask_bits_per_frame"] = tree._g.nbits
     if tree.last_transfer != "compact" or not (
@@ -3463,12 +2930,12 @@ def decode_layouts_phase(dev, graph, ll, offline):
     torch.cuda.empty_cache()
     small = ll[:ELL_LAT_B]
     seg = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, device=dev)
-    seg_small, lat[f"segment_B{ELL_LAT_B}"] = layout_numbers(seg, small, dev)
+    seg_small, lat[f"segment_B{ELL_LAT_B}"] = layout_numbers(seg, small)
     seg_masks = seg.masks(small)[0].cpu().numpy()
     del seg
     ell = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, layout="ell",
                                device=dev)
-    ell_lats, lat[f"ell_B{ELL_LAT_B}"] = layout_numbers(ell, small, dev)
+    ell_lats, lat[f"ell_B{ELL_LAT_B}"] = layout_numbers(ell, small)
     lat[f"ell_B{ELL_LAT_B}"]["vs_segment"] = layout_vs_segment(
         "ell", graph, small, ell_lats, seg_small, ell.masks(small)[0],
         seg_masks, ell._g)
@@ -3483,20 +2950,20 @@ def decode_layouts_phase(dev, graph, ll, offline):
     # the tree stream (window >= T, chunks of 32) = the offline decode
     sdec = WindowedStreamingDecoder(graph, window=DEC_T, layout="tree",
                                     tree_max_width=TREE_W, device=dev)
-    got, wall, extra = peak_over_held(
+    got, extra = peak_over_held(
         lambda: sdec.finalize(stream(sdec, ll, (32,))))
     if not results_equal(got, offline):
         raise AssertionError("tree stream: differs from the offline decode")
-    out["tree_stream_chunk32"] = {"equal_to_offline": True, "s": wall,
+    out["tree_stream_chunk32"] = {"equal_to_offline": True,
                                   "peak_bytes_over_held": extra}
     del sdec
     torch.cuda.empty_cache()
 
     # the profile twins at their defaults
-    out["profile_tree"] = profile_tree.main(["--device", str(dev)])
-    out["profile_lattice"] = profile_lattice.main(["--device", str(dev)])
-    phase("decode_layouts", card=card(), phase_s=time.perf_counter() - t_phase,
-          **out)
+    out["profile_tree"] = untimed(profile_tree.main(["--device", str(dev)]))
+    out["profile_lattice"] = untimed(
+        profile_lattice.main(["--device", str(dev)]))
+    phase("decode_layouts", card=card(), **out)
     return {"tree_lattices": tree_lats}
 
 
@@ -3514,18 +2981,15 @@ def _decode_rank(group):
         dec = SparseViterbiDecoder(graph, layout=layout, mesh=group,
                                    tree_max_width=TREE_W, device=dev)
         calls = group.calls
-        t0 = time.perf_counter()
         out[layout] = {"results": dec.decode_batch(ll),
-                       "s": time.perf_counter() - t0,
                        "collectives": group.calls - calls}
         del dec
     dec = DeviceLatticeDecoder(graph, lattice_beam=DEC_BEAM, layout="tree",
                                mesh=group, tree_max_width=TREE_W, device=dev)
     calls, nbytes = group.calls, group.bytes
-    t0 = time.perf_counter()
     lats = dec.decode_batch(ll)
     out["tree_lattice"] = {
-        "s": time.perf_counter() - t0, "collectives": group.calls - calls,
+        "collectives": group.calls - calls,
         "all_reduce_bytes": group.bytes - nbytes,
         "lattices": [{"num_nodes": x.num_nodes, "node_frame": x.node_frame,
                       "final_cost": x.final_cost,
@@ -3539,12 +3003,10 @@ def decode_parallel_phase(dev, ll, offline, layouts):
     """Two gloo ranks sharing the card decode decode_hclg's batch: equal
     to one process (`offline`, the tree lattices of decode_layouts)."""
     fields = ("src", "dst", "ilabel", "olabel", "graph_cost", "acoustic_cost")
-    t0 = time.perf_counter()
     ranks = spawn_ranks(_decode_rank, [dev, dev], backend="gloo",
                         join_seconds=DP_JOIN_S)
-    wall = time.perf_counter() - t0
     ll_sum = float(ll.double().sum())
-    out = {"world": len(ranks), "B": DEC_B, "T": DEC_T, "wall_s": wall}
+    out = {"world": len(ranks), "B": DEC_B, "T": DEC_T}
     for r, got in enumerate(ranks):
         if got["ll_sum"] != ll_sum:
             raise AssertionError(f"rank {r}: other loglikes")
@@ -3569,14 +3031,13 @@ def decode_parallel_phase(dev, ll, offline, layouts):
         if tl["collectives"] != 1:
             raise AssertionError(f"rank {r}, tree lattice: "
                                  f"{tl['collectives']} collectives")
-    out["per_rank"] = [{k: {"s": g[k]["s"], "collectives": g[k]["collectives"]}
+    out["per_rank"] = [{k: {"collectives": g[k]["collectives"]}
                         for k in ("segment", "tree")}
                        | {"tree_lattice": {
                            k: g["tree_lattice"][k]
-                           for k in ("s", "collectives", "all_reduce_bytes")}}
+                           for k in ("collectives", "all_reduce_bytes")}}
                        for g in ranks]
-    phase("decode_parallel", card=card(), phase_s=time.perf_counter() - t0,
-          backend="gloo",
+    phase("decode_parallel", card=card(), backend="gloo",
           viterbi_equal_to_one_process=True,
           lattice_equal_to_one_process=True, **out)
 
@@ -3597,8 +3058,8 @@ def decode_tool_phase(egs_dir):
     utterances at the egs phase's geometry, through the flagship model:
     Viterbi, then lattices with --nbest 3; per-utterance lines go to
     build/chip_smoke/decode_*.txt.  (The host n-best search takes nearly
-    all of the lattice run's time, ~0.45 s an utterance: one file of the
-    egs phase, 512 utterances, took 172-241 s of the run's 1200.)"""
+    all of the lattice run's time: one file of the egs phase, 512
+    utterances, took 172-241 s of the run's 1200.)"""
     fst_path = WORK / "HCLG.fst"
     graph = decodebench.synth_hclg_graph(TOOL_S, P)
     write_fst_file(str(fst_path), graph_fst(graph))
@@ -3611,14 +3072,11 @@ def decode_tool_phase(egs_dir):
     flags = ["--egs", str(tool_egs / "cegs.1.ark"), "--graph", str(fst_path),
              "--xconfig", str(ROOT / "configs" / "cnn_tdnn.xconfig"),
              "--pdfs", str(P), "--batch", str(B), "--on-device"]
-    runs, wall_s = {}, {}
+    runs = {}
     for tag, extra in (("viterbi", []), ("lattice", ["--nbest", "3"])):
-        t0 = time.perf_counter()
         with open(WORK / f"decode_{tag}.txt", "w") as log, \
                 contextlib.redirect_stdout(log):
             runs[tag] = decode_tool.main(flags + extra)
-        torch.cuda.synchronize()
-        wall_s[tag] = time.perf_counter() - t0
     vit, lat = runs["viterbi"], runs["lattice"]
     for tag, run in runs.items():
         if len(run["hyps"]) != TOOL_UTTS:
@@ -3635,7 +3093,7 @@ def decode_tool_phase(egs_dir):
                              f"utterances, e.g. {differ[:3]}")
     phase("decode_tool", utterances=len(vit["hyps"]), T_out=EGS_T_OUT,
           pdfs=P, graph_states=graph.num_states,
-          graph_arcs=len(graph.em_dst), nbest=3, wall_s=wall_s,
+          graph_arcs=len(graph.em_dst), nbest=3,
           mean_words=float(np.mean([len(w) for w in vit["hyps"].values()])),
           lattice_1best_equals_viterbi=True, all_final=True)
 
@@ -3661,18 +3119,11 @@ def kaldi_model_phase(egs_dir, dev):
     d = WORK / "kaldi_model"
     d.mkdir(exist_ok=True)
     txt, raw = d / "final.txt", d / "final.raw"
-    secs = {}
-    t0 = time.perf_counter()
     text = export_network_text(src)
-    secs["text_export"] = time.perf_counter() - t0
     txt.write_text(text)
-    t0 = time.perf_counter()
     comps = parse_nnet3_text(text)
-    secs["text_parse"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     write_nnet3(Nnet3Model(config_lines=[],
                            components=components_from_text(comps)), str(raw))
-    secs["binary_write"] = time.perf_counter() - t0
     del text, comps
 
     want = bn_count_rule(src.state_dict())
@@ -3684,10 +3135,7 @@ def kaldi_model_phase(egs_dir, dev):
     reports = {}
     for kind, path in (("text", txt), ("binary", raw)):
         net = Network(model, torch.Generator(device=dev).manual_seed(1), dev)
-        t0 = time.perf_counter()
         reports[kind] = load_into_network(net, str(path))
-        torch.cuda.synchronize()
-        secs[f"{kind}_load"] = time.perf_counter() - t0
         net.eval()
         got = net.state_dict()
         differ = [k for k in want if not torch.equal(got[k], want[k])]
@@ -3707,7 +3155,6 @@ def kaldi_model_phase(egs_dir, dev):
             set(reports["text"]) != set(src.params) | set(src.bn_state()):
         raise AssertionError(f"load reports {reports}")
 
-    t0 = time.perf_counter()
     copy_raw, copy_txt = d / "copy.raw", d / "copy.txt"
     with contextlib.redirect_stdout(io.StringIO()) as out:
         rcs = [modeltools.main(["info", str(raw)]),
@@ -3715,17 +3162,14 @@ def kaldi_model_phase(egs_dir, dev):
                modeltools.main(["copy", str(copy_raw), str(copy_txt),
                                 "--text"]),
                modeltools.main(["compare", str(txt), str(copy_txt)])]
-    secs["modeltools"] = time.perf_counter() - t0
     tool_out = out.getvalue()
     if rcs != [0, 0, 0, 0] or "worst |diff| = 0.000e+00" not in tool_out \
             or copy_raw.read_bytes() != raw.read_bytes():
         raise AssertionError(f"modeltools: exit codes {rcs}, "
                              f"{tool_out.splitlines()[-1]}")
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         lt = {"round_trip": loadtest.main([]),
               "model": loadtest.main(["--model", str(raw)])}
-    secs["loadtest"] = time.perf_counter() - t0
     if any(r["failures"] for r in lt.values()) or \
             lt["round_trip"]["round_trip_max_abs_err"] != 0.0:
         raise AssertionError(f"loadtest: {lt}")
@@ -3734,12 +3178,9 @@ def kaldi_model_phase(egs_dir, dev):
     flags = ["--egs", str(egs_dir / "cegs.1.ark"), "--graph",
              str(WORK / "HCLG.fst"), "--xconfig", xconfig, "--pdfs", str(P),
              "--batch", str(B), "--on-device", "--model", str(raw)]
-    t0 = time.perf_counter()
     with open(WORK / "decode_model.txt", "w") as log, \
             contextlib.redirect_stdout(log):
         run = decode_tool.main(flags)
-    torch.cuda.synchronize()
-    secs["decode_tool"] = time.perf_counter() - t0
     posts = decode_tool.acoustic_posteriors(src, DataLoader(
         str(egs_dir / "cegs.1.ark"),
         DataLoaderConfig(batch_size=B, label_dim=P)), dev)
@@ -3758,7 +3199,7 @@ def kaldi_model_phase(egs_dir, dev):
           values_loaded=sum(reports["binary"].values()),
           layers_loaded=len(reports["binary"]),
           text_mb=txt.stat().st_size / 1e6, binary_mb=raw.stat().st_size / 1e6,
-          seconds=secs, params_bit_identical=True, forward_bit_identical=True,
+          params_bit_identical=True, forward_bit_identical=True,
           modeltools_compare_worst=0.0,
           loadtest_round_trip_max_abs_err=0.0,
           decode_utterances=len(run["hyps"]), decode_words_equal=True,
@@ -3781,13 +3222,11 @@ def attention_xconfig():
     return str(path)
 
 
-def attention_phase(dev, graph, fused):
+def attention_phase(dev, graph):
     """The flagship with one attention layer: bench.py's step with the
-    default den, in turns with the flagship's, a narrow fp32 attention
-    step on the card against the CPU, the streaming encoder against its
-    offline reference (see the module docstring).  fused: the
-    train_fused phase's numbers.  Returns the attention steps' kernel
-    launches."""
+    default den, a narrow fp32 attention step on the card against the
+    CPU, the streaming encoder against its offline reference (see the
+    module docstring).  Returns the attention steps' kernel launches."""
     xconfig = attention_xconfig()
     model = build_model(xconfig)
     if (model.num_params(), model.time_context()) != ATTENTION_SIZE:
@@ -3796,21 +3235,11 @@ def attention_phase(dev, graph, fused):
     counts = {"den_scan_fwd": den_scan.fused_forward,
               "den_scan_bwd": den_scan.fused_backward,
               "den_matmul": DenMatmul}
-    # the attention model's steps and the flagship's in turns, so that the
-    # two step times share the card's and the host's state
-    runs = {"attention": [], "flagship": []}
-    launches = dict.fromkeys(counts, 0)
-    for tag in ("flagship", "attention", "attention", "flagship"):
-        counted, _, numbers = train_phase(
-            dev, DenominatorComputation(graph, leaky=1e-5, device=dev), None,
-            counts, {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0},
-            xconfig=xconfig if tag == "attention" else None, steps=4)
-        runs[tag].append(numbers)
-        if tag == "attention":
-            launches = {k: launches[k] + counted[k] for k in counts}
-        torch.cuda.empty_cache()
-    att_ms = float(np.mean([r["step_ms"] for r in runs["attention"]]))
-    flag_ms = float(np.mean([r["step_ms"] for r in runs["flagship"]]))
+    launches, _, steps = train_phase(
+        dev, DenominatorComputation(graph, leaky=1e-5, device=dev), None,
+        counts, {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0},
+        xconfig=xconfig, steps=4)
+    torch.cuda.empty_cache()
     small_xconfig = SMALL_XCONFIG.replace(
         "prefinal-layer name=prefinal-l input=tdnnf4",
         SMALL_ATTENTION_LAYER
@@ -3836,18 +3265,9 @@ def attention_phase(dev, graph, fused):
                              f"{tuple(got.shape)} vs {tuple(ref.shape)}, "
                              f"excess {excess}")
     phase("attention", params=model.num_params(),
-          context=list(model.time_context()), step_ms=att_ms,
-          step_ms_each=[r["step_ms_each"] for r in runs["attention"]],
-          flagship_step_ms=flag_ms,
-          flagship_step_ms_each=[r["step_ms_each"] for r in runs["flagship"]],
-          step_ms_over_flagship=att_ms / flag_ms,
-          train_fused_step_ms=fused["step_ms"],
-          losses=[r["losses"] for r in runs["attention"]], launches=launches,
-          train_audio_sec_per_s_per_chip=B * T_IN / 100.0 / (att_ms / 1e3),
-          max_memory_allocated_bytes=runs["attention"][0][
-              "max_memory_allocated_bytes"],
-          flagship_max_memory_allocated_bytes=runs["flagship"][0][
-              "max_memory_allocated_bytes"],
+          context=list(model.time_context()), losses=steps["losses"],
+          launches=launches,
+          max_memory_allocated_bytes=steps["max_memory_allocated_bytes"],
           small_step_vs_cpu=small,
           stream_fp32_chunk16={"max_abs_err": float((got - ref).abs().max()),
                                "max_abs_ref": float(ref.abs().max()),
@@ -3880,17 +3300,26 @@ def stream(dec, ll, chunks, check=None):
     return st
 
 
+# a tool's numbers that are times or rates, which no phase line holds
+TIMED_SUFFIXES = ("_ms", "_s", "_per_chunk", "_per_s", "_per_stream",
+                  "_at_realtime")
+
+
+def untimed(numbers):
+    """A tool's dict of numbers without its times and rates."""
+    return {k: v for k, v in numbers.items()
+            if not k.endswith(TIMED_SUFFIXES)}
+
+
 def peak_over_held(fn):
-    """(fn's result, wall s, peak device bytes above what was allocated
-    when fn started)."""
+    """(fn's result, peak device bytes above what was allocated when fn
+    started)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return (out, time.perf_counter() - t0,
-            torch.cuda.max_memory_allocated() - held)
+    return out, torch.cuda.max_memory_allocated() - held
 
 
 def stream_decode_phase(dev, graph, ll, offline):
@@ -3902,12 +3331,11 @@ def stream_decode_phase(dev, graph, ll, offline):
               "B": ll.shape[0], "T": ll.shape[1]}
     for tag, chunks in (("incremental_16", (16,)),
                         ("incremental_ragged", STREAM_RAGGED)):
-        got, wall, extra = peak_over_held(
+        got, extra = peak_over_held(
             lambda: inc.finalize(stream(inc, ll, chunks)))
         if not results_equal(got, offline):
             raise AssertionError(f"{tag}: the streamed decode differs from "
                                  f"the offline one")
-        result[f"{tag}_s"] = wall
         result[f"{tag}_peak_bytes_over_held"] = extra
     full = WindowedStreamingDecoder(graph, window=ll.shape[1], device=dev)
     st = stream(full, ll, (16,))
@@ -3931,46 +3359,36 @@ def stream_decode_phase(dev, graph, ll, offline):
         return dec.finalize(stream(dec, lls, (C,), bounded))
 
     for C in STREAM_CHUNKS:
-        got, wall, extra = peak_over_held(lambda: windowed(ll, C))
+        got, extra = peak_over_held(lambda: windowed(ll, C))
         result[f"window{STREAM_WINDOW}_chunk{C}"] = {
             "equal_to_offline": sum(results_equal([a], [b])
                                     for a, b in zip(got, offline)),
             "words_equal": sum(a["words"] == b["words"]
                                for a, b in zip(got, offline)),
             "all_final": all(r["final_reached"] for r in got),
-            "s": wall, "peak_bytes_over_held": extra}
+            "peak_bytes_over_held": extra}
     # the same window over a stream twice as long: the memory bound holds
     gen = torch.Generator(device=dev).manual_seed(3)
     ll2 = torch.randn((ll.shape[0], 2 * ll.shape[1], ll.shape[2]),
                       generator=gen, device=dev)
     C = STREAM_CHUNKS[-1]
-    _, wall, extra2 = peak_over_held(lambda: windowed(ll2, C))
+    _, extra2 = peak_over_held(lambda: windowed(ll2, C))
     extra1 = result[f"window{STREAM_WINDOW}_chunk{C}"]["peak_bytes_over_held"]
     if not extra2 <= 1.05 * extra1:
         raise AssertionError(f"windowed decoder's peak grew with T: "
                              f"{extra1} bytes at T = {ll.shape[1]}, {extra2} "
                              f"at {ll2.shape[1]}")
-    result[f"T{ll2.shape[1]}_chunk{C}"] = {"s": wall,
-                                           "peak_bytes_over_held": extra2}
-    # one steady-state feed of 16 frames (window full, a commit every
-    # feed) under torch.profiler
-    dec = WindowedStreamingDecoder(graph, window=STREAM_WINDOW, device=dev)
-    box = [stream(dec, ll2[:, :STREAM_WINDOW + 32], (16,))]
-    nxt = ll2[:, STREAM_WINDOW + 32:STREAM_WINDOW + 48]
-
-    def feed():
-        box[0] = dec.feed(box[0], nxt)
-
-    result["feed_profile_chunk16"] = decode_profile(feed, dev)
-    del ll2, dec, box, nxt
+    result[f"T{ll2.shape[1]}_chunk{C}"] = {"peak_bytes_over_held": extra2}
+    del ll2
     torch.cuda.empty_cache()
     with contextlib.redirect_stdout(io.StringIO()):
-        result["streambench_rows"] = streambench.main(
+        rows = streambench.main(
             ["--decode-only", "--hclg", "--graph-states", str(DEC_S),
              "--pdfs", str(P), "--batch", str(ll.shape[0]), "--decoder",
              "windowed", "--window", str(STREAM_WINDOW), "--chunks",
-             ",".join(map(str, STREAM_CHUNKS)), "--iters", str(STREAM_ITERS),
+             ",".join(map(str, STREAM_CHUNKS)), "--iters", "1",
              "--device", str(dev)])
+    result["streambench_rows"] = [untimed(row) for row in rows]
     phase("stream_decode", window=STREAM_WINDOW, ragged=STREAM_RAGGED,
           incremental_equals_offline=True, window_ge_T_equals_offline=True,
           **result)
@@ -4035,22 +3453,12 @@ def stream_encode_phase(dev):
     if failed:
         phase("stream_encode", failed=failed, **result)
         raise AssertionError(f"streaming encoder off its bars: {failed}")
-    # one warm bf16 feed at chunk_out 16 under torch.profiler
-    enc = StreamingEncoder(net, chunk_out=16, device=dev)
-    box = [enc.init(iv)]
-    for i in range(enc.lag + 1):
-        box[0], _ = enc.feed(box[0], x[:, i * enc.cin:(i + 1) * enc.cin])
-
-    def feed():
-        box[0], _ = enc.feed(box[0], x[:, :enc.cin])
-
-    result["feed_profile_bf16_chunk16"] = decode_profile(feed, dev)
     with contextlib.redirect_stdout(io.StringIO()):
-        result["streambench_rows"] = streambench.main(
+        rows = streambench.main(
             ["--batch", str(STREAM_B), "--chunks",
              ",".join(map(str, STREAM_CHUNKS)), "--xconfig", xconfig,
-             "--pdfs", str(P),
-             "--iters", str(STREAM_ITERS), "--device", str(dev)])
+             "--pdfs", str(P), "--iters", "1", "--device", str(dev)])
+    result["streambench_rows"] = [untimed(row) for row in rows]
     phase("stream_encode", fp32_tol=ENC_FP32_TOL, bf16_tol=ENC_BF16_TOL,
           **result)
 
@@ -4069,7 +3477,6 @@ def synthwer_phase(dev):
 
     DenominatorComputation.forward_backward = keep_input
     DenMatmul.launches = 0
-    t0 = time.perf_counter()
     try:
         with open(WORK / "synthwer.txt", "w") as log, \
                 contextlib.redirect_stdout(log):
@@ -4077,7 +3484,6 @@ def synthwer_phase(dev):
         torch.cuda.synchronize()
     finally:
         DenominatorComputation.forward_backward = run_den
-    wall = time.perf_counter() - t0
     launches = DenMatmul.launches
     if not res["ok"]:
         raise AssertionError(f"synthwer: not ok: {res['history'][-1]}, "
@@ -4104,23 +3510,19 @@ def synthwer_phase(dev):
     torch.testing.assert_close(lp, lp_p, rtol=LOGP_RTOL, atol=0)
     torch.testing.assert_close(post, post_p, rtol=POST_RTOL, atol=POST_ATOL)
 
-    # den_matmul at this shape against its plain version, and timed
+    # den_matmul at this shape against its plain version
     dm, n = sk._kernel, x.shape[0]
     gen = torch.Generator(device=dev).manual_seed(6)
     v = torch.rand((dm.F, n), generator=gen, device=dev)
-    err, us = 0.0, {}
+    err = 0.0
     for transpose in (False, True):
         out = dm.apply(v, transpose)
         ref = den_matmul_split_plain(dm.M, v, transpose)
         torch.cuda.synchronize()
         err = max(err, float((out - ref).abs().max()))
-    T = x.shape[1]
-    us["kernel"] = 1e3 * warm_ms(lambda: dm.apply(v, False), 2 * T)
-    us["plain"] = 1e3 * warm_ms(
-        lambda: den_matmul_split_plain(dm.M, v, False), 8)
     hist = res["history"]
     phase("synthwer", flags=SYNTHWER_FLAGS, ok=True, steps=res["steps"],
-          wall_s=wall, wer_trajectory=[[h["step"], h["wer"]] for h in hist],
+          wer_trajectory=[[h["step"], h["wer"]] for h in hist],
           objf_final=hist[-1].get("objf"), wer_first=res["wer_first"],
           wer_final=res["wer_final"], wer_streaming=res["wer_streaming"],
           wer_rescored=res["wer_rescored"], streaming=res["streaming"],
@@ -4130,8 +3532,7 @@ def synthwer_phase(dev):
           logp_max_rel_vs_plain=float(((lp - lp_p).abs()
                                        / lp_p.abs()).max()),
           post_max_abs_vs_plain=float((post - post_p).abs().max()),
-          den_matmul_max_abs_err_vs_plain=err,
-          den_matmul_us=us["kernel"], den_matmul_plain_us=us["plain"])
+          den_matmul_max_abs_err_vs_plain=err)
     return launches, err
 
 
@@ -4200,12 +3601,10 @@ def run_tool(tool, argv, log, totals):
     """One tool's main(argv) in this process, its output in
     VERIFY/<log>.txt.  Every kernel count is set to 0 just before the run
     and read just after, into `totals`.  Fails on a FAIL line or a nonzero
-    exit; returns (main's result, the output, seconds, the run's
-    launches)."""
+    exit; returns (main's result, the output, the run's launches)."""
     VERIFY.mkdir(parents=True, exist_ok=True)
     buf = io.StringIO()
     zero_launches()
-    t0 = time.perf_counter()
     code = 0
     try:
         with contextlib.redirect_stdout(buf):
@@ -4213,7 +3612,6 @@ def run_tool(tool, argv, log, totals):
     except SystemExit as e:
         res, code = None, e.code
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = kernel_launches()
     for k, n in launches.items():
         totals[k] = totals.get(k, 0) + n
@@ -4224,7 +3622,7 @@ def run_tool(tool, argv, log, totals):
               or ln.strip() == "SOAK FAIL"]
     if code not in (0, None) or failed:
         raise AssertionError(f"{log}: exit {code}, {failed[:6]}")
-    return res, text, seconds, launches
+    return res, text, launches
 
 
 def verify_chain_phase(egs_dir, totals):
@@ -4235,13 +3633,13 @@ def verify_chain_phase(egs_dir, totals):
     from kaldi_fp16_tpu_torch.tools import (
         chainbench, chaintest, chainverify, denverify,
     )
-    res, _, s, n = run_tool(chainverify, [], "chainverify_defaults", totals)
+    res, _, n = run_tool(chainverify, [], "chainverify_defaults", totals)
     if res["failures"] or not res["repeats_identical"]:
         raise AssertionError("chainverify at its defaults failed")
     if res["route"]["posterior_reduce"] != "kernel" or not n["segment_reduce"]:
         raise AssertionError(f"chainverify's default den took {res['route']}"
                              f", {n}")
-    out = {"defaults": {"route": res["route"], "seconds": s,
+    out = {"defaults": {"route": res["route"],
                         "strict_fd_err": res["passes"]["strict"]["fd_err"],
                         "device_fd_err": res["passes"]["device"]["fd_err"],
                         "device_den_post_err":
@@ -4251,8 +3649,8 @@ def verify_chain_phase(egs_dir, totals):
     common = ["--den-fst", den_fst, "--egs", str(egs_dir / "cegs.1.ark"),
               "--pdfs", str(P), "--skip-strict"]
     for tag, flags, route, kernels in CHAINVERIFY_PATHS:
-        res, _, s, n = run_tool(chainverify, common + flags,
-                                f"chainverify_{tag}", totals)
+        res, _, n = run_tool(chainverify, common + flags,
+                             f"chainverify_{tag}", totals)
         if res["route"] != route:
             raise AssertionError(f"chainverify {tag}: route {res['route']}, "
                                  f"expected {route}")
@@ -4261,7 +3659,7 @@ def verify_chain_phase(egs_dir, totals):
                                  f"{res['repeats_identical']}, launches {n}")
         dp = res["passes"]["device"]
         worst_lp = max(abs(got - ref) for _, got, ref in dp["checks"])
-        out[tag] = {"route": res["route"], "seconds": s, "launches": n,
+        out[tag] = {"route": res["route"], "launches": n,
                     "logprob_max_abs_err_vs_fp64": worst_lp,
                     "num_post_err": dp["num_post_err"],
                     "den_post_err": dp["den_post_err"],
@@ -4269,51 +3667,53 @@ def verify_chain_phase(egs_dir, totals):
                     # the derivative's size at the probed points, beside
                     # the finite differences' error
                     "fd_max_abs_analytic": max(abs(r[4]) for r in dp["fd"])}
-    res, _, s, n = run_tool(denverify, ["--den-fst", den_fst, "--pdfs",
-                                        str(P)], "denverify", totals)
-    out["denverify"] = {"seconds": s, "launches": n,
+    res, _, n = run_tool(denverify, ["--den-fst", den_fst, "--pdfs",
+                                     str(P)], "denverify", totals)
+    out["denverify"] = {"launches": n,
                         "rows": [{k: r[k] for k in ("name", "err_oracle",
                                                     "err_brute", "grad_err")}
                                  for r in res["rows"]]}
-    res, _, s, n = run_tool(chaintest, [
+    res, _, n = run_tool(chaintest, [
         "--xconfig", FLAGSHIP, "--pdfs", str(P), "--egs",
         str(egs_dir / "cegs.*.ark"), "--den-fst", den_fst], "chaintest",
         totals)
-    out["chaintest"] = {"seconds": s, "launches": n,
+    out["chaintest"] = {"launches": n,
                         "objf_per_frame": res["objf_per_frame"],
                         "deriv": {k: v for k, v in res["deriv"].items()
                                   if k != "shape"},
                         "memory_mb": res["memory_mb"]}
-    _, text, s, n = run_tool(chainbench, ["--topology", "phone-lm"],
-                             "chainbench", totals)
-    out["chainbench"] = json.loads(text.strip().splitlines()[-1])
-    out["chainbench"]["launches"] = n
+    _, text, n = run_tool(chainbench, ["--topology", "phone-lm", "--iters",
+                                       "1"], "chainbench", totals)
+    line = json.loads(text.strip().splitlines()[-1])
+    out["chainbench"] = {"config": line["config"], "launches": n,
+                         **{k: line["detail"][k] for k in (
+                             "den_layout", "matmul_route", "scan_used",
+                             "posterior_reduce")}}
     phase("verify_chain", card=card(), **out)
 
 
 def verify_net_phase(totals):
-    """tools.fwdtest on the flagship (B = 8, T = 150, 20 iterations) with
+    """tools.fwdtest on the flagship (B = 8, T = 150, 1 iteration) with
     and without --bn-identity, tools.backtest and tools.sgdtest on the
     card, TF32 off."""
     from kaldi_fp16_tpu_torch.tools import backtest, fwdtest, sgdtest
     out = {}
     for tag, extra in (("fwdtest", []), ("fwdtest_bn_identity",
                                          ["--bn-identity"])):
-        res, _, s, _ = run_tool(fwdtest, ["--xconfig", FLAGSHIP, "--batch",
-                                          "8", "--frames", "150", "--iters",
-                                          "20"] + extra, tag, totals)
+        res, _, _ = run_tool(fwdtest, ["--xconfig", FLAGSHIP, "--batch",
+                                       "8", "--frames", "150", "--iters",
+                                       "1"] + extra, tag, totals)
         if not all(o["finite"] for o in res["outputs"].values()):
             raise AssertionError(f"{tag}: outputs not finite")
-        out[tag] = {"frames_per_s": res["frames_per_s"],
-                    "outputs": {k: o["shape"] for k, o in
+        out[tag] = {"outputs": {k: o["shape"] for k, o in
                                 res["outputs"].items()}}
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32):
         raise AssertionError("TF32 is on before backtest")
-    res, _, s, _ = run_tool(backtest, [], "backtest", totals)
-    out["backtest"] = {"worst_rel_err": res["worst"], "seconds": s}
-    res, _, s, _ = run_tool(sgdtest, [], "sgdtest", totals)
-    out["sgdtest"] = {"checks": len(res["checks"]), "seconds": s}
+    res, _, _ = run_tool(backtest, [], "backtest", totals)
+    out["backtest"] = {"worst_rel_err": res["worst"]}
+    res, _, _ = run_tool(sgdtest, [], "sgdtest", totals)
+    out["sgdtest"] = {"checks": len(res["checks"])}
     phase("verify_net", card=card(), **out)
 
 
@@ -4329,7 +3729,7 @@ def verify_train_phase(egs_dir, totals):
     flagship (SIGKILL and resume, run 1's objf reproduced exactly) and
     tools.abtest's grid, den-mode and bn-lowp arms at its defaults."""
     from kaldi_fp16_tpu_torch.tools import abtest, soak, traintest
-    res, _, s, n = run_tool(traintest, [
+    res, _, n = run_tool(traintest, [
         "--xconfig", FLAGSHIP, "--den-topology", "phone-lm", "--pdfs",
         str(P), "--egs-dir", str(egs_dir), "--batch", str(B), "--steps",
         str(TRAINTEST_STEPS), "--lr", TRAINTEST_LR, "--bench-json"],
@@ -4342,16 +3742,14 @@ def verify_train_phase(egs_dir, totals):
     out = {"traintest": {
         "B": B, "steps": TRAINTEST_STEPS, "lr": TRAINTEST_LR,
         "den_route": res["den_route"], "losses": res["losses"],
-        "train_audio_sec_per_s_per_chip": res["audio_sec_per_s"],
-        "step_ms": res["step_ms"], "timed_steps": res["timed_steps"],
-        "phase_ms": res["phase_ms"], "launches": n, "seconds": s}}
+        "launches": n}}
     argv = ["--workdir", str(WORK / "soak")]
     for flag, value in SOAK_CUTS.items():
         argv += [flag, value]
-    res, _, s, _ = run_tool(soak, argv, "soak", totals)
+    res, _, _ = run_tool(soak, argv, "soak", totals)
     if not (res["ok"] and res["replay_exact"] and res["replayed_steps"] > 0):
         raise AssertionError(f"soak: {res}")
-    out["soak"] = {"cuts": SOAK_CUTS, "seconds": s,
+    out["soak"] = {"cuts": SOAK_CUTS,
                    **{k: res[k] for k in (
                        "killed_at_step", "last_ckpt_step", "resumed_at_step",
                        "replayed_steps", "replay_max_objf_diff",
@@ -4359,11 +3757,13 @@ def verify_train_phase(egs_dir, totals):
                        "lr_schedule_preserved", "final_objf",
                        "total_steps")}}
     for arm in AB_ARMS:
-        res, text, s, _ = run_tool(abtest, ["--ab", arm, "--workdir",
-                                            str(WORK / "abtest")],
-                                   f"abtest_{arm}", totals)
-        out[f"abtest_{arm}"] = {"seconds": s,
-                                **json.loads(text.strip().splitlines()[-1])}
+        _, text, _ = run_tool(abtest, ["--ab", arm, "--workdir",
+                                       str(WORK / "abtest")],
+                              f"abtest_{arm}", totals)
+        line = json.loads(text.strip().splitlines()[-1])
+        out[f"abtest_{arm}"] = {k: line[k] for k in (
+            "metric", "final_objf_exact", "final_objf_fast",
+            "final_objf_diff", "max_abs_objf_diff")}
     phase("verify_train", card=card(), **out)
 
 
@@ -4376,29 +3776,26 @@ def verify_data_phase(egs_dir, totals):
     )
     arks = str(egs_dir / "cegs.*.ark")
     files = sorted(str(f) for f in egs_dir.glob("cegs.*.ark"))
-    res, _, s, _ = run_tool(gputest, ["--egs", arks, "--pdfs", str(P)],
-                            "gputest", totals)
-    out = {"gputest": {k: res[k] for k in ("parse_ms", "batch_mb",
-                                           "batch_ms", "raw_gb_per_s",
-                                           "bit_exact")}}
+    res, _, _ = run_tool(gputest, ["--egs", arks, "--pdfs", str(P),
+                                   "--iters", "1"], "gputest", totals)
+    out = {"gputest": {k: res[k] for k in ("batch_mb", "bit_exact")}}
     errs = {}
     for tag, extra in (("plain", []), ("workers_2", ["--workers", "2"]),
                        ("process_workers_2", ["--process-workers", "2"])):
-        res, _, s, _ = run_tool(dltest, [arks] + extra, f"dltest_{tag}",
-                                totals)
+        res, _, _ = run_tool(dltest, [arks] + extra, f"dltest_{tag}",
+                             totals)
         errs[tag] = res["bf16_max_err"]
         out[f"dltest_{tag}"] = {"batches": res["batches"],
-                                "frames_per_s": res["frames_per_s"],
                                 "bf16_max_err": res["bf16_max_err"]}
     if len(set(errs.values())) != 1:
         raise AssertionError(f"dltest's loaders disagree: {errs}")
     for cmd in ("analyze", "verify"):
-        _, text, s, _ = run_tool(egstools, [cmd] + files, f"egstools_{cmd}",
-                                 totals)
+        _, text, _ = run_tool(egstools, [cmd] + files, f"egstools_{cmd}",
+                              totals)
         out[f"egstools_{cmd}"] = text.strip().splitlines()[:2]
-    _, text, _, _ = run_tool(nscheck, [arks], "nscheck", totals)
+    _, text, _ = run_tool(nscheck, [arks], "nscheck", totals)
     out["nscheck_lines"] = len(text.splitlines())
-    _, text, _, _ = run_tool(csrdump, [arks], "csrdump", totals)
+    _, text, _ = run_tool(csrdump, [arks], "csrdump", totals)
     out["csrdump_lines"] = len(text.splitlines())
     phase("verify_data", card=card(), **out)
 
@@ -4434,8 +3831,7 @@ def xvector_phase(dev, totals):
     gradients (the CPU's, then the card's), with weight decay 0 and 1e-2:
     parameters, m and v card against CPU at SMALL_RTOL, so the card's
     Adam is the CPU's, which the tests hold to JAX's.
-    tools.xvectortrain at its defaults must report ok.  The forward on the
-    evaluation batch is timed by utils.profiling.profile_fn."""
+    tools.xvectortrain at its defaults must report ok."""
     from kaldi_fp16_tpu_torch.tools import xvectortrain
     cfg = XVectorConfig(num_speakers=XV_SPEAKERS)
     rng = np.random.default_rng(0)
@@ -4454,25 +3850,16 @@ def xvector_phase(dev, totals):
     opt = init_adam_state(params)
     sched = warmup_lr(step_lr(2e-3, 60, gamma=0.5), 10)
     torch.cuda.reset_peak_memory_stats()
-    losses, ms = [], []
+    losses = []
     for step in range(XV_STEPS):
         feats, labels = (torch.from_numpy(a).to(dev) for a in
                          xvectortrain.synth_batch(rng, centers, XV_B, XV_T,
                                                   cfg.feat_dim))
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         opt, loss = xvectortrain.train_step(cfg, params, opt, feats, labels,
                                             float(np.float32(sched(step))))
-        end.record()
-        end.synchronize()
         losses.append(float(loss))
-        if step:
-            ms.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated()
     eval_after = eval_loss()
-    with torch.no_grad():
-        fwd = profile_fn(xvector_forward, cfg, params, eval_feats, iters=5)
     if not (np.all(np.isfinite(losses)) and eval_after < eval_before):
         raise AssertionError(f"x-vector loss did not fall: evaluation "
                              f"{eval_before} -> {eval_after}, training "
@@ -4531,24 +3918,21 @@ def xvector_phase(dev, totals):
             adam_worst[str(wd)] = max(adam_worst[str(wd)],
                                       float(np.abs(got - ref).max()) / scale)
 
-    res, _, s, _ = run_tool(xvectortrain, [], "xvectortrain", totals)
+    res, _, _ = run_tool(xvectortrain, [], "xvectortrain", totals)
     if not res["ok"]:
         raise AssertionError(f"tools.xvectortrain: {res}")
     phase("xvector", card=card(), parameters=n_params, B=XV_B, T=XV_T,
           speakers=XV_SPEAKERS, steps=XV_STEPS,
           eval_loss={"before": eval_before, "after": eval_after},
-          eval_forward_256=fwd,
-          losses=losses,
-          step_ms=float(np.mean(ms)), step_ms_each=ms,
-          max_memory_allocated_bytes=peak,
+          losses=losses, max_memory_allocated_bytes=peak,
           card_vs_cpu={"B": XV_SMALL_B, "loss": small["card"][0],
                        "loss_rel_diff": abs(small["card"][0]
                                             - small["cpu"][0])
                        / abs(small["cpu"][0]),
                        "grad_max_abs_diff_over_max": worst,
                        "adam_2_steps_max_abs_diff_over_max": adam_worst},
-          xvectortrain={k: v for k, v in res.items() if k != "losses"},
-          xvectortrain_seconds=s)
+          xvectortrain={k: v for k, v in res.items()
+                        if k not in ("losses", "wall_s")})
 
 
 def remat_phase(dev, graph, totals):
@@ -4557,8 +3941,8 @@ def remat_phase(dev, graph, totals):
     batch and SpecAugment generator, REMAT_STEPS steps each, cuDNN
     deterministic: losses, grad norms and parameters at the JAX bars, the
     generator's state and the BN buffers equal, 1 + 1 den_scan launches
-    per step; peak memory and step ms of each (the recompute rebuilds the
-    activations in the backward, so the peak need not fall)."""
+    per step; peak memory of each (the recompute rebuilds the activations
+    in the backward, so the peak need not fall)."""
     rng = np.random.default_rng(0)
     model = build_model(FLAGSHIP)
     den = DenominatorComputation(graph, leaky=1e-5, device=dev)
@@ -4585,20 +3969,14 @@ def remat_phase(dev, graph, totals):
             gen = torch.Generator(device=dev).manual_seed(1)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            outs, ms = [], []
+            outs = []
             for _ in range(REMAT_STEPS):
                 before = den_scan.fused_forward.launches
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
                 opt, scale, out = step(opt, scale, batch, generator=gen)
-                end.record()
-                end.synchronize()
                 if den_scan.fused_forward.launches - before != 1:
                     raise AssertionError("a remat-phase step did not take "
                                          "the fused scans")
                 outs.append(out)
-                ms.append(start.elapsed_time(end))
             runs[remat] = {
                 "loss": [float(o.loss) for o in outs],
                 "grad_norm": [float(o.grad_norm) for o in outs],
@@ -4606,7 +3984,6 @@ def remat_phase(dev, graph, totals):
                 "params": {k: v.detach().cpu().numpy().copy()
                            for k, v in net.state_dict().items()},
                 "generator": gen.get_state().clone(),
-                "step_ms": ms,
                 "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
             del net, opt, step
             torch.cuda.empty_cache()
@@ -4643,7 +4020,6 @@ def remat_phase(dev, graph, totals):
           bit_identical=all(np.array_equal(remat["params"][k], v)
                             for k, v in plain["params"].items()),
           bn_buffers_equal=True, generator_state_equal=True,
-          step_ms={"plain": plain["step_ms"], "remat": remat["step_ms"]},
           max_memory_allocated_bytes={
               "plain": plain["max_memory_allocated_bytes"],
               "remat": remat["max_memory_allocated_bytes"]},
@@ -4652,24 +4028,23 @@ def remat_phase(dev, graph, totals):
 
 # profile_step's variants that run the den (its fused scans: one forward
 # and one backward launch per step) and those that do not
-PROFILE_STEP_ITERS = 5
+PROFILE_STEP_ITERS = 1
 DEN_VARIANTS = ("full", "no-num", "lean")
 
 
 def profile_step_run(tool, totals):
     """tools.profile_step at bench.py's geometry (B = 128, T_in = 150,
-    P = 3080), --iters 5 --lean: 1 + 1 den_scan launches per step in
+    P = 3080), --iters 1 --lean: 1 + 1 den_scan launches per step in
     full, no-num and lean and none in no-den, no-chain and fwd-only, the
     fused scans in full, and a finite loss (fwd-only: output sum) in every
-    variant.  Returns each variant's wall and device ms, launches and
-    value, and the attribution; no ordering of times is asserted (the step
-    is host-bound)."""
-    res, text, s, n = run_tool(tool, ["--iters", str(PROFILE_STEP_ITERS),
-                                      "--lean"], "profile_step", totals)
+    variant.  Returns each variant's launches and value."""
+    res, _, n = run_tool(tool, ["--iters", str(PROFILE_STEP_ITERS),
+                                "--lean"], "profile_step", totals)
     if set(res) != {"full", "no-den", "no-num", "no-chain", "fwd-only",
                     "lean"}:
         raise AssertionError(f"profile_step variants {sorted(res)}")
     steps = PROFILE_STEP_ITERS + 1                  # with the warm-up
+    variants = {}
     for name, r in res.items():
         want = steps if name in DEN_VARIANTS else 0
         got = (r["launches"]["den_scan_fwd"], r["launches"]["den_scan_bwd"])
@@ -4679,25 +4054,25 @@ def profile_step_run(tool, totals):
         value = r["output_sum" if name == "fwd-only" else "loss"]
         if not math.isfinite(value):
             raise AssertionError(f"profile_step {name}: value {value}")
+        variants[name] = {"launches": r["launches"], "value": value}
     if res["full"]["scan_used"] != "fused":
         raise AssertionError(f"profile_step full: {res['full']}")
-    line = json.loads(text.strip().splitlines()[-1])
-    return {"variants": res, "attribution": line["attribution"],
-            "seconds": s, "launches": n}
+    return {"variants": variants, "launches": n}
 
 
 def measure_phase(egs_dir, totals):
-    """The measurement twins in this process: trainbench at B = 128
-    (plain, --remat, --natural-gradient; 5 iterations) and with the random
-    topology (the blocked den, the segment_reduce kernel) at its default
-    batch; roofline at B = 128 on every stage (no share over 100 %);
-    scalebench at worlds 1 and 2 on the card (NCCL, then two gloo ranks
-    sharing it); profile_host on the egs phase's files with --place;
-    profile_latdecode at its defaults; profile_den --impls
-    high,pallas,fused; profile_step, the in-context ablation of bench.py's
-    step, at the JAX tool's defaults with --iters 5 --lean; one trainbench
-    step inside utils.profiling.trace, whose Chrome trace must name the
-    den_scan kernels."""
+    """The measurement twins in this process, each at one iteration: the
+    run that its checks read.  trainbench at B = 128 (plain, --remat,
+    --natural-gradient) and with the random topology (the blocked den,
+    the segment_reduce kernel) at its default batch; roofline at B = 128
+    on every stage (no share over 100 %); scalebench at worlds 1 and 2 on
+    the card (NCCL, then two gloo ranks sharing it); profile_host on the
+    egs phase's files with --place; profile_latdecode at its defaults;
+    profile_den --impls high,pallas,fused; profile_step, the in-context
+    ablation of bench.py's step, with --lean; one trainbench step inside
+    utils.profiling.trace, whose Chrome trace must name the den_scan
+    kernels.  The phase line holds what the checks read: routes,
+    launches, losses, never the twins' times."""
     from kaldi_fp16_tpu_torch.tools import (
         profile_den, profile_host, profile_latdecode, profile_step,
         roofline, scalebench, trainbench,
@@ -4705,45 +4080,56 @@ def measure_phase(egs_dir, totals):
     out = {}
     for tag, extra in (("plain", []), ("remat", ["--remat"]),
                        ("natural_gradient", ["--natural-gradient"])):
-        res, _, s, n = run_tool(trainbench, ["--batch", str(B), "--iters",
-                                             "5"] + extra,
-                                f"trainbench_{tag}", totals)
-        if res["detail"]["scan_used"] != "fused" or not n["den_scan_fwd"]:
-            raise AssertionError(f"trainbench {tag}: {res['detail']}, {n}")
-        out[f"trainbench_{tag}"] = {**res, "seconds": s, "launches": n}
-    res, _, s, n = run_tool(trainbench, ["--topology", "random"],
-                            "trainbench_random", totals)
-    if res["detail"]["posterior_reduce"] != "kernel" or \
-            not n["segment_reduce"]:
-        raise AssertionError(f"trainbench random: {res['detail']}, {n}")
-    out["trainbench_random"] = {**res, "seconds": s, "launches": n}
-    res, _, s, n = run_tool(roofline, ["--batch", str(B)], "roofline",
-                            totals)
-    out["roofline"] = {"rows": res["rows"], "seconds": s}
-    res, _, s, _ = run_tool(scalebench, ["--worlds", "1,2"], "scalebench",
-                            totals)
+        res, _, n = run_tool(trainbench, ["--batch", str(B), "--iters",
+                                          "1"] + extra,
+                             f"trainbench_{tag}", totals)
+        d = res["detail"]
+        if d["scan_used"] != "fused" or not n["den_scan_fwd"]:
+            raise AssertionError(f"trainbench {tag}: {d}, {n}")
+        out[f"trainbench_{tag}"] = {"loss": d["loss"],
+                                    "scan_used": d["scan_used"],
+                                    "launches": n}
+    res, _, n = run_tool(trainbench, ["--topology", "random", "--iters",
+                                      "1"], "trainbench_random", totals)
+    d = res["detail"]
+    if d["posterior_reduce"] != "kernel" or not n["segment_reduce"]:
+        raise AssertionError(f"trainbench random: {d}, {n}")
+    out["trainbench_random"] = {"loss": d["loss"],
+                                "posterior_reduce": d["posterior_reduce"],
+                                "launches": n}
+    res, _, _ = run_tool(roofline, ["--batch", str(B), "--iters", "1"],
+                         "roofline", totals)
+    out["roofline"] = {"stages": [row["stage"] for row in res["rows"]],
+                       "failures": res["failures"]}
+    res, _, _ = run_tool(scalebench, ["--worlds", "1,2", "--iters", "1"],
+                         "scalebench", totals)
     ranks = [(p["devices"], p["backend"], p["device"].split(":")[0])
              for p in res["points"]]
     if ranks != [(1, "nccl", "cuda"), (2, "gloo", "cuda")]:
         raise AssertionError(f"scalebench: worlds, backends, devices "
                              f"{ranks}")
-    out["scalebench"] = {**res, "seconds": s}
-    res, _, s, _ = run_tool(profile_host, [
+    out["scalebench"] = [{k: p[k] for k in (
+        "devices", "backend", "device", "global_batch", "loss",
+        "checked_vs_one_process")} for p in res["points"]]
+    res, _, _ = run_tool(profile_host, [
         "--egs-dir", str(egs_dir), "--batch", str(B), "--frames-in",
         str(EGS_T_IN), "--frames-out", str(EGS_T_OUT), "--pdfs", str(P),
         "--place"], "profile_host", totals)
-    out["profile_host"] = {**res, "seconds": s}
-    res, _, s, _ = run_tool(profile_latdecode, [], "profile_latdecode",
-                            totals)
-    out["profile_latdecode"] = {**res, "seconds": s}
-    res, _, s, n = run_tool(profile_den, ["--impls", "high,pallas,fused"],
-                            "profile_den", totals)
-    out["profile_den"] = {**res, "seconds": s, "launches": n}
+    out["profile_host"] = {"place_device": res["place_device"]}
+    res, _, _ = run_tool(profile_latdecode, [], "profile_latdecode",
+                         totals)
+    out["profile_latdecode"] = {k: res[k] for k in (
+        "kept_bytes", "kept_arcs", "transfer", "config")}
+    res, _, n = run_tool(profile_den, ["--impls", "high,pallas,fused",
+                                       "--iters", "1"], "profile_den", totals)
+    out["profile_den"] = {"config": res["config"], "launches": n,
+                          **{impl: res[impl]["scan_used"] for impl in (
+                              "high", "pallas", "fused")}}
     out["profile_step"] = profile_step_run(profile_step, totals)
 
     logdir = MEASURE / "trace"
     with trace(str(logdir)):
-        res, _, _, n = run_tool(trainbench, ["--batch", str(B), "--iters",
+        res, _, n = run_tool(trainbench, ["--batch", str(B), "--iters",
                                              "1"], "trainbench_traced",
                                 totals)
     events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
@@ -4786,7 +4172,7 @@ def main():
                    "den_scan_bwd": den_scan.fused_backward,
                    "den_matmul": DenMatmul,
                    "numerator": numerator_forward_backward}
-    fused_launches, fused_losses, fused = train_phase(
+    fused_launches, fused_losses, _ = train_phase(
         dev, den_f, "train_fused", scan_counts,
         {"den_scan_fwd": 1, "den_scan_bwd": 1, "den_matmul": 0,
          "numerator": 1},
@@ -4812,7 +4198,7 @@ def main():
     del hclg_graph, hclg_ll, hclg_offline
     torch.cuda.empty_cache()
     stream_encode_phase(dev)
-    att_launches = attention_phase(dev, graph, fused)
+    att_launches = attention_phase(dev, graph)
     sw_launches, sw_err = synthwer_phase(dev)
     tools = {}          # the launches of the tool and side-stack phases
     verify_chain_phase(egs_dir, tools)
@@ -4823,88 +4209,61 @@ def main():
     remat_phase(dev, graph, tools)
     measure_phase(egs_dir, tools)
     src = "kaldi_fp16_tpu_torch/csrc/"
-    F, n = k["F"], k["n"]
-    mm_io = 4 * 2 * F * n                     # v read, out written
-    mm_flops = 6 * 2 * F * F * n              # six bf16 products
-    mm_bound = {"kernel": bound(4 * F * F + mm_io, mm_flops),
-                "pre": bound(3 * 2 * F * F + mm_io, mm_flops)}
     t1 = lowp["numbers"]["scans"]["terms1_plane"]
-    t1_bounds = lowp["numbers"]["terms1_bounds"]
-    red_x = lowp["numbers"]["segment_reduce_inexact"]
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
-              library_ms):
+    def entry(name, source, replaces, launches, err):
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": library_ms}
+                "max_abs_err": err}
 
     print(json.dumps({"kernels": [
         entry("den_matmul", "den_matmul.cu", KERNEL_REPLACES,
               launches["den_matmul"] + sw_launches + tools["den_matmul"]
               + msp_launches["den_matmul"],
-              max(k["kernel_max_abs_err_vs_plain"], sw_err),
-              k["kernel_kernel_us"] / 1e3, k["kernel_plain_us"] / 1e3,
-              mm_bound["kernel"], k["kernel_library_us"] / 1e3),
+              max(k["kernel_max_abs_err_vs_plain"], sw_err)),
         entry("den_matmul_pre", "den_matmul.cu", PRE_REPLACES,
               pre_launches + tools["den_matmul_pre"],
-              k["pre_max_abs_err_vs_plain"], k["pre_kernel_us"] / 1e3,
-              k["pre_plain_us"] / 1e3, mm_bound["pre"],
-              k["pre_library_us"] / 1e3),
+              k["pre_max_abs_err_vs_plain"]),
         entry("den_scan_fwd", "den_scan.cu", SCAN_REPLACES["fwd"],
               fused_launches["den_scan_fwd"] + dp_launches["den_scan_fwd"]
               + msp_launches["den_scan_fwd"] + att_launches["den_scan_fwd"]
               + tools["den_scan_fwd"],
               max(v for errs in (scan["kernel_max_abs_err"],
                                  den_check["scan_max_abs_err"])
-                  for n, v in errs.items() if n != "beta_hist"),
-              scan["kernel_fwd_ms"], scan["kernel_fwd_plain_ms"],
-              scan["fwd_bound"], None),
+                  for n, v in errs.items() if n != "beta_hist")),
         entry("den_scan_bwd", "den_scan.cu", SCAN_REPLACES["bwd"],
               fused_launches["den_scan_bwd"] + dp_launches["den_scan_bwd"]
               + msp_launches["den_scan_bwd"] + att_launches["den_scan_bwd"]
               + tools["den_scan_bwd"],
               max(scan["kernel_max_abs_err"]["beta_hist"],
-                  den_check["scan_max_abs_err"]["beta_hist"]),
-              scan["kernel_bwd_ms"], scan["kernel_bwd_plain_ms"],
-              scan["bwd_bound"], None),
+                  den_check["scan_max_abs_err"]["beta_hist"])),
         entry("segment_reduce", "segment_reduce.cu", REDUCE_REPLACES,
               red_launches + tools["segment_reduce"]
-              + msp_launches["segment_reduce"], red["max_abs_err"],
-              red["sorted"]["ms"],
-              red["sorted"]["plain_ms"], red["sorted"]["bound"],
-              red["sorted"]["library_ms"]),
+              + msp_launches["segment_reduce"], red["max_abs_err"]),
         # the fast den's one-plane route of the same scans (lowp phase),
         # and its reduce
         entry("den_scan_fwd_terms1", "den_scan.cu", SCAN_REPLACES["fwd"],
               lowp["den_scan_fwd_terms1"] + tools["den_scan_fwd_plane"],
               max(v for k, v in t1["max_abs_err"].items()
-                  if k != "beta_hist"),
-              t1["fwd_ms"], t1["fwd_plain_ms"], t1_bounds["fwd"], None),
+                  if k != "beta_hist")),
         entry("den_scan_bwd_terms1", "den_scan.cu", SCAN_REPLACES["bwd"],
               lowp["den_scan_bwd_terms1"] + tools["den_scan_bwd_plane"],
-              t1["max_abs_err"]["beta_hist"],
-              t1["bwd_ms"], t1["bwd_plain_ms"], t1_bounds["bwd"], None),
+              t1["max_abs_err"]["beta_hist"]),
         entry("segment_reduce_inexact", "segment_reduce.cu",
               REDUCE_REPLACES, lowp["segment_reduce_inexact"],
-              red_x["max_abs_err"], red_x["ms"], red_x["plain_ms"],
-              red_x["bound"], red_x["library_ms"]),
+              lowp["numbers"]["segment_reduce_inexact"]["max_abs_err"]),
         # launches: the train, train_fused and trainer phases' steps
         entry("numerator", "numerator.cu", NUM_REPLACES,
               launches["numerator"] + fused_launches["numerator"]
-              + trainer_launches["numerator"], num["max_abs_err_post"],
-              num["ms"], num["plain_ms"], num["bound"], None),
+              + trainer_launches["numerator"], num["max_abs_err_post"]),
         # bf16 operands, as the train step runs them; launches: the lstmp
         # phase's TDNN-LSTM train steps
         entry("lstmp_fwd", "lstmp.cu", LSTMP_REPLACES,
               lstm["train"]["launches"] // 2,
-              lstm["max_abs_err_bf16"]["fwd"], lstm["ms_bf16"]["fwd"],
-              lstm["ms_bf16"]["fwd_plain"], lstm["bound"]["fwd"], None),
+              lstm["max_abs_err_bf16"]["fwd"]),
         entry("lstmp_bwd", "lstmp.cu", LSTMP_REPLACES,
               lstm["train"]["launches"] // 2,
-              lstm["max_abs_err_bf16"]["bwd"], lstm["ms_bf16"]["bwd"],
-              lstm["ms_bf16"]["bwd_plain"], lstm["bound"]["bwd"], None),
+              lstm["max_abs_err_bf16"]["bwd"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

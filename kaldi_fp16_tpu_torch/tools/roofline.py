@@ -13,13 +13,14 @@ train step (bench.py's: SGD with momentum).
 XLA's cost analysis has no torch counterpart, so the counts are:
 
   * operations: the products (matmuls, convolutions) torch runs, as
-    torch.utils.flop_counter.FlopCounterMode counts them, plus the
-    products of the hand-written CUDA kernels, which it cannot see,
-    counted per launch by the formulas chip_smoke.py's bounds use:
-    T * 6 * 2 * F^2 * N for a den_scan call (F the padded chains, six
-    bf16 products per frame), 6 * 2 * F^2 * N for a den_matmul
-    application; segment_reduce and every elementwise op or reduction
-    count none;
+    torch.utils.flop_counter.FlopCounterMode counts them, plus the work of
+    the hand-written CUDA kernels, which it cannot see, counted per launch
+    as the algorithm needs it, the count of benchmark/counts/den_scan.py
+    `scan_work`: T * (2 * F^2 * N + 4 * L * F * N) for a den_scan call
+    and 2 * F^2 * N for a den_matmul application, F the real chains and
+    N the real sequences (the kernels' bf16 splits and the padding of
+    chains and rows are the implementation's and are not counted);
+    segment_reduce and every elementwise op or reduction count none;
   * bytes: each input, parameter and output of the stage read or written
     once (fp32 masters and the den's [F, F] matrix included; a train
     step reads and writes its parameters and velocities), nothing for
@@ -105,14 +106,16 @@ def kernel_launches() -> dict:
 
 
 def kernel_flops(launches: dict, den, N: int, T: int) -> float:
-    """The products of the kernels' launches, which FlopCounterMode does
-    not see (the module docstring's formulas)."""
+    """The work of the kernels' launches, which FlopCounterMode does not
+    see, over N sequences of T frames (the module docstring's count)."""
     sk = den._structured
     if sk is None:
         return 0.0
-    F = sk.lay.F
-    return (launches["den_scan"] * T * 6 * 2 * F * F * N
-            + launches["den_matmul"] * 6 * 2 * F * F * N)
+    L = sk.lay.L
+    F = int(np.count_nonzero(sk.lay.real.any(axis=0)))   # the real chains
+    product = 2.0 * F * F * N
+    return (launches["den_scan"] * T * (product + 4.0 * L * F * N)
+            + launches["den_matmul"] * product)
 
 
 def count(fn, dev, den=None, N=0, T=0):

@@ -14,8 +14,10 @@ every uploaded tensor is marked as used on the default stream
 (`record_stream`), so the allocator cannot hand its memory to the next
 upload while the step still reads it.  Per-step metrics stay on the
 device and are drained in one transfer when `metrics` is read.  The step
-itself reads the device once (skip / orthonormal / NG counters,
-training/train_step.py).
+does not wait on its own flags (training/train_step.py): the previous
+call's skip reaches the host by a non-blocking copy that has landed by
+the next call, and a step reads its own skip and NG counters off the
+card only when it has NG sites (and once, to seed its step count).
 
 The SpecAugment masks come from `self.generator`, a torch.Generator on
 the device seeded with `seed`; its state is what a checkpoint records

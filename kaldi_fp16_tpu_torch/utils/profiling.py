@@ -5,8 +5,7 @@ block (`trace`); the latency of a call (`profile_fn`); the H100's peaks.
 `trace` and `profile_fn` port kaldi_fp16_tpu/utils/profiling.py:21 and
 :63.  `mxu_utilization` (:84) is not ported: it divides by the TPU v5e's
 MXU peak.  The H100's peaks are `H100_PEAK_BF16_FLOPS` and
-`H100_PEAK_HBM_BYTES` below, which chip_smoke's bounds and tools.roofline
-read.
+`H100_PEAK_HBM_BYTES` below, which tools.roofline reads.
 
 `StepTimer` ports kaldi_fp16_tpu/utils/profiling.py:32-61.  Over the timed
 steps (the first `skip_first` left out) it reports:
@@ -22,11 +21,8 @@ steps (the first `skip_first` left out) it reports:
     ends (`device_mean_ms`, ..., `device_each_ms`), and on the same clock
     and over the same steps the window from the first timed start event
     to the last end event (`device_window_ms`, `device_loop_mean_ms` per
-    step), the gaps between one step's end and the next one's start
-    (`device_gaps_ms`), and `idle_share`, 1 - (sum of the steps' device
-    times) / window: the share of the window in which no step was open on
-    the device's stream.  The spans of one stream do not overlap, so the
-    window is the spans plus the gaps and the share is never negative.
+    step) and the gaps between one step's end and the next one's start
+    (`device_gaps_ms`).
 
 `summary()` waits for the last event.
 """
@@ -109,7 +105,6 @@ class StepTimer:
             out["device_loop_mean_ms"] = window / n
             out["device_gaps_ms"] = [ev[i][1].elapsed_time(ev[i + 1][0])
                                      for i in range(n - 1)]
-            out["idle_share"] = 1.0 - sum(dev) / window
         return out
 
 

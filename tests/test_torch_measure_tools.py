@@ -12,6 +12,8 @@ profile_tree and profile_lattice.
   its 8-step loss path follows the JAX tool's loop within 2e-4 rel.
 * profile_tree and profile_lattice print the JAX tools' per-piece lines
   at --states 2000.
+* roofline counts a den kernel's work as the benchmark does
+  (benchmark/counts/den_scan.py): the real chains and rows.
 * scalebench's per-world function holds 1 and 2 gloo ranks against one
   process; trainbench runs --mode fast and --bn-lowp (recorded in its
   JSON as the JAX tool records them, the BatchNorm switch restored after
@@ -41,7 +43,9 @@ from kaldi_fp16_tpu.models import xvector as jax_xv
 from kaldi_fp16_tpu.training import schedulers as jax_sched
 import kaldi_fp16_tpu_torch.chain.objective as port_objective
 import kaldi_fp16_tpu_torch.training.train_step as port_train_step
+from benchmark.counts.den_scan import scan_work
 from kaldi_fp16_tpu_torch.chain import graph as port_graph
+from kaldi_fp16_tpu_torch.chain.den_layout import analyze_chain_structure
 from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
 from kaldi_fp16_tpu_torch.convert import (
     params_from_jax, xvector_params_from_jax,
@@ -190,11 +194,32 @@ def test_roofline_cpu_smoke(xconfig, capsys):
 
 
 def test_roofline_counts_the_kernels_launches_by_formula():
+    # the production den's layout on the fused scans: 3526 chains of 2
+    # states padded to 3584
+    real = np.zeros((2, 3584), bool)
+    real[:, :3526] = True
     den = SimpleNamespace(_structured=SimpleNamespace(
-        lay=SimpleNamespace(F=3584)))
+        lay=SimpleNamespace(F=3584, L=2, real=real)))
     flops = roofline.kernel_flops(
         {"den_scan": 1, "den_matmul": 0, "segment_reduce": 3}, den, 128, 49)
-    assert flops == 49 * 6 * 2 * 3584 ** 2 * 128          # 966.8 GFLOP
+    assert flops == 49 * (2 * 3526 ** 2 * 128 + 4 * 2 * 3526 * 128)  # 156 G
+    flops = roofline.kernel_flops(
+        {"den_scan": 0, "den_matmul": 2, "segment_reduce": 0}, den, 128, 49)
+    assert flops == 2 * 2 * 3526 ** 2 * 128
+
+
+def test_roofline_counts_a_den_scan_launch_as_the_benchmark_does():
+    graph = port_graph.DenominatorGraph.from_fst(
+        port_graph.make_phone_lm_den_fst(24, 13, 2, 4, seed=3), 24)
+    lay = analyze_chain_structure(graph)
+    den = DenominatorComputation(graph, leaky=1e-5, scan_impl="fused",
+                                 device="cpu")
+    # the fused scans' layout pads the chains to the row tile
+    assert den._structured.lay.F % 128 == 0 and den._structured.lay.F > lay.F
+    N, T = 3, 7
+    flops = roofline.kernel_flops(
+        {"den_scan": 1, "den_matmul": 0, "segment_reduce": 0}, den, N, T)
+    assert flops == scan_work(lay.F, lay.L, N, T)["flops"]
 
 
 def test_scalebench_cpu_smoke_and_keys(capsys):

@@ -105,8 +105,7 @@ COUNTERPARTS = {
         "initialize_distributed, then make_mesh over the process group"),
     "utils/profiling.py:mxu_utilization": (
         "utils/profiling.py:H100_PEAK_BF16_FLOPS",
-        "the TPU's MXU share; the H100's peaks serve chip_smoke's bound "
-        "and tools.roofline"),
+        "the TPU's MXU share; the H100's peaks serve tools.roofline"),
     "tools/chainverify.py --platform": (
         "tools/chainverify.py --device", "the torch device"),
     "tools/tpu_r3_sweep.sh": (
