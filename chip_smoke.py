@@ -70,6 +70,9 @@ Phases, one line of numbers each:
   9. small           a narrow fp32 train step on the card against the CPU
  10. train           6 flagship train steps, loop scans
  11. train_fused     the same with the default den (fused scans)
+ 11b. train_graph    the step replayed as CUDA graphs against the eager
+                     step, bit for bit: 10 calls of the flagship at B = 32
+                     and of a small TDNN-LSTM (tests/test_torch_train_graph.py)
  12. ng_vs_cpu       one NG update step at flagship width (B = 128, T_in =
                      164, ranks 20 / 80, patch-lowered convs) on the card;
                      its NG calls re-run on the CPU from the same inputs
@@ -1513,6 +1516,53 @@ def train_phase(dev, den, name, counters, per_step, check_den=None,
     return launches, losses, numbers
 
 
+GRAPH_B = 32                    # train_graph's flagship batch (padded to
+                                # the fused scans' 128-row tile)
+
+
+def graph_test_module():
+    """tests/test_torch_train_graph.py, loaded from its file (the card's
+    Python has a package named `tests` of its own)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "train_graph_test", ROOT / "tests" / "test_torch_train_graph.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_graph_phase(dev, graph):
+    """The train step replayed as CUDA graphs against the eager step, bit
+    for bit (the test file's `graph_vs_eager`: 10 calls crossing two
+    orthonormal steps, a skipped call, two numerator graphs in turn,
+    SpecAugment from a card generator, a foreign opt_state; launches a
+    call equal): the flagship at B = GRAPH_B with the default den, and the
+    test's small TDNN-LSTM (the cooperative recurrence) at B = 64."""
+    tg = graph_test_module()
+    den = DenominatorComputation(graph, leaky=1e-5, device=dev)
+    calls = tg.make_calls(dev, GRAPH_B, T_IN, T_OUT, P, 40, 100, LEFT)
+    torch.cuda.reset_peak_memory_stats()
+    flagship = tg.graph_vs_eager(
+        build_model(str(ROOT / "configs" / "cnn_tdnn.xconfig")), den, calls,
+        dev, T_OUT, LEFT)
+    peak = torch.cuda.max_memory_allocated()
+    del den, calls
+    lstm = tg.graph_vs_eager(
+        build_model_from_string(tg.LSTM_XCONFIG), tg.small_den(24, dev),
+        tg.make_calls(dev, 64, 48, 8, 24, 8, 10, 20), dev, 8, 20, margin=2)
+    want = {"blocking_reads": 2, "graph_captures": 1,
+            "graph_replays": tg.CALLS - 1}
+    for name, counts in (("flagship", flagship), ("tdnn_lstm", lstm)):
+        if counts != want:
+            raise AssertionError(f"train_graph {name}: {counts}, "
+                                 f"expected {want}")
+    phase("train_graph", calls=tg.CALLS, flagship_B=GRAPH_B,
+          bit_identical=["outputs", "params", "bn_state", "velocity",
+                         "step", "launches"],
+          flagship=flagship, tdnn_lstm=lstm,
+          max_memory_allocated_bytes=peak)
+
+
 def ng_vs_cpu_phase(dev, den):
     """NG-SGD at flagship width, the card against the CPU.  One recipe
     step (train_flagship.sh's options: xent 0.1, loss scaling, l2 5e-5, NG
@@ -1913,9 +1963,16 @@ def masks_permuted(perm):
     rows are permuted)."""
     draw = network_module.spec_augment_masks
     index = torch.from_numpy(perm)
+    on = {}     # the index on each device, copied there once (a CUDA graph
+                # capture of the step takes no copy from the host)
+
+    def index_on(dev):
+        if dev not in on:
+            on[dev] = index.to(dev)
+        return on[dev]
 
     def permuted(*args, **kwargs):
-        return tuple(None if m is None else m[index.to(m.device)]
+        return tuple(None if m is None else m[index_on(m.device)]
                      for m in draw(*args, **kwargs))
 
     network_module.spec_augment_masks = permuted
@@ -4180,6 +4237,7 @@ def main():
     # same seeds, weights, batch and SpecAugment generator as "train"
     np.testing.assert_allclose(fused_losses[0], losses[0], rtol=SMALL_RTOL,
                                err_msg="first loss, fused vs loop den")
+    train_graph_phase(dev, graph)
     ng_vs_cpu_phase(dev, den_f)
     del den_f
     egs_dir, egs_graph = egs_phase()

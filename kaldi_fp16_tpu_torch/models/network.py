@@ -542,8 +542,10 @@ def _fwd_tdnnf(spec: TDNNFSpec, p: dict, bn: dict, x: torch.Tensor,
     out, new_bn = _batchnorm(out, bn, spec.target_rms, 1e-3, train, tc,
                              bn_lowp)
     if spec.bypass_scale > 0 and spec.input_dim == spec.output_dim:
-        # the scale is rounded to the compute dtype first, as in JAX
-        out = out + x.new_tensor(spec.bypass_scale, dtype=out.dtype) * x
+        # the scale is rounded to the compute dtype first, as in JAX (a
+        # fill on the device: a CUDA graph captures it)
+        out = out + torch.full((), spec.bypass_scale, dtype=out.dtype,
+                               device=x.device) * x
     return out, new_bn
 
 

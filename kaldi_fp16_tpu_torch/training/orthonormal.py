@@ -36,7 +36,8 @@ def constrain_orthonormal(w: torch.Tensor, constraint: float,
         r = p.shape[0]
         trace_p = torch.trace(p)
         trace_pp = torch.sum(p * p)
-        scale2 = (torch.tensor(float(constraint) ** 2, device=w.device)
+        # a fill, not a copy from the host: a CUDA graph captures it
+        scale2 = (torch.full((), float(constraint) ** 2, device=w.device)
                   if constraint > 0 else trace_pp / trace_p)
         ratio = trace_pp * r / (trace_p * trace_p)
         speed = torch.where(ratio > 1.1, update_speed * 0.25,

@@ -64,6 +64,30 @@ own read with NG or on a re-seed), `ng.fisher_update` (only on the steps
 that fold in statistics), `ng.precondition` and `train_step.update`, all
 inside `train_step`.
 
+A call that needs no device value on the host replays the step as one
+CUDA graph (`graph_eligible`: CUDA tensors, no NG sites, no group, no
+remat, no loss scaling, the config's own rate, no given SpecAugment
+masks, no generator off the card).  The first call of a geometry runs
+eagerly (it loads the kernels, cuBLAS handles and shared-memory
+attributes); the second captures the step, forward to the committed
+update, and replays it; later calls copy their inputs into the graph's
+static buffers and replay.  The geometry is the batch's shapes and
+dtypes, the numerator graph's shapes, left_context, the generator, the
+BatchNorm switch and the matmul and cuDNN settings; every graph of a
+step draws from one memory pool.  opt_state lives in static storage that
+the graph updates in place: the returned opt_state holds it, and a call
+given any other tensors (a resume, a swapped state) copies them in first.
+The host count of non-skipped steps is kept as on the eager path; the
+orthonormal constraint, due on the host's count, is a small graph of its
+own replayed after the step (its first due call runs it eagerly and
+captures it).  A generator on the card is registered with each graph, so
+a replay draws the SpecAugment masks an eager call would.  A replay adds
+to the kernels' launch counts what its captured call added
+(`_LAUNCH_COUNTERS`).  On a replayed call only `train_step`,
+`train_step.replay` (the copy-in and the replay) and `train_step.read`
+open; `step.graph_captures` and `step.graph_replays` count.  Every other
+call runs the eager step; `_GRAPHS = False` forces it.
+
 Data parallel (`group`, a DataGroup of parallel/mesh.py): the batch is
 this rank's rows of the global batch, and each global reduction of the
 JAX package's sharded step is a collective here (parallel/
@@ -94,18 +118,28 @@ replica whatever their kernels round (data_parallel.one_replica).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
 from kaldi_fp16_tpu_torch.chain.denominator import DenominatorComputation
 from kaldi_fp16_tpu_torch.chain.graph import NumeratorGraphBatch
+from kaldi_fp16_tpu_torch.chain.numerator import numerator_forward_backward
 from kaldi_fp16_tpu_torch.chain.objective import (
     ChainTrainingOpts, make_chain_objf_with_post,
 )
 from kaldi_fp16_tpu_torch.device import resolve_device
+from kaldi_fp16_tpu_torch.ops.den_matmul import DenMatmul
+from kaldi_fp16_tpu_torch.ops.den_scan import fused_backward, fused_forward
+from kaldi_fp16_tpu_torch.ops.lstmp import lstmp_recurrence
+from kaldi_fp16_tpu_torch.ops.numerator import INDEX_FIELDS
+from kaldi_fp16_tpu_torch.ops.segment_reduce import (
+    segment_order, segment_reduce,
+)
 from kaldi_fp16_tpu_torch.models import network as network_module
 from kaldi_fp16_tpu_torch.models.model import Model
 from kaldi_fp16_tpu_torch.models.network import (
@@ -392,22 +426,29 @@ class _StepCount:
         self.returned = None    # the "step" tensor the last call returned
         self.slots = None       # two pinned host slots, used in turn
         self.turn = 0
+        self.blocking_reads = 0  # calls that waited on their own values
 
-    def exchange(self, step: torch.Tensor, skip: torch.Tensor):
-        """Send this call's skip to the host without a wait, then fold in
-        the last call's, waiting on its copy.  Returns (non-skipped steps
-        before this call, whether it read `step` on the device)."""
-        pending, self.pending = self.pending, self._send(skip)
+    def seed(self, step: torch.Tensor) -> bool:
+        """Read `step` on the device where it is not the tensor the last
+        call returned, or nothing was counted yet; the last call's skip
+        is then dropped.  Returns whether it read."""
         seeded = self.done is None or step is not self.returned
         self.returned = None
         if seeded:
-            self.done = int(step)
-        elif pending is not None:
+            self.done, self.pending = int(step), None
+        return seeded
+
+    def fold(self, skip: torch.Tensor) -> int:
+        """Send this call's skip to the host without a wait, then fold in
+        the last call's, waiting on its copy.  Returns the non-skipped
+        steps before this call."""
+        pending, self.pending = self.pending, self._send(skip)
+        if pending is not None:
             value, event = pending
             if event is not None:
                 event.synchronize()
             self.done += 0 if bool(value) else 1
-        return self.done, seeded
+        return self.done
 
     def _send(self, skip: torch.Tensor):
         if skip.device.type != "cuda":
@@ -421,6 +462,256 @@ class _StepCount:
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(skip.device))
         return slot, event
+
+
+# False: every call runs the eager step (the tests' switch)
+_GRAPHS = True
+
+# the kernels' launch counts, (holder, attribute): a replay adds what its
+# captured call added
+_LAUNCH_COUNTERS = (
+    (lstmp_recurrence, "launches"), (numerator_forward_backward, "launches"),
+    (fused_forward, "launches"), (fused_forward, "launches_plane"),
+    (fused_backward, "launches"), (fused_backward, "launches_plane"),
+    (DenMatmul, "launches"), (DenMatmul, "launches_pre"),
+    (segment_reduce, "launches"), (segment_order, "launches"))
+
+BATCH_KEYS = ("features", "ivectors", "weights", "deriv_weights")
+_NUM_FIELDS = ("arc_src", "arc_dst", "arc_pdf", "arc_logw", "arc_mask",
+               "start", "final_logw")
+
+
+def graph_eligible(device: torch.device, ng: bool, group, config: TrainConfig,
+                   lr: Optional[float], spec_masks, generator,
+                   batch_devices=()) -> bool:
+    """Whether a call can replay the step as a CUDA graph: its tensors on
+    a card, and nothing that reads a device value on the host (NG's
+    counters), a collective (a group), a per-call rate (`lr`), a
+    recompute (remat), loss scaling, masks given from outside, or a
+    generator that is not the card's."""
+    return (device.type == "cuda" and not ng and group is None
+            and not config.remat and not config.use_loss_scaling
+            and lr is None and spec_masks is None
+            and all(d == device for d in batch_devices)
+            and (generator is None
+                 or (generator.device.type == "cuda"
+                     and hasattr(torch.cuda.CUDAGraph,
+                                 "register_generator_state"))))
+
+
+def _copy_in(pairs) -> None:
+    """dst.copy_(src) for each (dst, src): tensors on dst's device in one
+    call; host arrays, for a card, through pinned memory, so that neither
+    waits on the device."""
+    near = [(d, s) for d, s in pairs if isinstance(s, torch.Tensor)
+            and s.device == d.device and s is not d]
+    if near:
+        torch._foreach_copy_([d for d, _ in near], [s for _, s in near])
+    for d, s in pairs:
+        if not (isinstance(s, torch.Tensor) and s.device == d.device):
+            src = torch.as_tensor(np.asarray(
+                s.cpu() if isinstance(s, torch.Tensor) else s)).to(d.dtype)
+            d.copy_(src.pin_memory() if d.is_cuda else src,
+                    non_blocking=d.is_cuda)
+
+
+class _Captured:
+    """One geometry's graph: its static inputs and outputs."""
+
+    def __init__(self, batch: dict, num: NumeratorGraphBatch, generator):
+        self.batch = batch
+        self.num = num
+        self.generator = generator
+        self.graph = None
+        self.outs = None        # _pack's static output buffers
+        self.launches = None    # [(holder, attribute, launches a call)]
+
+
+class _StepGraphs:
+    """The step's CUDA graphs (see the module docstring)."""
+
+    def __init__(self):
+        self.seen = {}          # geometry -> _Captured, or None: ran eagerly
+        self.pool = None
+        self.state = None       # static opt_state: {"velocity", "step"}
+        self.keys = None        # [(layer, name)] of the velocity leaves
+        self.skip = None        # the last replayed call's skip (static)
+        self.constraint = None  # the orthonormal constraint's graph
+        self.captures = self.replays = 0
+
+    @staticmethod
+    def key(batch: dict, num: NumeratorGraphBatch, left_context: int,
+            generator) -> tuple:
+        return (tuple((k, tuple(batch[k].shape), batch[k].dtype)
+                      for k in BATCH_KEYS if batch.get(k) is not None),
+                tuple(tuple(np.shape(getattr(num, f))) for f in _NUM_FIELDS),
+                num.num_states, num.num_arcs, left_context,
+                None if generator is None else id(generator),
+                network_module._BN_LOWP_STATS,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark,
+                torch.are_deterministic_algorithms_enabled(),
+                torch.get_float32_matmul_precision())
+
+    def load_state(self, opt_state: dict) -> None:
+        """Copy a foreign opt_state into the static one (nothing where it
+        is the static one)."""
+        if self.state is None:
+            vel = opt_state["velocity"]
+            self.keys = [(l, k) for l, p in vel.items() for k in p]
+            self.state = {"velocity": {l: {k: v.clone() for k, v in p.items()}
+                                       for l, p in vel.items()},
+                          "step": opt_state["step"].clone()}
+        else:
+            vel, mine = opt_state["velocity"], self.state["velocity"]
+            _copy_in([(mine[l][k], vel[l][k]) for l, k in self.keys]
+                     + [(self.state["step"], opt_state["step"])])
+
+    def returned_state(self) -> dict:
+        st = self.state
+        return {"velocity": {l: dict(p) for l, p in st["velocity"].items()},
+                "step": st["step"]}
+
+    def static_inputs(self, batch: dict, num: NumeratorGraphBatch,
+                      device, generator) -> _Captured:
+        """A geometry's static input buffers, filled from this call."""
+        sb = {k: batch[k].clone() for k in BATCH_KEYS
+              if batch.get(k) is not None}
+        fields = {f: torch.empty(np.shape(getattr(num, f)), device=device,
+                                 dtype=torch.int32 if f in INDEX_FIELDS
+                                 else torch.float32)
+                  for f in _NUM_FIELDS}
+        _copy_in([(fields[f], getattr(num, f)) for f in _NUM_FIELDS])
+        static_num = dataclasses.replace(num, **fields)
+        return _Captured(sb, static_num, generator)
+
+    def fill(self, cap: _Captured, batch: dict,
+             num: NumeratorGraphBatch) -> None:
+        _copy_in([(cap.batch[k], batch[k]) for k in cap.batch]
+                 + [(getattr(cap.num, f), getattr(num, f))
+                    for f in _NUM_FIELDS])
+
+    def capture(self, cap: _Captured, run) -> None:
+        """Capture run(static state, static batch, static numerator
+        graph) -> (new opt_state, outputs): its new opt_state is written
+        into the static one, its skip into `skip`, its outputs into flat
+        static buffers, one per dtype."""
+        if self.pool is None:
+            self.pool = _new_pool()
+            self.skip = torch.zeros((), dtype=torch.bool,
+                                    device=self.state["step"].device)
+        graph = _new_graph()
+        if cap.generator is not None:
+            graph.register_generator_state(cap.generator)
+
+        def body():
+            new_opt, out = run(self.state, cap.batch, cap.num)
+            torch._foreach_copy_(
+                [self.state["velocity"][l][k] for l, k in self.keys]
+                + [self.state["step"]],
+                [new_opt["velocity"][l][k] for l, k in self.keys]
+                + [new_opt["step"]])
+            self.skip.copy_(out.skipped)
+            return _pack(out)
+
+        before = [getattr(h, a) for h, a in _LAUNCH_COUNTERS]
+        cap.outs = _record(graph, self.pool, body)
+        cap.launches = [(h, a, getattr(h, a) - b) for (h, a), b
+                        in zip(_LAUNCH_COUNTERS, before) if getattr(h, a) != b]
+        cap.graph = graph
+
+    def replay(self, cap: _Captured, count: bool) -> dict:
+        """Replay a geometry's graph; returns its outputs, copied out of
+        the static buffers.  count: add its kernels' launches (the
+        capturing call counted its own)."""
+        cap.graph.replay()
+        if count:
+            for holder, attr, n in cap.launches:
+                setattr(holder, attr, getattr(holder, attr) + n)
+        outs = {}
+        for flat, fields in cap.outs:
+            vals = flat.clone()
+            for name, offset, shape in fields:
+                outs[name] = vals[offset:offset + int(np.prod(shape))
+                                  ].view(shape)
+        return outs
+
+    def constrain(self, run) -> None:
+        """run(skip): the orthonormal constraint on the step's parameters,
+        selected away where `skip`.  Its first call runs it eagerly and
+        captures it; later calls replay it."""
+        if self.constraint is None:
+            run(self.skip)
+            graph = _new_graph()
+            _record(graph, self.pool, lambda: run(self.skip))
+            self.constraint = graph
+        else:
+            self.constraint.replay()
+
+
+def _new_pool():
+    return torch.cuda.graph_pool_handle()
+
+
+def _new_graph():
+    return torch.cuda.CUDAGraph()
+
+
+def _record(graph, pool, body):
+    """Capture body() into `graph`, drawing from `pool`; returns what
+    body returned (its tensors are the graph's static outputs)."""
+    with torch.cuda.graph(graph, pool=pool):
+        return body()
+
+
+_OUTPUT_FIELDS = ("loss", "objf_per_frame", "num_logprob", "den_logprob",
+                  "xent_objf", "param_change_norm", "grad_norm", "skipped",
+                  "ok", "weight_frames")
+
+
+def _pack(out: "TrainStepOutput") -> list:
+    """The outputs that the graph computes, concatenated into one static
+    buffer per dtype: [(buffer, [(field, offset, shape)])]."""
+    groups: Dict[torch.dtype, list] = {}
+    for name in _OUTPUT_FIELDS:
+        t = getattr(out, name)
+        groups.setdefault(t.dtype, []).append((name, t))
+    packed = []
+    for members in groups.values():
+        fields, offset = [], 0
+        for name, t in members:
+            fields.append((name, offset, tuple(t.shape)))
+            offset += t.numel()
+        packed.append((torch.cat([t.detach().reshape(-1)
+                                  for _, t in members]), fields))
+    return packed
+
+
+class _MadeStep:
+    """A made train step: called as the step.  `blocking_reads` counts the
+    calls that waited on their own device values, `graph_captures` and
+    `graph_replays` the step's CUDA graphs.  The step's closures hold no
+    reference back to it, so dropping it frees its graphs' memory pool."""
+
+    def __init__(self, run, count: _StepCount, graphs: _StepGraphs):
+        self._run, self._count, self._graphs = run, count, graphs
+
+    def __call__(self, *args, **kwargs):
+        return self._run(*args, **kwargs)
+
+    @property
+    def blocking_reads(self) -> int:
+        return self._count.blocking_reads
+
+    @property
+    def graph_captures(self) -> int:
+        return self._graphs.captures
+
+    @property
+    def graph_replays(self) -> int:
+        return self._graphs.replays
 
 
 def make_train_step(model: Model, net: Network,
@@ -467,6 +758,8 @@ def make_train_step(model: Model, net: Network,
     ng_keys = [(s["name"], side) for s in sites for side in ("in", "out")]
     interval = max(config.orthonormal_interval, 1)
     count = _StepCount()
+    graphs = _StepGraphs()
+    step_num_graph = num_graph
 
     def step(opt_state, scale_state, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -474,11 +767,77 @@ def make_train_step(model: Model, net: Network,
              num_graph: Optional[NumeratorGraphBatch] = None,
              left_context: Optional[int] = None):
         with span("train_step"):
+            num = step_num_graph if num_graph is None else num_graph
+            feats = batch["features"]
+            if (_GRAPHS and num is not None and graph_eligible(
+                    feats.device, bool(sites), group, config, lr, spec_masks,
+                    generator, [batch[k].device for k in BATCH_KEYS
+                                if batch.get(k) is not None])):
+                lc = config.left_context if left_context is None \
+                    else left_context
+                key = _StepGraphs.key(batch, num, lc, generator)
+                if key in graphs.seen:
+                    return _graphed(key, opt_state, scale_state, batch,
+                                    generator, num, lc)
+                graphs.seen[key] = None
             return _step(opt_state, scale_state, batch, generator,
                          spec_masks, lr, num_graph, left_context)
 
+    def _graphed(key, opt_state, scale_state, batch, generator, num, lc):
+        """The call as a replay of its geometry's graph, captured on the
+        geometry's second call."""
+        if count.seed(opt_state["step"]):
+            count.blocking_reads += 1
+        cap = graphs.seen[key]
+        fresh = cap is None
+        if fresh:
+            graphs.load_state(opt_state)
+            cap = graphs.static_inputs(batch, num, batch["features"].device,
+                                       generator)
+            graphs.capture(cap, lambda st, b, g: _step(
+                st, scale_state, b, generator, None, None, g, lc,
+                graphed=True)[::2])
+            graphs.seen[key] = cap
+            graphs.captures += 1
+            # the graph's gradients stay its own: none is left on the
+            # parameters to alias what a replay rewrites
+            net.zero_grad(set_to_none=True)
+        with span("train_step.replay"):
+            if not fresh:
+                graphs.load_state(opt_state)
+                graphs.fill(cap, batch, num)
+            outs = graphs.replay(cap, count=not fresh)
+            graphs.replays += 1
+        with span("train_step.read"):
+            done = count.fold(graphs.skip)
+        if targets and (done + 1) % interval == 0:
+            graphs.constrain(constrain)
+        new_opt_state = graphs.returned_state()
+        count.returned = new_opt_state["step"]
+        return new_opt_state, scale_state, TrainStepOutput(
+            loss_scale=scale_state.scale, **outs)
+
+    @torch.no_grad()
+    def constrain(skip):
+        # Kaldi applies ConstrainOrthonormal after the parameter update; a
+        # skipped step keeps the old w (the skip is known on the device
+        # only)
+        params = net.params
+        for lname, pname, c in targets:
+            w = params[lname][pname]
+            d = sharded_dim(specs[lname][pname])
+            if d is None:
+                new_w = constrain_orthonormal(w, c)
+            else:
+                # a sharded target (prefinal small_w): constrained whole,
+                # then cut back to this rank's rows
+                (whole,) = gather_over([w], [d], ax.model)
+                new_w = model_slice(constrain_orthonormal(whole, c), d,
+                                    ax.model.rank, ax.model.world, lname)
+            w.copy_(torch.where(skip, w, new_w))
+
     def _step(opt_state, scale_state, batch, generator, spec_masks, lr,
-              num_graph, left_context):
+              num_graph, left_context, graphed=False):
         with span("train_step.forward"):
             if num_graph is not None:
                 objf_fn = make_chain_objf_with_post(num_graph, den, chain_opts)
@@ -580,20 +939,23 @@ def make_train_step(model: Model, net: Network,
             else:
                 new_scale_state, skip = scale_state, ~finite
 
-        with span("train_step.read"):
-            # this call's skip goes to the host without a wait; the last
-            # call's, folded in, makes the orthonormal flag exact
-            done, seeded = count.exchange(opt_state["step"], skip)
-            orth_due = bool(targets) and (done + 1) % interval == 0
-            if sites:
-                # NG's host branch needs this call's skip and counters now
-                flags = torch.stack(
-                    [skip.to(torch.int64)]
-                    + [opt_state["ng"][nm][side].t.to(torch.int64)
-                       for nm, side in ng_keys]).tolist()
-                skip_host, counters = bool(flags[0]), flags[1:]
-            if seeded or sites:
-                step.blocking_reads += 1
+        orth_due = False
+        if not graphed:     # a graph's caller reads the flags
+            with span("train_step.read"):
+                # this call's skip goes to the host without a wait; the
+                # last call's, folded in, makes the orthonormal flag exact
+                seeded = count.seed(opt_state["step"])
+                done = count.fold(skip)
+                orth_due = bool(targets) and (done + 1) % interval == 0
+                if sites:
+                    # NG's host branch needs this call's skip and counters
+                    flags = torch.stack(
+                        [skip.to(torch.int64)]
+                        + [opt_state["ng"][nm][side].t.to(torch.int64)
+                           for nm, side in ng_keys]).tolist()
+                    skip_host, counters = bool(flags[0]), flags[1:]
+                if seeded or sites:
+                    count.blocking_reads += 1
 
         new_ng = None
         if sites:
@@ -655,25 +1017,10 @@ def make_train_step(model: Model, net: Network,
                 for l, p in params.items():
                     for k, w in p.items():
                         w.copy_(new_params[l][k])
-                # Kaldi applies ConstrainOrthonormal after the parameter
-                # update; a skipped step keeps the old w (the skip is
-                # known on the device only)
-                if orth_due:
-                    for lname, pname, c in targets:
-                        w = params[lname][pname]
-                        d = sharded_dim(specs[lname][pname])
-                        if d is None:
-                            new_w = constrain_orthonormal(w, c)
-                        else:
-                            # a sharded target (prefinal small_w):
-                            # constrained whole, then cut back to this
-                            # rank's rows
-                            (whole,) = gather_over([w], [d], ax.model)
-                            new_w = model_slice(
-                                constrain_orthonormal(whole, c), d,
-                                ax.model.rank, ax.model.world, lname)
-                        w.copy_(torch.where(skip, w, new_w))
-            count.returned = new_opt_state["step"]
+            if orth_due:
+                constrain(skip)
+            if not graphed:
+                count.returned = new_opt_state["step"]
 
         return new_opt_state, new_scale_state, TrainStepOutput(
             loss=loss,
@@ -689,8 +1036,7 @@ def make_train_step(model: Model, net: Network,
             weight_frames=total_weight,
         )
 
-    step.blocking_reads = 0
-    return step
+    return _MadeStep(step, count, graphs)
 
 
 def init_ng_states(model: Model, config: TrainConfig, device) -> dict:

@@ -316,3 +316,56 @@ def test_blocking_reads_count_the_calls_that_wait_on_their_own_flags(
     for call in range(1, 4):
         opt, scale, _ = pstep(opt, scale, batch)
         assert pstep.blocking_reads == (call if natural_gradient else 1)
+
+
+_CARD = torch.device("cuda", 0)
+_ELIGIBLE = dict(device=_CARD, ng=False, group=None,
+                 config=port_ts.TrainConfig(), lr=None, spec_masks=None,
+                 generator=None, batch_devices=(_CARD, _CARD))
+
+
+@pytest.mark.parametrize("change", [
+    {}, {"ng": True}, {"group": object()},
+    {"config": port_ts.TrainConfig(remat=True)},
+    {"config": port_ts.TrainConfig(use_loss_scaling=True)}, {"lr": 1e-3},
+    {"spec_masks": {}}, {"device": torch.device("cpu")},
+    {"batch_devices": (_CARD, torch.device("cpu"))},
+    {"generator": torch.Generator()}], ids=[
+    "eligible", "ng", "group", "remat", "loss_scaling", "lr", "spec_masks",
+    "cpu", "batch_on_cpu", "cpu_generator"])
+def test_graph_engagement_rule(change):
+    """A call replays a graph only with its tensors on a card and nothing
+    that reads a device value on the host, runs a collective or changes
+    per call; each of these alone turns it off."""
+    assert port_ts.graph_eligible(**dict(_ELIGIBLE, **change)) == (not change)
+
+
+def test_cpu_steps_take_no_graph_and_are_unchanged():
+    """On the CPU no call captures or replays a graph, and the steps'
+    outputs, parameters and state equal those with graphs switched off,
+    bit for bit."""
+    runs = []
+    for graphs in (True, False):
+        _, _, pstep, net, np_batch, _ = _setup({})
+        batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
+        opt = init_sgd_state(net.params)
+        scale = init_loss_scale(1.0, device="cpu")
+        saved, port_ts._GRAPHS = port_ts._GRAPHS, graphs
+        try:
+            outs = []
+            for _ in range(5):
+                opt, scale, out = pstep(opt, scale, batch)
+                outs.append([t.clone() for t in out])
+        finally:
+            port_ts._GRAPHS = saved
+        assert pstep.graph_captures == pstep.graph_replays == 0
+        runs.append((outs, _snapshot(net, opt)))
+    (outs_a, (net_a, opt_a)), (outs_b, (net_b, opt_b)) = runs
+    for a, b in zip(outs_a, outs_b):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for k, v in net_a.items():
+        assert torch.equal(v, net_b[k]), k
+    assert torch.equal(opt_a["step"], opt_b["step"])
+    for l, p in opt_a["velocity"].items():
+        for k, v in p.items():
+            assert torch.equal(v, opt_b["velocity"][l][k]), (l, k)
