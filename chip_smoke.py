@@ -60,13 +60,16 @@ Phases, one line of numbers each:
                      --mode fast, --bn-lowp and both
  8c. lstmp           the fast-lstmp recurrence kernels (csrc/lstmp.cu) at
                      the benchmark's TDNN-LSTM layer (B = 64, 72 steps,
-                     C = 1024, R = 256) against the plain loop on the same
-                     card tensors, bf16 and fp32 operands, forward and
-                     backward, repeats bit-identical; the den at B = 64
-                     padded to the fused scans' tile against the loop den;
-                     3 TDNN-LSTM train steps (the
-                     benchmark's xconfig, B = 64, T_in = 222) launching the
-                     recurrence 6 times a step
+                     C = 1024, R = 256) and the reverse walk at the
+                     TDNN-BLSTM's (B = 64, 79 steps, from step 77)
+                     against the plain loop on the same card tensors,
+                     bf16 and fp32 operands, forward and backward,
+                     repeats bit-identical; the den at B = 64 padded to
+                     the fused scans' tile against the loop den; 3
+                     TDNN-LSTM train steps (the benchmark's xconfig, B =
+                     64, T_in = 222) launching the recurrence 6 times a
+                     step, and one TDNN-BLSTM step (T_in = 238) launching
+                     it 12 times, 6 of them reverse walks
   9. small           a narrow fp32 train step on the card against the CPU
  10. train           6 flagship train steps, loop scans
  11. train_fused     the same with the default den (fused scans)
@@ -424,6 +427,13 @@ LSTMP_XCONFIG = ROOT / "benchmark" / "configs" / "tdnn_lstm.xconfig"
 # the benchmark's tdnn_lstm.step chunk: 150 + 40 frames of left context +
 # the model's 21 / 11, 50 outputs, derivative margin 8
 LSTMP_T_IN, LSTMP_LEFT, LSTMP_T_OUT, LSTMP_MARGIN = 222, 61, 50, 8
+# the TDNN-BLSTM's first reverse recurrence (tests/test_torch_blstm.py's
+# `cell` case): 79 grid steps, the walk from step 77 down, its derivative
+# window, at the same bars; the benchmark's tdnn_blstm.step chunk: 150 +
+# 40 frames of context a side + the model's 4 / 4
+BLSTM_T, BLSTM_START, BLSTM_WINDOW = 79, 77, (10, 67)
+BLSTM_XCONFIG = ROOT / "benchmark" / "configs" / "tdnn_blstm.xconfig"
+BLSTM_T_IN, BLSTM_LEFT = 238, 44
 # fp32 card vs CPU: summation order only, through two SGD steps
 SMALL_RTOL = 1e-4
 # NG ranks of the small NG step: at the default ranks each narrow site
@@ -959,48 +969,57 @@ def numerator_phase(dev):
     return result
 
 
-def lstmp_steps(bf16):
-    """The phase's recurrence: from LSTMP_START, delay 1 step of 3 frames,
-    decay scale 0.85, Kaldi's clipping and zeroing, LSTMP_WINDOW."""
-    return LstmpSteps(start=LSTMP_START, delay=1, scale=0.85,
-                      deriv_lo=LSTMP_WINDOW[0], deriv_hi=LSTMP_WINDOW[1],
-                      recurrence_frames=3, frame0=-40, frame_step=3,
-                      bf16_ops=bf16)
+def lstmp_steps(bf16, reverse=False):
+    """The phase's recurrence: from LSTMP_START (reverse: down from
+    BLSTM_START), delay 1 step of 3 frames, decay scale 0.85, Kaldi's
+    clipping and zeroing, LSTMP_WINDOW (reverse: BLSTM_WINDOW)."""
+    start, (lo, hi), frame0 = ((BLSTM_START, BLSTM_WINDOW, -42) if reverse
+                               else (LSTMP_START, LSTMP_WINDOW, -40))
+    return LstmpSteps(start=start, delay=1, scale=0.85, deriv_lo=lo,
+                      deriv_hi=hi, recurrence_frames=3, frame0=frame0,
+                      frame_step=3, bf16_ops=bf16, reverse=reverse)
 
 
 def lstmp_phase(dev, graph):
     """The recurrence kernels against the plain loop at the TDNN-LSTM
-    cell's layer, the den's B = 64 route, and the TDNN-LSTM train step's
-    launches (see the phase list).  Returns the kernels line's numbers."""
-    B, T, C, R = LSTMP_B, LSTMP_T, LSTMP_C, LSTMP_R
+    cell's layer and the TDNN-BLSTM's reverse walk, the den's B = 64
+    route, and the TDNN-LSTM and TDNN-BLSTM train steps' launches (see the
+    phase list).  Returns the kernels line's numbers."""
+    B, C, R = LSTMP_B, LSTMP_C, LSTMP_R
     gen = torch.Generator(device=dev).manual_seed(7)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
-    leaves = [rnd(B, T, 4 * C), rnd(R, 4 * C, scale=R ** -0.5),
-              rnd(3, C, scale=0.3), rnd(C, R, scale=C ** -0.5),
-              rnd(R, scale=0.1)]
-    g_r, g_m = rnd(B, T, R, scale=LSTMP_GRAD), rnd(B, T, C, scale=LSTMP_GRAD)
-    lo, hi = LSTMP_WINDOW
 
-    def run(fn, steps):
+    def run(fn, steps, leaves, g_r, g_m):
         xs = [x.clone().requires_grad_(True) for x in leaves]
         r, m = fn(*xs, steps)
         torch.autograd.backward([r, m], [g_r, g_m])
         return [r.detach(), m.detach()] + [x.grad for x in xs]
 
-    result = {"B": B, "T": T, "C": C, "R": R}
+    result = {"B": B, "T": LSTMP_T, "T_reverse": BLSTM_T, "C": C, "R": R}
     names = ("r", "m", "dz", "dw_r", "dpeephole", "dw_rr", "db_r")
-    for bf16 in (True, False):
-        tag = "bf16" if bf16 else "fp32"
-        steps = lstmp_steps(bf16)
-        plain = run(lstmp_recurrence_plain, steps)
-        before = lstmp_recurrence.launches
-        kern = run(lstmp_recurrence, steps)
+    for reverse, bf16 in ((False, True), (False, False), (True, True),
+                          (True, False)):
+        T = BLSTM_T if reverse else LSTMP_T
+        leaves = [rnd(B, T, 4 * C), rnd(R, 4 * C, scale=R ** -0.5),
+                  rnd(3, C, scale=0.3), rnd(C, R, scale=C ** -0.5),
+                  rnd(R, scale=0.1)]
+        g = (rnd(B, T, R, scale=LSTMP_GRAD), rnd(B, T, C, scale=LSTMP_GRAD))
+        tag = ("rev_" if reverse else "") + ("bf16" if bf16 else "fp32")
+        steps = lstmp_steps(bf16, reverse)
+        lo, hi = steps.deriv_lo, steps.deriv_hi
+        plain = run(lstmp_recurrence_plain, steps, leaves, *g)
+        before = (lstmp_recurrence.launches,
+                  lstmp_recurrence.reverse_launches)
+        kern = run(lstmp_recurrence, steps, leaves, *g)
         torch.cuda.synchronize()
-        if lstmp_recurrence.launches - before != 2:
-            raise AssertionError("the recurrence did not launch once a pass")
-        again = run(lstmp_recurrence, steps)
+        if (lstmp_recurrence.launches - before[0],
+                lstmp_recurrence.reverse_launches - before[1]) != (
+                    2, 2 if reverse else 0):
+            raise AssertionError(f"the recurrence ({tag}) did not launch "
+                                 "once a pass")
+        again = run(lstmp_recurrence, steps, leaves, *g)
         if not all(torch.equal(a, b) for a, b in zip(kern, again)):
             raise AssertionError(f"lstmp kernel repeats differ ({tag})")
         gaps = {n: float((k - p).norm() / p.norm().clamp(min=1e-30))
@@ -1012,6 +1031,8 @@ def lstmp_phase(dev, graph):
             raise AssertionError(f"lstmp kernel vs plain ({tag}): {over}")
         if kern[2][:, :lo].abs().sum() or kern[2][:, hi + 1:].abs().sum():
             raise AssertionError("lstmp: a derivative outside the window")
+        if reverse and kern[0][:, steps.start + 1:].abs().sum():
+            raise AssertionError("lstmp: a reverse walk wrote past its start")
         result[f"rel_err_{tag}"] = gaps
         abs_err = [float((k - p).abs().max()) for k, p in zip(kern, plain)]
         result[f"max_abs_err_{tag}"] = {"fwd": max(abs_err[:2]),
@@ -1082,6 +1103,33 @@ def lstmp_phase(dev, graph):
                        "launches": lstmp_recurrence.launches,
                        "max_memory_allocated_bytes":
                            torch.cuda.max_memory_allocated()}
+    del net, opt, scale, step
+
+    # one TDNN-BLSTM train step: 12 launches, 6 of them reverse walks
+    model = build_model(str(BLSTM_XCONFIG))
+    config = dataclasses.replace(config, left_context=BLSTM_LEFT)
+    net, opt, scale = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), config, device=dev)
+    step = make_train_step(
+        model, net, den_f,
+        bench_num_graph(B, LSTMP_T_OUT, 2 * LSTMP_T_OUT, P, rng),
+        ChainTrainingOpts(), config, num_frames_out=LSTMP_T_OUT)
+    batch = dict(batch, features=torch.from_numpy(rng.normal(
+        size=(B, BLSTM_T_IN, 40)).astype(np.float32)).to(dev))
+    before = (lstmp_recurrence.launches, lstmp_recurrence.reverse_launches)
+    opt, scale, out = step(opt, scale, batch)
+    torch.cuda.synchronize()
+    got = (lstmp_recurrence.launches - before[0],
+           lstmp_recurrence.reverse_launches - before[1])
+    loss = float(out.loss)
+    if got != (12, 6) or not (np.isfinite(loss) and not bool(out.skipped)):
+        raise AssertionError(f"TDNN-BLSTM step: launches (all, reverse) "
+                             f"{got}, expected (12, 6); loss {loss}, "
+                             f"skipped {bool(out.skipped)}")
+    result["train_blstm"] = {"T_in": BLSTM_T_IN, "loss": loss,
+                             "launches": list(got),
+                             "max_memory_allocated_bytes":
+                                 torch.cuda.max_memory_allocated()}
     phase("lstmp", **result)
     return result
 
@@ -4322,6 +4370,13 @@ def main():
         entry("lstmp_bwd", "lstmp.cu", LSTMP_REPLACES,
               lstm["train"]["launches"] // 2,
               lstm["max_abs_err_bf16"]["bwd"]),
+        # the reverse walks: the lstmp phase's TDNN-BLSTM step
+        entry("lstmp_rev_fwd", "lstmp.cu", LSTMP_REPLACES,
+              lstm["train_blstm"]["launches"][1] // 2,
+              lstm["max_abs_err_rev_bf16"]["fwd"]),
+        entry("lstmp_rev_bwd", "lstmp.cu", LSTMP_REPLACES,
+              lstm["train_blstm"]["launches"][1] // 2,
+              lstm["max_abs_err_rev_bf16"]["bwd"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

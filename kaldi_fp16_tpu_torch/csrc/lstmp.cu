@@ -16,6 +16,13 @@
 // the weights once) bound one layer's forward at ~31 us; the chain of steps,
 // each two grid-wide barriers and two small products, sets the time.
 //
+// A reverse walk (Kaldi's delay > 0, the backward layer of a BLSTM) is
+// the same code with the direction a template parameter: its forward walks
+// t = start down to 0 and reads the state at t + D, its backward walks the
+// window up; the kernels are named apart (lstmp_rev_fwd_kernel,
+// lstmp_rev_bwd_kernel) so that a trace tells the directions apart.  The
+// frames are indexed in place: nothing is flipped.
+//
 // Design (right and simple first): one persistent cooperative grid (at
 // most one block an SM, cudaLaunchCooperativeKernel, so that every block is
 // resident) walks the steps; a grid barrier (an atomic counter) separates
@@ -197,8 +204,9 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS) lstmp_fwd_kernel(Fwd a) {
-  extern __shared__ __align__(16) float sm[];
+// The forward pass, walking up from a.start (REV: down from it).
+template <bool REV>
+__device__ __forceinline__ void fwd_walk(Fwd a, float* sm) {
   const int tid = threadIdx.x;
   const int B = a.B, T = a.T, C = a.C, R = a.R, G = 4 * a.C;
   const int RS = pitch4(R);
@@ -213,8 +221,9 @@ __global__ void __launch_bounds__(THREADS) lstmp_fwd_kernel(Fwd a) {
   unsigned target = 0;
   bool loaded = false;
 
-  for (int t = a.start; t < T; ++t) {
-    const bool has_prev = t - a.D >= a.start;
+  for (int t = a.start; REV ? t >= 0 : t < T; t += REV ? -1 : 1) {
+    const int src = REV ? t + a.D : t - a.D;   // the state step t reads
+    const bool has_prev = REV ? src <= a.start : src >= a.start;
     // 1. gates and cell at each unit tile
     for (int tile = blockIdx.x; tile < n_unit; tile += gridDim.x) {
       const int u0 = tile * UNITS;
@@ -231,7 +240,7 @@ __global__ void __launch_bounds__(THREADS) lstmp_fwd_kernel(Fwd a) {
         __syncthreads();
         copy_rows(rs, RS, BROWS, R, [&](int bb, int k) -> const float* {
           const int b = b0 + bb;
-          return (b < B && has_prev) ? a.r + ((size_t)b * T + t - a.D) * R + k
+          return (b < B && has_prev) ? a.r + ((size_t)b * T + src) * R + k
                                      : nullptr;
         });
         __syncthreads();
@@ -260,7 +269,7 @@ __global__ void __launch_bounds__(THREADS) lstmp_fwd_kernel(Fwd a) {
             const float ag = pre[bb * GCOLS + 2 * UNITS + uu] + zr[2 * C + u];
             const float ao = pre[bb * GCOLS + 3 * UNITS + uu] + zr[3 * C + u];
             const float cp =
-                has_prev ? a.s * a.c[((size_t)b * T + t - a.D) * C + u] : 0.0f;
+                has_prev ? a.s * a.c[((size_t)b * T + src) * C + u] : 0.0f;
             const float i = sigm(ai + a.peep[u] * cp);
             const float f = sigm(af + a.peep[C + u] * cp);
             const float g = tanhf(ag);
@@ -304,8 +313,20 @@ __global__ void __launch_bounds__(THREADS) lstmp_fwd_kernel(Fwd a) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS) lstmp_bwd_kernel(Bwd a) {
+__global__ void __launch_bounds__(THREADS) lstmp_fwd_kernel(Fwd a) {
   extern __shared__ __align__(16) float sm[];
+  fwd_walk<false>(a, sm);
+}
+
+__global__ void __launch_bounds__(THREADS) lstmp_rev_fwd_kernel(Fwd a) {
+  extern __shared__ __align__(16) float sm[];
+  fwd_walk<true>(a, sm);
+}
+
+// The backward pass over the window, against the forward's order: down
+// from a.hi (REV: up from a.lo).
+template <bool REV>
+__device__ __forceinline__ void bwd_walk(Bwd a, float* sm) {
   const int tid = threadIdx.x;
   const int B = a.B, T = a.T, C = a.C, R = a.R, G = 4 * a.C;
   const int RS = pitch4(R);
@@ -322,8 +343,10 @@ __global__ void __launch_bounds__(THREADS) lstmp_bwd_kernel(Bwd a) {
   unsigned target = 0;
   bool loaded = false;
 
-  for (int t = a.hi; t >= a.lo; --t) {
-    const bool has_prev = t - a.D >= a.start;
+  for (int t = REV ? a.lo : a.hi; REV ? t <= a.hi : t >= a.lo;
+       t += REV ? 1 : -1) {
+    const int src = REV ? t + a.D : t - a.D;   // the state step t read
+    const bool has_prev = REV ? src <= a.start : src >= a.start;
     // A. dr_t, dm and the cell's backward at each unit tile
     for (int tile = blockIdx.x; tile < n_unit; tile += gridDim.x) {
       const int u0 = tile * UNITS;
@@ -389,7 +412,7 @@ __global__ void __launch_bounds__(THREADS) lstmp_bwd_kernel(Bwd a) {
                       o = gr[3 * C + u];
           const float cc = a.c[row * C + u];
           const float cp =
-              has_prev ? a.s * a.c[((size_t)b * T + t - a.D) * C + u] : 0.0f;
+              has_prev ? a.s * a.c[((size_t)b * T + src) * C + u] : 0.0f;
           const float tc = tanhf(cc);
           const float dao = dm * tc * o * (1.0f - o);
           const float dct = fac[bb] * a.rc[row * C + u] +
@@ -403,19 +426,19 @@ __global__ void __launch_bounds__(THREADS) lstmp_bwd_kernel(Bwd a) {
           dzr[2 * C + u] = dag;
           dzr[3 * C + u] = dao;
           dcp = dct * f + dai * a.peep[u] + daf * a.peep[C + u];
-          if (has_prev) a.rc[((size_t)b * T + t - a.D) * C + u] = dcp;
+          if (has_prev) a.rc[((size_t)b * T + src) * C + u] = dcp;
         }
-        // the tile's part of row t - D's squared norm (8 lanes a sequence)
+        // the tile's part of row src's squared norm (8 lanes a sequence)
         float sq = dcp * dcp;
         sq += __shfl_xor_sync(0xffffffffu, sq, 4);
         sq += __shfl_xor_sync(0xffffffffu, sq, 2);
         sq += __shfl_xor_sync(0xffffffffu, sq, 1);
         if (uu == 0 && b < B && has_prev)
-          a.parts[((size_t)(t - a.D) * B + b) * NP + tile] = sq;
+          a.parts[((size_t)src * B + b) * NP + tile] = sq;
       }
     }
     grid_sync(a.bar, target);
-    // B. dr' = dz_t W_r^T into row t - D
+    // B. dr' = dz_t W_r^T into row src
     if (has_prev) {
       for (int tile = blockIdx.x; tile < n_row * n_col; tile += gridDim.x) {
         const int ct = tile % n_col;
@@ -438,15 +461,25 @@ __global__ void __launch_bounds__(THREADS) lstmp_bwd_kernel(Bwd a) {
         }
         const int b = b0 + row, n = c0 + col;
         float sq = (b < B && n < R) ? acc * acc : 0.0f;
-        if (b < B && n < R) a.rr[((size_t)b * T + t - a.D) * R + n] = acc;
+        if (b < B && n < R) a.rr[((size_t)b * T + src) * R + n] = acc;
         for (int off = 16; off > 0; off >>= 1)
           sq += __shfl_xor_sync(0xffffffffu, sq, off);
         if (col == 0 && b < B)
-          a.parts[((size_t)(t - a.D) * B + b) * NP + n_unit + ct] = sq;
+          a.parts[((size_t)src * B + b) * NP + n_unit + ct] = sq;
       }
     }
     grid_sync(a.bar, target);
   }
+}
+
+__global__ void __launch_bounds__(THREADS) lstmp_bwd_kernel(Bwd a) {
+  extern __shared__ __align__(16) float sm[];
+  bwd_walk<false>(a, sm);
+}
+
+__global__ void __launch_bounds__(THREADS) lstmp_rev_bwd_kernel(Bwd a) {
+  extern __shared__ __align__(16) float sm[];
+  bwd_walk<true>(a, sm);
 }
 
 size_t fwd_smem(int R) {
@@ -493,16 +526,17 @@ extern "C" int lstmp_forward(const float* z, const float* wr, const float* peep,
                              const float* wrr, const float* br, float* c,
                              float* m, float* r, float* gates, unsigned* bar,
                              int B, int T, int C, int R, int start, int D,
-                             float s, int bf16, cudaStream_t stream) {
+                             float s, int bf16, int reverse,
+                             cudaStream_t stream) {
   if (B < 1 || T < 1 || C < 1 || R < 1 || R > MAX_R || D < 1 || C % 4 ||
-      R % 4)
+      R % 4 || start < 0 || start >= T)
     return (int)cudaErrorInvalidValue;
   Fwd a{z, wr, peep, wrr, br, c, m, r, gates, bar,
         B, T, C, R, start, D, s, bf16};
   const int n_unit = (C + UNITS - 1) / UNITS;
   const int n_prod = ((B + RROWS - 1) / RROWS) * ((R + COLS - 1) / COLS);
-  return launch_coop(lstmp_fwd_kernel, a, fwd_smem(R),
-                     n_unit > n_prod ? n_unit : n_prod, stream);
+  return launch_coop(reverse ? lstmp_rev_fwd_kernel : lstmp_fwd_kernel, a,
+                     fwd_smem(R), n_unit > n_prod ? n_unit : n_prod, stream);
 }
 
 extern "C" int lstmp_backward(const float* gates, const float* c,
@@ -513,15 +547,15 @@ extern "C" int lstmp_backward(const float* gates, const float* c,
                               int B, int T, int C, int R, int start, int D,
                               int lo, int hi, float s, float clip, float zthr,
                               int zi, int rec, int frame0, int frame_step,
-                              cudaStream_t stream) {
+                              int reverse, cudaStream_t stream) {
   if (B < 1 || T < 1 || C < 1 || R < 1 || R > MAX_R || D < 1 || C % 4 ||
-      R % 4)
+      R % 4 || start < 0 || start >= T || lo < 0 || hi >= T)
     return (int)cudaErrorInvalidValue;
   Bwd a{gates, c,  wr, peep, wrr,   g_r, g_m, dz,   drt,  rc, rr,
         parts, bar, B,  T,    C,     R,   start, D, lo, hi, s, clip,
         zthr,  zi,  rec, frame0, frame_step};
   const int n_unit = (C + UNITS - 1) / UNITS;
   const int n_prod = ((B + RROWS - 1) / RROWS) * ((R + COLS - 1) / COLS);
-  return launch_coop(lstmp_bwd_kernel, a, bwd_smem(R),
-                     n_unit > n_prod ? n_unit : n_prod, stream);
+  return launch_coop(reverse ? lstmp_rev_bwd_kernel : lstmp_bwd_kernel, a,
+                     bwd_smem(R), n_unit > n_prod ? n_unit : n_prod, stream);
 }

@@ -205,7 +205,8 @@ class ReluRenormSpec:
 class FastLstmpSpec:
     """Kaldi fast-lstmp-layer: W_all over [x_t ; s r_{t+delay}] into the
     gates i, f, g, o, the peepholes w_ic, w_fc, w_oc, the cell and W_rp into
-    [r_t ; p_t]; the layer's output is [r_t ; p_t].  The recurrence's
+    [r_t ; p_t]; the layer's output is [r_t ; p_t].  A negative delay walks
+    forward in time, a positive one backward (a BLSTM's backward layer).  The recurrence's
     BackpropTruncationComponent scales c and r by `scale` both ways and, in
     the backward, clips each frame's [c ; r] derivative row to
     clipping_threshold and zeroes one above zeroing_threshold on the frames
@@ -470,9 +471,10 @@ def _resolve_one(cfg: LayerConfig, layer_map, layers, idx) -> Layer:
             zeroing_threshold=cfg.get_float("zeroing-threshold", 15.0),
             zeroing_interval=cfg.get_int("zeroing-interval", 20),
             l2_reg=cfg.get_float("l2-regularize"))
-        if spec.delay >= 0:
+        if spec.delay == 0:
             raise ValueError(f"fast-lstmp-layer {cfg.name}: delay must be "
-                             f"negative (a forward recurrence), got {spec.delay}")
+                             "nonzero (negative: a forward recurrence, "
+                             "positive: a reverse one)")
         if spec.scale <= 0:
             raise ValueError(f"fast-lstmp-layer {cfg.name}: decay-time must "
                              "exceed |delay|")

@@ -104,8 +104,8 @@ class Model:
         equivalent.)
 
         An Append's time offsets add their reach; a fast-lstmp layer adds
-        none (its recurrence reads the past only where it is defined,
-        Kaldi's IfDefined); the outputs' output-delay moves the context
+        none (its recurrence reads the past, or with a positive delay the
+        future, only where it is defined, Kaldi's IfDefined); the outputs' output-delay moves the context
         left, once (the largest delay)."""
         left = right = 0
         for l in self.layers:

@@ -6,15 +6,19 @@ combine-feature-maps, conv-relu-batchnorm (direct, cut-conv and patch
 lowerings), tdnnf, restricted attention (attention-relu-batchnorm),
 relu-batchnorm, prefinal and the output heads, and the natural-gradient
 sites (`ng_sites`, `NGContext`): every layer type the JAX package builds.
-Beside them the port runs Kaldi's TDNN-LSTM layers, which the JAX package
-has not: fixed-affine-layer (the LDA), relu-renorm-layer, fast-lstmp-layer
-(its recurrence in ops/lstmp.py) and the output layer's output-delay, and
-an Append's time offsets.
+Beside them the port runs Kaldi's TDNN-LSTM and TDNN-BLSTM layers, which
+the JAX package has not: fixed-affine-layer (the LDA), relu-renorm-layer,
+fast-lstmp-layer (its recurrence in ops/lstmp.py; a positive delay walks
+backward in time) and the output layer's output-delay, and an Append's
+time offsets.
 
 A recurrence starts at zero state at the first frame where its input is
 defined: frame 0 of the chunk plus the context the layers below it read
 to the left (Kaldi computes no frame whose inputs do not exist, and
-IfDefined reads a zero state before it).  Under an output-delay d the
+IfDefined reads a zero state before it).  A reverse recurrence starts at
+the last such frame: the chunk's last frame less the context the layers
+below it read to the right, so that it carries the chunk's right context
+into the supervised frames.  Under an output-delay d the
 layers below the delayed outputs run on the grid shifted by d: frames
 offset - d + k * stride (those inside the chunk), and the outputs read
 them there (zero where the shifted frame lies outside the chunk).  A
@@ -630,24 +634,31 @@ class _DerivWindow(torch.autograd.Function):
 
 def _fwd_fast_lstmp(spec: FastLstmpSpec, p: dict, x: torch.Tensor, dtype,
                     rate: int, frame0: int, defined: int,
-                    chunk: Optional[ChunkTimes]) -> torch.Tensor:
+                    chunk: Optional[ChunkTimes],
+                    defined_to: Optional[int] = None) -> torch.Tensor:
     """Kaldi's fast-lstmp layer over x [B, n, D_in], frames frame0 + j *
     rate: W_all's input rows applied to every frame in one matmul, the
     recurrence (ops/lstmp.py) from the first frame at or after `defined`,
-    where the input is defined, and W_rp's non-recurrent columns on m in
-    one matmul; the output is [r ; p]."""
+    where the input is defined (a positive delay: back from the last frame
+    at or before `defined_to`, None: the last of x), and W_rp's
+    non-recurrent columns on m in one matmul; the output is [r ; p]."""
     n = x.shape[1]
     din, R = spec.input_dim, spec.recurrent_dim
     origin = 0 if chunk is None else chunk.origin
     lo, hi = (0, n - 1) if chunk is None else chunk.steps(frame0, rate, n)
+    reverse = spec.delay > 0
+    if reverse:
+        start = n - 1 if defined_to is None else max(
+            -1, min(n - 1, (defined_to - frame0) // rate))
+    else:
+        start = min(n, max(0, -((frame0 - defined) // rate)))
     steps = LstmpSteps(
-        start=min(n, max(0, -((frame0 - defined) // rate))),
-        delay=-spec.delay // rate, scale=spec.scale, deriv_lo=lo,
-        deriv_hi=hi, clip=spec.clipping_threshold,
+        start=start, delay=abs(spec.delay) // rate, scale=spec.scale,
+        deriv_lo=lo, deriv_hi=hi, clip=spec.clipping_threshold,
         zero_threshold=spec.zeroing_threshold,
         zero_interval=spec.zeroing_interval,
-        recurrence_frames=-spec.delay, frame0=frame0 - origin,
-        frame_step=rate, bf16_ops=dtype == torch.bfloat16)
+        recurrence_frames=abs(spec.delay), frame0=frame0 - origin,
+        frame_step=rate, bf16_ops=dtype == torch.bfloat16, reverse=reverse)
     z = _matmul(x, p["w_all"][:din], dtype) + p["b_all"].float()
     r, m = lstmp_recurrence(z, p["w_all"][din:], p["peephole"],
                             p["w_rp"][:, :R], p["b_rp"][:R], steps)
@@ -1053,8 +1064,10 @@ class Network(nn.Module):
                        or chunk.deriv_hi is not None))
         if window and group is not None:
             raise NotImplementedError("a derivative window under a mesh")
-        # the first input frame at which each layer's output is defined
+        # the first and the last input frame at which each layer's output
+        # is defined
         defined: Dict[str, int] = {}
+        defined_to: Dict[str, int] = {}
 
         def get_input(layer: Layer, prev_name: Optional[str]) -> torch.Tensor:
             # cut convs consume full-rate input (the stride lives in their
@@ -1086,6 +1099,20 @@ class Network(nn.Module):
                 return lo_in + sp.output_delay
             return lo_in
 
+        def defined_until(layer: Layer, prev_name: Optional[str]) -> int:
+            hi_in = min(defined_to[n] - off
+                        for n, off in _sources(layer, prev_name))
+            t, sp = layer.type, layer.spec
+            if t == LayerType.CONV_RELU_BATCHNORM:
+                return hi_in - max(0, max(sp.time_offsets))
+            if t == LayerType.TDNNF:
+                return hi_in - sp.time_stride
+            if t == LayerType.ATTENTION_RELU_BATCHNORM:
+                return hi_in - sp.num_right_inputs * sp.time_stride
+            if t == LayerType.OUTPUT:
+                return hi_in + sp.output_delay
+            return hi_in
+
         prev_name: Optional[str] = None
         for layer in model.execution_order():
             t = layer.type
@@ -1102,11 +1129,14 @@ class Network(nn.Module):
                     acts[layer.name] = features.to(dtype)
                 defined[layer.name] = (-(1 << 30) if layer.name == "ivector"
                                        else 0)
+                defined_to[layer.name] = (1 << 30 if layer.name == "ivector"
+                                          else T - 1)
                 prev_name = layer.name
                 continue
 
             x = get_input(layer, prev_name)
             defined[layer.name] = defined_at(layer, prev_name)
+            defined_to[layer.name] = defined_until(layer, prev_name)
             p = params.get(layer.name, {})
             st = state.get(layer.name)
             tc = (grid_tc if layer.name in grid and layer.name not in cut
@@ -1153,9 +1183,11 @@ class Network(nn.Module):
                 if group is not None:
                     raise NotImplementedError("fast-lstmp layers under a mesh")
                 f0, rate = rate_of(layer.name)
-                with span("network.lstmp"):
+                with span("network.lstmp_reverse" if s.delay > 0
+                          else "network.lstmp"):
                     out = _fwd_fast_lstmp(s, p, x, dtype, rate, f0,
-                                          defined[layer.name], chunk)
+                                          defined[layer.name], chunk,
+                                          defined_to[layer.name])
             elif t == LayerType.RELU_BATCHNORM:
                 out = _matmul(x, p["w"], dtype) + p["b"].float()
                 out = _site(ng, f"{layer.name}/w", x, out, tc)

@@ -174,12 +174,12 @@ def library() -> ctypes.CDLL:
     lib.numerator_max_arcs.argtypes = []
     lib.numerator_max_arcs.restype = i
     # lstmp_forward(z, wr, peep, wrr, br, c, m, r, gates, bar,
-    #               B, T, C, R, start, D, s, bf16, stream)
-    lib.lstmp_forward.argtypes = [p] * 10 + [i] * 6 + [f, i, p]
+    #               B, T, C, R, start, D, s, bf16, reverse, stream)
+    lib.lstmp_forward.argtypes = [p] * 10 + [i] * 6 + [f, i, i, p]
     lib.lstmp_forward.restype = i
     # lstmp_backward(gates, c, wr, peep, wrr, g_r, g_m, dz, drt, rc, rr,
     #                parts, bar, B, T, C, R, start, D, lo, hi, s, clip, zthr,
-    #                zi, rec, frame0, frame_step, stream)
-    lib.lstmp_backward.argtypes = [p] * 13 + [i] * 8 + [f] * 3 + [i] * 4 + [p]
+    #                zi, rec, frame0, frame_step, reverse, stream)
+    lib.lstmp_backward.argtypes = [p] * 13 + [i] * 8 + [f] * 3 + [i] * 5 + [p]
     lib.lstmp_backward.restype = i
     return lib

@@ -13,10 +13,14 @@ j = steps.start .. T-1 (D = steps.delay steps apart; the state before
     r_j = m_j W_rr + b_r
 
 and returns (r [B, T, R], m [B, T, C]), both float32 and zero before
-`start`.  z [B, T, 4C] holds the gates' pre-activations from the layer's
-input (its product with W_all's input rows, one matmul over all frames,
-and W_all's bias), w_r [R, 4C] W_all's recurrent rows, peephole [3, C]
-(w_ic, w_fc, w_oc), w_rr [C, R] and b_r [R] the recurrent columns of W_rp.
+`start`.  A reverse walk (`steps.reverse`, Kaldi's delay > 0: the
+backward layer of a BLSTM) runs j = steps.start down to 0 and reads
+c_{j+D}, r_{j+D}, zero where j + D > start (IfDefined on the right);
+there r and m are zero after `start`.  z [B, T, 4C] holds the gates'
+pre-activations from the layer's input (its product with W_all's input
+rows, one matmul over all frames, and W_all's bias), w_r [R, 4C] W_all's
+recurrent rows, peephole [3, C] (w_ic, w_fc, w_oc), w_rr [C, R] and b_r
+[R] the recurrent columns of W_rp.
 The caller applies W_rp's other columns to m.
 
 With `steps.bf16_ops` the products take bf16 operands (r', m and the
@@ -30,16 +34,20 @@ one sequence, C + R values) to norm `clip` and zeroes a row whose norm
 exceeds `zero_threshold` where the frame crosses a multiple of
 `zero_interval`: Kaldi's rule for sequence n at time t (frames from the
 chunk's first supervised frame) is floor((t - n) / interval) !=
-floor((t - rec - n) / interval), rec the recurrence's delay in frames.  And
-every derivative at a step outside [deriv_lo, deriv_hi] is zero (nnet3's
-LimitDerivativeTimes, the trainer's deriv-truncate-margin).
+floor((t - rec - n) / interval), rec the recurrence's delay in frames, t
+the time of the row (the frame whose state it carries), in either
+direction.  And every derivative at a step outside [deriv_lo, deriv_hi] is
+zero (nnet3's LimitDerivativeTimes, the trainer's deriv-truncate-margin).
 
 A CUDA tensor goes through csrc/lstmp.cu: one launch for the forward
-(`lstmp_fwd_kernel`), one for the backward (`lstmp_bwd_kernel`), each a
-persistent cooperative grid that walks the steps with two grid barriers a
-step; it takes C and R multiples of 4.  The weights' gradients are then
-ordinary matmuls over all frames.
-`lstmp_recurrence.launches` counts the kernel's launches;
+(`lstmp_fwd_kernel`, a reverse walk `lstmp_rev_fwd_kernel`), one for the
+backward (`lstmp_bwd_kernel`, `lstmp_rev_bwd_kernel`), each a persistent
+cooperative grid that walks the steps with two grid barriers a step; it
+takes C and R multiples of 4.  The weights' gradients are then ordinary
+matmuls over all frames.
+`lstmp_recurrence.launches` counts the kernel's launches in both
+directions, `lstmp_recurrence.reverse_launches` those of reverse walks
+alone (the forward walks' are the difference);
 `lstmp_recurrence.tap`, where set, is called with each call's arguments
 (a benchmark reads the layer's inputs and steps through it).  A CPU tensor
 takes the plain loop `lstmp_recurrence_plain`, which autograd
@@ -64,7 +72,7 @@ MAX_RECURRENT = 512     # csrc/lstmp.cu: R past this does not fit a block
 class LstmpSteps:
     """Where a recurrence runs and how its backward is cut (steps are
     frames of the layer's rate; times are input frames)."""
-    start: int = 0                # first step with a state
+    start: int = 0                # first step with a state (reverse: last)
     delay: int = 1                # steps between a state and its use
     scale: float = 1.0            # 1 - |delay| / decay-time
     deriv_lo: int = 0             # steps whose derivatives are kept
@@ -76,10 +84,24 @@ class LstmpSteps:
     frame0: int = 0               # time of step 0 from the chunk's origin
     frame_step: int = 1           # frames a step
     bf16_ops: bool = True
+    reverse: bool = False         # walk down from `start`, reading j + delay
+
+    def walk(self, T: int) -> range:
+        """The steps with a state, in the forward pass's order."""
+        if self.reverse:
+            return range(min(self.start, T - 1), -1, -1)
+        return range(max(self.start, 0), T)
 
     def window(self, T: int) -> Tuple[int, int]:
         """(first, last) step the backward walks."""
+        if self.reverse:
+            return max(self.deriv_lo, 0), min(self.deriv_hi, self.start,
+                                                T - 1)
         return max(self.deriv_lo, self.start), min(self.deriv_hi, T - 1)
+
+    def source(self, t: int) -> int:
+        """The step whose state step t reads."""
+        return t + self.delay if self.reverse else t - self.delay
 
     def zero_rows(self, B: int, T: int, device) -> torch.Tensor:
         """[B, T] bool: the rows whose derivative may be zeroed."""
@@ -140,7 +162,6 @@ def lstmp_recurrence_plain(z, w_r, peephole, w_rr, b_r, steps: LstmpSteps):
     """The recurrence as a Python loop of torch ops (differentiable)."""
     B, T, G = z.shape
     C, R = G // 4, w_r.shape[0]
-    D = steps.delay
     bf = steps.bf16_ops
     z = z.float()
     wr = _operand(w_r.float(), bf)
@@ -148,15 +169,12 @@ def lstmp_recurrence_plain(z, w_r, peephole, w_rr, b_r, steps: LstmpSteps):
     peep = peephole.float()
     lo, hi = steps.window(T)
     zero_rows = steps.zero_rows(B, T, z.device)
-    cs, rs, r_out, m_out = {}, {}, [], []
+    cs, rs = {}, {}
     zc, zr = z.new_zeros((B, C)), z.new_zeros((B, R))
-    for t in range(T):
-        if t < steps.start:
-            r_out.append(zr)
-            m_out.append(zc)
-            continue
-        src = t - D
-        if src >= steps.start:
+    r_out, m_out = [zr] * T, [zc] * T
+    for t in steps.walk(T):
+        src = steps.source(t)
+        if src in cs:
             cr = _Truncate.apply(torch.cat([cs[src], rs[src]], -1),
                                  steps.scale, steps.clip,
                                  steps.zero_threshold, zero_rows[:, src])
@@ -174,8 +192,7 @@ def lstmp_recurrence_plain(z, w_r, peephole, w_rr, b_r, steps: LstmpSteps):
         if t < lo or t > hi:
             c, r, m = _NoDeriv.apply(c), _NoDeriv.apply(r), _NoDeriv.apply(m)
         cs[t], rs[t] = c, r
-        r_out.append(r)
-        m_out.append(m)
+        r_out[t], m_out[t] = r, m
     return torch.stack(r_out, 1), torch.stack(m_out, 1)
 
 
@@ -225,20 +242,28 @@ class _KernelRecurrence(torch.autograd.Function):
         # over every frame outside it, so they start at zero)
         gates = torch.empty((B, T, 4 * C), dtype=torch.float32, device=dev)
         bar = torch.zeros(1, dtype=torch.int32, device=dev)
-        if steps.start < T:
+        walk = steps.walk(T)
+        if len(walk):
             launch("lstmp_forward", dev, zf, wr, peep, wrr,
                    b_r.detach().float().contiguous(), c, m, r, gates, bar,
-                   B, T, C, R, steps.start, steps.delay, float(steps.scale),
-                   int(bf))
-            lstmp_recurrence.launches += 1
+                   B, T, C, R, walk[0], steps.delay, float(steps.scale),
+                   int(bf), int(steps.reverse))
+            _count(steps)
         ctx.steps = steps
         ctx.save_for_backward(wr, peep, wrr, c, m, r, gates)
         return r, m
 
     @staticmethod
     def backward(ctx, g_r, g_m):
-        with span("lstmp.backward"):
+        with span("lstmp_reverse.backward" if ctx.steps.reverse
+                  else "lstmp.backward"):
             return _kernel_backward(ctx, g_r, g_m)
+
+
+def _count(steps: LstmpSteps) -> None:
+    lstmp_recurrence.launches += 1
+    if steps.reverse:
+        lstmp_recurrence.reverse_launches += 1
 
 
 def _kernel_backward(ctx, g_r, g_m):
@@ -260,16 +285,20 @@ def _kernel_backward(ctx, g_r, g_m):
         parts = torch.zeros((T, B, n_parts), dtype=torch.float32, device=dev)
         bar = torch.zeros(1, dtype=torch.int32, device=dev)
         launch("lstmp_backward", dev, gates, c, wr, peep, wrr, g_r, g_m, dz,
-               drt, rc, rr, parts, bar, B, T, C, R, steps.start, D, lo, hi,
-               s, float(steps.clip), float(steps.zero_threshold),
+               drt, rc, rr, parts, bar, B, T, C, R, steps.walk(T)[0], D, lo,
+               hi, s, float(steps.clip), float(steps.zero_threshold),
                int(steps.zero_interval), int(steps.recurrence_frames),
-               int(steps.frame0), int(steps.frame_step))
-        lstmp_recurrence.launches += 1
+               int(steps.frame0), int(steps.frame_step), int(steps.reverse))
+        _count(steps)
     with fp32_matmuls():
-        # the weights' gradients: sums over every frame of the walk
+        # the weights' gradients: sums over every frame of the walk, with
+        # each step's scaled state (c and r are zero off the walk)
         prev_c = torch.zeros_like(c)
         prev_r = torch.zeros_like(r)
-        if steps.start + D < T:
+        if D < T and steps.reverse:
+            prev_c[:, :T - D] = s * c[:, D:]
+            prev_r[:, :T - D] = s * r[:, D:]
+        elif steps.start + D < T:
             prev_c[:, steps.start + D:] = s * c[:, steps.start:T - D]
             prev_r[:, steps.start + D:] = s * r[:, steps.start:T - D]
         if steps.bf16_ops:
@@ -300,4 +329,5 @@ def lstmp_recurrence(z, w_r, peephole, w_rr, b_r, steps: LstmpSteps):
 
 
 lstmp_recurrence.launches = 0
+lstmp_recurrence.reverse_launches = 0
 lstmp_recurrence.tap = None

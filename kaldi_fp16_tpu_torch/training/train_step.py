@@ -470,7 +470,8 @@ _GRAPHS = True
 # the kernels' launch counts, (holder, attribute): a replay adds what its
 # captured call added
 _LAUNCH_COUNTERS = (
-    (lstmp_recurrence, "launches"), (numerator_forward_backward, "launches"),
+    (lstmp_recurrence, "launches"), (lstmp_recurrence, "reverse_launches"),
+    (numerator_forward_backward, "launches"),
     (fused_forward, "launches"), (fused_forward, "launches_plane"),
     (fused_backward, "launches"), (fused_backward, "launches_plane"),
     (DenMatmul, "launches"), (DenMatmul, "launches_pre"),

@@ -16,8 +16,9 @@ On the CPU the graph API is replaced by a stand-in that records the
 step's body at capture and runs it at each replay, which holds the
 static buffers, the copy-in, the state handling and the constraint's
 schedule to the eager step.  On a card (`-m gpu`, jax-free: run with
-`--noconftest`) the real graphs run: a small CNN-TDNN-F and a small
-TDNN-LSTM (the recurrence's cooperative kernels).  chip_smoke.py's
+`--noconftest`) the real graphs run: a small CNN-TDNN-F, a small
+TDNN-LSTM (the recurrence's cooperative kernels) and a small TDNN-BLSTM
+(their reverse walks).  chip_smoke.py's
 `train_graph` phase runs `graph_vs_eager` at flagship width.
 """
 
@@ -75,6 +76,18 @@ relu-renorm-layer name=tdnn3 input=Append(-3,0,3) dim=32
 fast-lstmp-layer name=lstm2 cell-dim=32 recurrent-projection-dim=8 non-recurrent-projection-dim=8 delay=-3 decay-time=20
 output-layer name=output input=lstm2 output-delay=5 include-log-softmax=false dim=24
 output-layer name=output-xent input=lstm2 output-delay=5 dim=24
+"""
+
+# a narrow TDNN-BLSTM: one layer each way (the reverse walk's kernels)
+BLSTM_XCONFIG = """\
+input dim=10 name=ivector
+input dim=8 name=input
+fixed-affine-layer name=lda input=Append(-2,-1,0,1,2,ReplaceIndex(ivector, t, 0))
+relu-renorm-layer name=tdnn1 dim=32
+fast-lstmp-layer name=blstm1-forward cell-dim=32 recurrent-projection-dim=8 non-recurrent-projection-dim=8 delay=-3 decay-time=20
+fast-lstmp-layer name=blstm1-backward input=tdnn1 cell-dim=32 recurrent-projection-dim=8 non-recurrent-projection-dim=8 delay=3 decay-time=20
+output-layer name=output input=Append(blstm1-forward, blstm1-backward) include-log-softmax=false dim=24
+output-layer name=output-xent input=Append(blstm1-forward, blstm1-backward) dim=24
 """
 
 CALLS = 10          # calls 4 and 9 take the constraint (interval 4)
@@ -249,6 +262,16 @@ def test_recorded_graph_path_equals_the_eager_tdnn_lstm_step_on_the_cpu(
     assert counts["graph_captures"] == 1
 
 
+def test_recorded_graph_path_equals_the_eager_tdnn_blstm_step_on_the_cpu(
+        recorded_graphs):
+    cpu = torch.device("cpu")
+    calls = make_calls(cpu, 2, 48, 8, 24, 8, 10, 20)
+    counts = graph_vs_eager(build_model_from_string(BLSTM_XCONFIG),
+                            small_den(24, cpu), calls, cpu, 8, 20, margin=2,
+                            dtype="float32")
+    assert counts["graph_captures"] == 1
+
+
 # ---------------------------------------------------------------------------
 # The card
 # ---------------------------------------------------------------------------
@@ -277,3 +300,17 @@ def test_cuda_graph_tdnn_lstm_step_equals_the_eager_step():
     counts = graph_vs_eager(build_model_from_string(LSTM_XCONFIG),
                             small_den(24, dev), calls, dev, 8, 20, margin=2)
     assert counts["graph_captures"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_graph_tdnn_blstm_step_equals_the_eager_step():
+    """The replayed step counts the reverse walks' launches as the eager
+    step does: 4 a call, 2 of them reverse."""
+    from kaldi_fp16_tpu_torch.ops.lstmp import lstmp_recurrence
+    dev = _card()
+    calls = make_calls(dev, 64, 48, 8, 24, 8, 10, 20)
+    before = lstmp_recurrence.reverse_launches
+    counts = graph_vs_eager(build_model_from_string(BLSTM_XCONFIG),
+                            small_den(24, dev), calls, dev, 8, 20, margin=2)
+    assert counts["graph_captures"] == 1
+    assert lstmp_recurrence.reverse_launches - before == 2 * 2 * CALLS
